@@ -1,0 +1,97 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+These tests need an NVIDIA GPU and the CUDA toolkit; elsewhere they skip.
+On the card (no JAX needed)::
+
+    python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
+
+Small shapes; ``chip_smoke.py`` holds the kernels at the eval path's shapes.
+"""
+
+import math
+
+import pytest
+import torch
+
+from xview2_tpu_torch.ops import layout
+from xview2_tpu_torch.ops import packed_fused_conv as pfc
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture(autouse=True)
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+
+
+def _fold(c, gen):
+    return (torch.randn(c, generator=gen, device="cuda") * 0.5,
+            torch.rand(c, generator=gen, device="cuda") + 0.5,
+            torch.randn(c, generator=gen, device="cuda") * 0.5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int32])
+def test_relayout_bit_exact(dtype):
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = (torch.randn((3, 5, 33, 17), generator=gen, device="cuda") * 100).to(dtype)
+    for view in (x, x.permute(0, 2, 3, 1), x[:, 1:4, ::2], x[0]):
+        got = layout.relayout_cuda(view)
+        assert got.is_contiguous() and torch.equal(got, view)
+
+
+def test_relayout_gradient_runs_the_kernel():
+    x = torch.randn(2, 8, 8, 2, device="cuda", requires_grad=True)
+    before = layout.relayout_cuda.launches
+    (layout.relayout_standard(x) * 3).sum().backward()
+    assert layout.relayout_cuda.launches == before + 2
+    assert torch.equal(x.grad, torch.full_like(x, 3.0))
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2 ** -7), (torch.float32, 1e-5)])
+@pytest.mark.parametrize("has_fold", [False, True])
+@pytest.mark.parametrize("shape", [(2, 16, 16, 128, 128), (1, 24, 136, 384, 192),
+                                   (2, 9, 7, 32, 64)])
+def test_conv_bn_fused_matches_plain(shape, has_fold, dtype, tol, monkeypatch):
+    b, h, w, c, co = shape
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)  # full-f32 plain version
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    x = torch.randn((b, h, w, c), generator=gen, device="cuda").to(dtype)
+    k = (torch.randn((3, 3, c, co), generator=gen, device="cuda") / math.sqrt(9 * c)).to(dtype)
+    fold = _fold(c, gen)
+    out, s1, s2 = pfc.conv_bn_fused(x, k, fold, has_fold)
+    ref, r1, r2 = pfc.reference_conv_bn(x, k, fold if has_fold else None)
+    scale = ref.float().abs().max().item()
+    err = (out.float() - ref.float()).abs()
+    assert bool((err <= 2 * tol * ref.float().abs() + 1e-3 * scale).all()), err.max().item()
+    abs_sum = ref.float().abs().sum(dim=(0, 1, 2))
+    assert bool(((s1 - r1).abs() <= 1e-3 * abs_sum + 1e-4).all())
+    assert bool(((s2 - r2).abs() <= 1e-3 * r2 + 1e-4).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("co", [4, 8, 16])
+def test_head_conv_fused_matches_plain(co, dtype):
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    x = torch.randn((2, 16, 20, 128), generator=gen, device="cuda").to(dtype)
+    kmat = torch.randn((128, co), generator=gen, device="cuda") / math.sqrt(128)
+    hbias = torch.randn(co, generator=gen, device="cuda")
+    fold = _fold(128, gen)
+    got = pfc.head_conv_fused(x, kmat, hbias, fold).float()
+    want = pfc.reference_head(x, kmat, hbias, fold).float()
+    gemm = torch.matmul(pfc.prologue(x, fold), kmat.to(dtype)).float()
+    # one rounding after the GEMM (the bias may cancel its magnitude), one after the bias
+    tol = 2 * torch.finfo(dtype).eps * (gemm.abs() + want.abs()) + 1e-3 * want.abs().max()
+    assert bool(((got - want).abs() <= tol).all())
+
+
+def test_wrappers_raise_on_what_the_kernels_do_not_take():
+    x = torch.zeros((1, 16, 16, 100), device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        pfc.conv_bn_fused(x, torch.zeros((3, 3, 100, 64), device="cuda"), _fold(100, None), True)
+    with pytest.raises(ValueError):
+        pfc.conv_bn_fused(torch.zeros((1, 8, 8, 32), device="cuda", dtype=torch.float64),
+                          torch.zeros((3, 3, 32, 64), device="cuda"), None, False)
+    with pytest.raises(ValueError):
+        pfc.head_conv_fused(torch.zeros((1, 4, 4, 128), device="cuda").permute(0, 2, 1, 3),
+                            torch.zeros((128, 8)), torch.zeros(8), _fold(128, None))

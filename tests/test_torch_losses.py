@@ -1,0 +1,84 @@
+"""The port's eval-path losses, F1 state and input normalization against the
+JAX package on the same numpy inputs: focal, dice and ``make_loss_fn``
+(pre and post, label-255 masking, ``sample_valid``) at rtol 1e-5; F1 counts
+equal; ``normalize`` (RGB and ``--bgr``, 3 and 6 channels) at rtol 1e-6."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from xview2_tpu.ops import augment as jaug
+from xview2_tpu.ops import losses as jlosses
+from xview2_tpu.ops import metrics as jmetrics
+from xview2_tpu_torch.ops import augment, losses, metrics
+
+
+def _logits(n_class, seed=0, shape=(3, 16, 16)):
+    return np.random.default_rng(seed).normal(0, 2, size=shape + (n_class,)).astype(np.float32)
+
+
+def _labels(hi, seed=1, shape=(3, 16, 16)):
+    lab = np.random.default_rng(seed).integers(0, hi, size=shape).astype(np.int32)
+    lab[0, :2] = 255  # un-classified pixels
+    return lab
+
+
+@pytest.mark.parametrize("name", ["focal", "dice"])
+@pytest.mark.parametrize("n_class", [2, 4])
+def test_loss_terms_match_jax(name, n_class):
+    logits, labels = _logits(n_class), _labels(n_class)
+    mask = (np.random.default_rng(2).random(labels.shape) > 0.3).astype(np.float32)
+    for m in (None, mask):
+        want = getattr(jlosses, f"{name}_loss")(jnp.asarray(logits), jnp.asarray(labels),
+                                                None if m is None else jnp.asarray(m))
+        got = getattr(losses, f"{name}_loss")(torch.from_numpy(logits),
+                                              torch.from_numpy(labels).long(),
+                                              None if m is None else torch.from_numpy(m))
+        np.testing.assert_allclose(float(got), float(want), rtol=1e-5)
+
+
+@pytest.mark.parametrize("task,n_class", [("pre", 2), ("post", 4)])
+def test_make_loss_fn_matches_jax(task, n_class):
+    logits, labels = _logits(n_class, seed=3), _labels(5 if task == "post" else 2, seed=4)
+    valid = np.array([1.0, 1.0, 0.0], np.float32)
+    want = jlosses.make_loss_fn("focal+dice", task)(jnp.asarray(logits), jnp.asarray(labels),
+                                                    sample_valid=jnp.asarray(valid))
+    got = losses.make_loss_fn("focal+dice", task)(torch.from_numpy(logits),
+                                                  torch.from_numpy(labels),
+                                                  sample_valid=torch.from_numpy(valid))
+    np.testing.assert_allclose(float(got), float(want), rtol=1e-5)
+    with pytest.raises(NotImplementedError):
+        losses.make_loss_fn("ohem+dice", task)
+
+
+@pytest.mark.parametrize("n_class,loss_str,n_logit", [(2, "focal+dice", 2),
+                                                      (5, "focal+dice", 4), (5, "mse", 1),
+                                                      (5, "coral", 3)])
+def test_f1_state_matches_jax(n_class, loss_str, n_logit):
+    logits, targets = _logits(n_logit, seed=5), _labels(n_class, seed=6)
+    valid = np.array([1.0, 0.0, 1.0], np.float32)
+    want = jmetrics.update_f1_state(jmetrics.init_f1_state(n_class), jnp.asarray(logits),
+                                    jnp.asarray(targets), n_class=n_class, loss_str=loss_str,
+                                    sample_valid=jnp.asarray(valid))
+    got = metrics.update_f1_state(metrics.init_f1_state(n_class), torch.from_numpy(logits),
+                                  torch.from_numpy(targets), n_class=n_class,
+                                  loss_str=loss_str, sample_valid=torch.from_numpy(valid))
+    for name in ("tp", "fp", "fn"):
+        np.testing.assert_array_equal(getattr(got, name).numpy(),
+                                      np.asarray(getattr(want, name)))
+    f_want, pc_want = jmetrics.compute_f1(want, n_class)
+    f_got, pc_got = metrics.compute_f1(got, n_class)
+    np.testing.assert_array_equal(np.float32(f_got), np.float32(f_want))
+    if n_class == 5:
+        np.testing.assert_array_equal(pc_got, np.asarray(pc_want))
+
+
+@pytest.mark.parametrize("channels", [3, 6])
+@pytest.mark.parametrize("bgr", [False, True])
+def test_normalize_matches_jax(channels, bgr):
+    img = np.random.default_rng(7).integers(0, 256, (2, 8, 8, channels), np.uint8)
+    want = jaug.eval_batch(jnp.asarray(img), bgr=bgr)
+    got = augment.eval_batch(torch.from_numpy(img), bgr=bgr)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6, atol=1e-6)

@@ -1,0 +1,44 @@
+// Shared device helpers of the fused conv+BN and fused head kernels.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace xv {
+
+constexpr float kLeakySlope = 0.01f;
+
+// Round a float to the storage type T and back: the rounding that one
+// elementwise op in T does (PyTorch and JAX both compute a bf16 op in float
+// and round its result).
+__device__ __forceinline__ float round_to(float v, float) { return v; }
+__device__ __forceinline__ float round_to(float v, __nv_bfloat16) {
+  return __bfloat162float(__float2bfloat16(v));
+}
+template <typename T>
+__device__ __forceinline__ float rnd(float v) { return round_to(v, T()); }
+
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+template <typename T> __device__ __forceinline__ T from_float(float v);
+template <> __device__ __forceinline__ float from_float<float>(float v) { return v; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
+  return __float2bfloat16(v);
+}
+
+// The prologue of the JAX kernels, one rounding to T after each op:
+//   y = ((x - mean) * mul) + bias;  out = max(y, slope * y)
+// with mean/mul/bias/slope already rounded to T.  The _rn intrinsics keep
+// nvcc from contracting the sub/mul/add into an FMA, which would skip the
+// roundings the plain PyTorch version does.
+template <typename T>
+__device__ __forceinline__ float prologue(float v, float mean, float mul, float bias,
+                                          float slope) {
+  float y = rnd<T>(__fsub_rn(v, mean));
+  y = rnd<T>(__fmul_rn(y, mul));
+  y = rnd<T>(__fadd_rn(y, bias));
+  return fmaxf(y, rnd<T>(__fmul_rn(y, slope)));
+}
+
+}  // namespace xv

@@ -1,0 +1,384 @@
+"""Decoder building blocks of the xView2 U-Net, eval path (port of
+``xview2_tpu/models/layers.py``).
+
+Public tensors are NHWC, as in the JAX package; convolutions run on
+channels-last NCHW views of them (no copies).  Module and parameter names
+follow the flax variable tree, so ``weights.py`` maps one onto the other
+mechanically: a flax ``Conv_0/kernel`` is the torch ``Conv_0.weight``, a
+``BatchNorm_0/{scale,bias,mean,var}`` is ``BatchNorm_0.{weight,bias,
+running_mean,running_var}``.
+
+This slice is the eval path: BatchNorm always runs as the folded affine
+``(x - mean) * mul + bias`` with ``mul = rsqrt(var + eps) * scale`` from the
+running statistics (``--fold_eval_bn 1``), applied in the compute dtype from
+f32 fold vectors exactly like the JAX ``_norm_act``.  Under
+``fused_tail_scope`` the lane-full decoder ConvBlocks and the s2d-packed
+last stage run through the fused conv+BN kernels and the packed head
+through the fused head kernel (``ops/packed_fused_conv.py``).
+
+JAX counterparts merged here: ``_BNStats``/``_PackedBN``/``_PackedBNSums``
+share one variable tree and, at eval, one fold, so they are one class,
+:class:`BatchNorm`; ``_FusedConvLayer``/``_FusedPackedConvLayer`` are the
+``forward_fused`` methods of :class:`ConvLayer`/:class:`PackedConvLayer`.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import contextvars
+from typing import List, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from xview2_tpu_torch.ops.packed_fused_conv import (Fold, conv3x3_nhwc, conv_bn_fused,
+                                                    head_conv_fused, leaky_slope, stat_dtype,
+                                                    supported)
+
+BN_EPS = 1e-5
+
+
+def conv_nhwc(x: torch.Tensor, weight: torch.Tensor, stride: int = 1, padding: int = 0,
+              dilation: int = 1) -> torch.Tensor:
+    """NHWC conv with an OIHW weight, in ``x``'s dtype (library call)."""
+    out = F.conv2d(x.permute(0, 3, 1, 2), weight.to(x.dtype), stride=stride,
+                   padding=padding, dilation=dilation)
+    return out.permute(0, 2, 3, 1)
+
+
+def hwio(weight: torch.Tensor) -> torch.Tensor:
+    """OIHW torch conv weight -> the flax HWIO kernel."""
+    return weight.permute(2, 3, 1, 0)
+
+
+def norm_act(x: torch.Tensor, mean: torch.Tensor, mul: torch.Tensor, bias: torch.Tensor,
+             act: str) -> torch.Tensor:
+    """Folded BN affine in the compute dtype, then the activation (JAX
+    ``_norm_act``: each op rounds to x's dtype)."""
+    dt = x.dtype
+    y = (x - mean.to(dt)) * mul.to(dt) + bias.to(dt)
+    if act == "leaky":
+        return F.leaky_relu(y, leaky_slope(dt))
+    if act == "relu":
+        return F.relu(y)
+    return y
+
+
+class BatchNorm(nn.Module):
+    """Eval-mode BatchNorm as a fold, with ``nn.BatchNorm``'s variable tree.
+
+    ``fold(phases)`` returns the f32 ``(mean, mul, bias)`` vectors, tiled
+    ``phases`` times for s2d-packed maps (phase-major channels)."""
+
+    def __init__(self, features: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("running_mean", torch.zeros(features))
+        self.register_buffer("running_var", torch.ones(features))
+
+    def fold(self, phases: int = 1) -> Fold:
+        mul = torch.rsqrt(self.running_var + BN_EPS) * self.weight
+        vecs = (self.running_mean, mul, self.bias)
+        return tuple(v.repeat(phases) for v in vecs) if phases > 1 else vecs
+
+
+# ---------------------------------------------------------------------------
+# Fused decoder tail (JAX layers.py:251-331).  Under ``fused_tail_scope`` the
+# eligible decoder blocks route through the fused conv+BN kernel: each layer
+# reads the previous RAW conv output and applies its fold inline.  With
+# ``defer_head`` the packed chain's final fold is not applied at all: the
+# block returns a DeferredFold and the packed head consumes it through the
+# fused head kernel, so the activated map never exists in device memory.
+_FUSED_TAIL: contextvars.ContextVar = contextvars.ContextVar(
+    "xview2_torch_fused_tail", default=(False, None))
+
+
+class DeferredFold:
+    """A raw fused-chain conv output paired with its pending BN fold; any
+    consumer must unwrap it with :func:`consume_fold`."""
+
+    __slots__ = ("raw", "fold")
+
+    def __init__(self, raw: torch.Tensor, fold: Fold):
+        self.raw = raw
+        self.fold = fold
+
+
+def fused_tail_state():
+    return _FUSED_TAIL.get()
+
+
+def defer_fold(raw: torch.Tensor, fold: Fold) -> DeferredFold:
+    """Wrap a raw output + fold and track it for the unconsumed assertion."""
+    _, outstanding = fused_tail_state()
+    carrier = DeferredFold(raw, fold)
+    outstanding.append(carrier)
+    return carrier
+
+
+def consume_fold(x) -> Tuple[torch.Tensor, Optional[Fold]]:
+    """Unwrap a :class:`DeferredFold` (marking it consumed); identity on
+    plain tensors."""
+    if not isinstance(x, DeferredFold):
+        return x, None
+    _, outstanding = fused_tail_state()
+    if outstanding is not None and any(c is x for c in outstanding):
+        outstanding.remove(x)
+    return x.raw, x.fold
+
+
+@contextlib.contextmanager
+def fused_tail_scope(enabled: bool = True, defer_head: bool = False):
+    """Route the eligible decoder blocks through the fused kernels."""
+    outstanding: Optional[List[DeferredFold]] = [] if (enabled and defer_head) else None
+    tok = _FUSED_TAIL.set((enabled, outstanding))
+    try:
+        yield outstanding
+    finally:
+        _FUSED_TAIL.reset(tok)
+    if outstanding:
+        raise AssertionError(
+            "fused-tail deferred fold was never consumed by a packed head; "
+            "defer_head is only valid for single-branch packed-head variants")
+
+
+def _zero_fold(c: int, dtype: torch.dtype, device) -> Fold:
+    z = torch.zeros((c,), dtype=stat_dtype(dtype), device=device)
+    return z, z, z
+
+
+class ConvLayer(nn.Module):
+    """3x3 conv (no bias) + BN + LeakyReLU(0.01) (JAX ``ConvLayer``)."""
+
+    def __init__(self, in_features: int, features: int, dtype: torch.dtype):
+        super().__init__()
+        self.dtype = dtype
+        self.Conv_0 = nn.Conv2d(in_features, features, 3, padding=1, bias=False)
+        self.BatchNorm_0 = BatchNorm(features)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = conv_nhwc(x.to(self.dtype), self.Conv_0.weight, padding=1)
+        return norm_act(x, *self.BatchNorm_0.fold(), act="leaky")
+
+    def forward_fused(self, xprev: torch.Tensor, fold: Fold,
+                      has_fold: bool) -> Tuple[torch.Tensor, Fold]:
+        """JAX ``_FusedConvLayer``: RAW conv output + this layer's fold."""
+        out, _, _ = conv_bn_fused(xprev.to(self.dtype), hwio(self.Conv_0.weight).to(self.dtype),
+                                  fold, has_fold)
+        return out, self.BatchNorm_0.fold()
+
+
+class ConvBlock(nn.Module):
+    """Two stacked ConvLayers (JAX ``ConvBlock``).  Under
+    ``fused_tail_scope`` a lane-full block (dec_l2/dec_l3) runs both convs
+    through the fused kernel; only the final fold is an elementwise pass."""
+
+    def __init__(self, in_features: int, features: int, dtype: torch.dtype):
+        super().__init__()
+        self.features, self.dtype = features, dtype
+        self.conv1 = ConvLayer(in_features, features, dtype)
+        self.conv2 = ConvLayer(features, features, dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        fused, _ = fused_tail_state()
+        if fused:
+            it = torch.finfo(self.dtype).bits // 8
+            mid = (x.shape[0], x.shape[1], x.shape[2], self.features)
+            # both-or-nothing, as in JAX (dec_l1's conv1 weights exceed the budget)
+            if supported(tuple(x.shape), self.features, it) and \
+                    supported(mid, self.features, it):
+                zero = _zero_fold(x.shape[-1], self.dtype, x.device)
+                out1, fold1 = self.conv1.forward_fused(x, zero, False)
+                out2, fold2 = self.conv2.forward_fused(out1, fold1, True)
+                return norm_act(out2, *fold2, act="leaky")
+        return self.conv2(self.conv1(x))
+
+
+def _convt_matmul(x: torch.Tensor, weight: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """k2s2 transposed conv as one GEMM: (B, H, W, Cin) -> (B, H, W, 4*Cout)
+    with phase-major output channels ``(kh*2 + kw)*Cout + o``.  ``weight`` is
+    torch ConvTranspose2d's (Cin, Cout, 2, 2)."""
+    cin, cout = weight.shape[0], weight.shape[1]
+    kmat = weight.permute(0, 2, 3, 1).reshape(cin, 4 * cout).to(dtype)
+    return torch.matmul(x.to(dtype), kmat)
+
+
+class ConvTranspose(nn.Module):
+    """2x2 stride-2 transposed conv, no bias (JAX ``ConvTranspose``; the
+    flax kernel (kh, kw, out, in) is torch's (in, out, kh, kw), no flip)."""
+
+    def __init__(self, in_features: int, features: int, dtype: torch.dtype):
+        super().__init__()
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.empty(in_features, features, 2, 2))
+        nn.init.kaiming_uniform_(self.weight, a=5 ** 0.5)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, h, w, _ = x.shape
+        cout = self.weight.shape[1]
+        y = _convt_matmul(x, self.weight, self.dtype).reshape(b, h, w, 2, 2, cout)
+        return y.permute(0, 1, 3, 2, 4, 5).reshape(b, 2 * h, 2 * w, cout)
+
+
+class UpsampleBlock(nn.Module):
+    """Decoder stage: ConvTranspose, concat with the skip, ConvBlock (JAX
+    ``UpsampleBlock`` without attention or ``--dec_interp``).
+
+    ``packed_out``: the output stays s2d-packed (B, H, W, 4*features),
+    phase-major: the k2s2 transposed conv's four output phases ARE the s2d
+    phases, so the upsample is one dense GEMM and no interleave happens."""
+
+    def __init__(self, in_features: int, features: int, skip_channels: int,
+                 packed_out: bool, dtype: torch.dtype):
+        super().__init__()
+        if packed_out and skip_channels:
+            raise ValueError("the packed last stage has no skip connection")
+        self.skip_channels, self.packed_out = skip_channels, packed_out
+        self.conv_transpose = ConvTranspose(in_features, features, dtype)
+        if packed_out:
+            self.conv_block = PackedConvBlock(features, features, dtype)
+        else:
+            self.conv_block = ConvBlock(features + skip_channels, features, dtype)
+
+    def forward(self, x: torch.Tensor, skip: Optional[torch.Tensor] = None):
+        if self.packed_out:
+            ct = self.conv_transpose
+            return self.conv_block(_convt_matmul(x, ct.weight, ct.dtype))
+        out = self.conv_transpose(x)
+        if self.skip_channels:
+            out = torch.cat([out, skip], dim=-1)
+        return self.conv_block(out)
+
+
+# ---------------------------------------------------------------------------
+# Space-to-depth packed decoder tail (JAX layers.py:778-868): the last
+# decoder stage runs on 2x2 pixel blocks packed into channels, with the SAME
+# (3, 3, Ci, Co) parameters embedded as a structurally sparse packed kernel.
+
+def _phase_matrix() -> np.ndarray:
+    """M[u, a, d, h]: coarse offset u, in-phase a, out-phase d, fine tap h.
+    1 where fine offset 2(u-1)+a-d equals tap h-1 (all indices 0-based)."""
+    m = np.zeros((3, 2, 2, 3), np.float32)
+    for u in range(3):
+        for a in range(2):
+            for d in range(2):
+                delta = 2 * (u - 1) + a - d
+                if -1 <= delta <= 1:
+                    m[u, a, d, delta + 1] = 1.0
+    return m
+
+
+_PHASE = _phase_matrix()
+
+
+def s2d_conv_kernel(w: torch.Tensor) -> torch.Tensor:
+    """Embed a fine (3, 3, Ci, Co) HWIO kernel as the packed (3, 3, 4Ci, 4Co)
+    kernel computing the identical stride-1 SAME conv on s2d(2)-packed
+    activations (channel order phase-major ``[p, c]``)."""
+    ci, co = w.shape[2], w.shape[3]
+    ph = torch.as_tensor(_PHASE, dtype=w.dtype, device=w.device)
+    wp = torch.einsum("hwio,uadh,vbew->uvabideo", w, ph, ph)
+    return wp.reshape(3, 3, 4 * ci, 4 * co)
+
+
+def s2d_head_kernel(w: torch.Tensor, groups: int) -> torch.Tensor:
+    """Embed a fine 1x1 head kernel (1, 1, groups*C, n) as the packed
+    (1, 1, groups*4C, 4n) block-diagonal-over-phases kernel."""
+    fine_in, n = w.shape[2], w.shape[3]
+    c = fine_in // groups
+    w3 = w.reshape(groups, c, n)
+    eye = torch.eye(4, dtype=w.dtype, device=w.device)
+    wp = torch.einsum("gco,pq->gpcqo", w3, eye)
+    return wp.reshape(1, 1, groups * 4 * c, 4 * n)
+
+
+def depth_to_space(x: torch.Tensor) -> torch.Tensor:
+    """(B, H, W, 4n) phase-major packed -> (B, 2H, 2W, n) fine."""
+    b, h, w, p = x.shape
+    n = p // 4
+    x = x.reshape(b, h, w, 2, 2, n).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(b, 2 * h, 2 * w, n)
+
+
+class PackedConvLayer(nn.Module):
+    """ConvLayer on s2d-packed activations; variable tree of ``ConvLayer``."""
+
+    def __init__(self, in_features: int, features: int, dtype: torch.dtype):
+        super().__init__()
+        self.dtype = dtype
+        self.Conv_0 = nn.Conv2d(in_features, features, 3, padding=1, bias=False)
+        self.BatchNorm_0 = BatchNorm(features)
+
+    def packed_kernel(self) -> torch.Tensor:
+        return s2d_conv_kernel(hwio(self.Conv_0.weight)).to(self.dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = conv3x3_nhwc(x.to(self.dtype), self.packed_kernel())
+        return norm_act(x, *self.BatchNorm_0.fold(4), act="leaky")
+
+    def forward_fused(self, xprev: torch.Tensor, fold: Fold,
+                      has_fold: bool) -> Tuple[torch.Tensor, Fold]:
+        """JAX ``_FusedPackedConvLayer`` (groups=1)."""
+        out, _, _ = conv_bn_fused(xprev.to(self.dtype), self.packed_kernel(), fold, has_fold)
+        return out, self.BatchNorm_0.fold(4)
+
+
+class PackedConvBlock(nn.Module):
+    """Two stacked PackedConvLayers (variable tree of ``ConvBlock``)."""
+
+    def __init__(self, in_features: int, features: int, dtype: torch.dtype):
+        super().__init__()
+        self.features, self.dtype = features, dtype
+        self.conv1 = PackedConvLayer(in_features, features, dtype)
+        self.conv2 = PackedConvLayer(features, features, dtype)
+
+    def forward(self, x: torch.Tensor):
+        fused, outstanding = fused_tail_state()
+        if fused and supported(tuple(x.shape), 4 * self.features):
+            zero = _zero_fold(x.shape[-1], self.dtype, x.device)
+            out1, fold1 = self.conv1.forward_fused(x, zero, False)
+            out2, fold2 = self.conv2.forward_fused(out1, fold1, True)
+            if outstanding is not None:
+                return defer_fold(out2, fold2)
+            return norm_act(out2, *fold2, act="leaky")
+        return self.conv2(self.conv1(x))
+
+
+class PackedHead(nn.Module):
+    """1x1 output head in the packed domain (JAX ``_PackedHead``); the
+    parameters are the FINE head's.  With a deferred ``fold`` it runs as
+    the fused head kernel."""
+
+    def __init__(self, fine_in: int, head_n: int, dtype: torch.dtype):
+        super().__init__()
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.empty(head_n, fine_in, 1, 1))
+        self.bias = nn.Parameter(torch.zeros(head_n))
+        nn.init.kaiming_uniform_(self.weight, a=5 ** 0.5)
+
+    def forward(self, x: torch.Tensor, fold: Optional[Fold] = None) -> torch.Tensor:
+        wp = s2d_head_kernel(hwio(self.weight), 1).to(self.dtype)
+        kmat = wp.reshape(wp.shape[2], wp.shape[3])
+        if fold is not None:
+            return head_conv_fused(x.to(self.dtype), kmat, self.bias.repeat(4), fold)
+        out = torch.matmul(x.to(self.dtype), kmat)
+        return out + self.bias.repeat(4).to(out.dtype)
+
+
+class OutputBlock(nn.Module):
+    """Final head over the s2d-packed tail (JAX ``OutputBlock(packed_in=True)``,
+    eval mode): the packed 1x1 head, then depth-to-space of the logits."""
+
+    def __init__(self, n_class: int, fine_in: int, dtype: torch.dtype):
+        super().__init__()
+        if n_class == 3:
+            raise NotImplementedError("the CORAL head belongs to the damage variants "
+                                      "(ROADMAP Queue 1, damage variants)")
+        self.conv = PackedHead(fine_in, n_class, dtype)
+
+    def forward(self, x) -> torch.Tensor:
+        x, fold = consume_fold(x)
+        return depth_to_space(self.conv(x, fold=fold))

@@ -1,0 +1,143 @@
+"""The localization U-Net, eval path (port of ``xview2_tpu/models/unet.py``).
+
+``build_model(cfg)`` builds ``UNetLoc`` for ``--type pre`` with a ResNet
+encoder and the s2d-packed decoder tail feeding the packed head.  Inputs are
+NHWC ``(B, H, W, 3)``, logits NHWC ``(B, H, W, 2)``.  Module names follow
+the flax tree (``unet.enc_l1``, ``unet.dec_layers_4.conv_block.conv1.Conv_0``,
+``output_block.output_block.conv``).
+
+Not ported yet, each raising ``NotImplementedError`` that names its ROADMAP
+item: train mode, the damage variants, PPM/ASPP, attention, deep
+supervision, ``--dec_interp`` and ``--interpolate``.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional
+
+import torch
+import torch.nn as nn
+
+from xview2_tpu_torch.config import Config
+from xview2_tpu_torch.models.encoder import make_encoder_stages
+from xview2_tpu_torch.models.layers import OutputBlock, UpsampleBlock
+
+DECODER_CHANNELS = (512, 256, 128, 64, 32)  # reference unet.py:90
+
+
+def _unsupported(what: str, item: str):
+    return NotImplementedError(f"{what} is not ported to xview2_tpu_torch yet "
+                               f"(ROADMAP Queue 1, {item})")
+
+
+def check_supported(cfg: Config) -> None:
+    """Raise for every model option outside this slice of the port."""
+    if cfg.type != "pre":
+        raise _unsupported("--type post (the damage variants)", "damage variants")
+    if cfg.ppm or cfg.aspp:
+        raise _unsupported("--ppm/--aspp", "decoder options")
+    if cfg.attention:
+        raise _unsupported("--attention", "decoder options")
+    if cfg.deep_supervision:
+        raise _unsupported("--deep_supervision", "decoder options")
+    if cfg.interpolate or cfg.dec_interp:
+        raise _unsupported("--interpolate/--dec_interp", "decoder options")
+
+
+def make_decoder_stages(encf: List[int], dilation: int, no_skip: bool,
+                        dtype: torch.dtype) -> List[Optional[UpsampleBlock]]:
+    """The 5 decoder UpsampleBlocks with dilation-aware truncation (leading
+    ``None``s where dilation removes stages); the last stage is s2d-packed."""
+    decf = DECODER_CHANNELS
+    skips = [encf[-2], encf[-3], encf[-4], encf[-5], 0]
+    first = {1: 0, 2: 1, 4: 2}[dilation]
+    stages: List[Optional[UpsampleBlock]] = [None] * first
+    cin = encf[-1]
+    for i in range(first, 5):
+        skip = 0 if no_skip else skips[i]
+        stages.append(UpsampleBlock(cin, decf[i], skip, packed_out=i == 4, dtype=dtype))
+        cin = decf[i]
+    return stages
+
+
+def _run_decoder(dec_layers, dilation: int, no_skip: bool, encs):
+    """Shared decoder chain (reference ``UNetTemplate.forward``)."""
+    enc1, enc2, enc3, enc4, enc5 = encs
+    dec_l1, dec_l2, dec_l3, dec_l4, dec_l5 = dec_layers
+    if no_skip:
+        enc1 = enc2 = enc3 = enc4 = None
+    if dilation == 1:
+        dec3_in = dec_l2(dec_l1(enc5, enc4), enc3)
+    elif dilation == 2:
+        dec3_in = dec_l2(enc5, enc3)
+    else:
+        dec3_in = enc5
+    dec3 = dec_l3(dec3_in, enc2)
+    dec4 = dec_l4(dec3, enc1)
+    dec5 = dec_l5(dec4)
+    return dec5, dec4, dec3
+
+
+class UNetTemplate(nn.Module):
+    """Shared encoder + decoder; returns ``(dec5, dec4, dec3)``."""
+
+    def __init__(self, cfg: Config):
+        super().__init__()
+        self.cfg = cfg
+        dtype = cfg.compute_dtype
+        chans, stages = make_encoder_stages(cfg.encoder, cfg.dilation, cfg.in_channels, dtype)
+        self.enc_l1, self.enc_l2, self.enc_l3, self.enc_l4, self.enc_l5 = stages
+        self.dec_layers = make_decoder_stages(chans, cfg.dilation, cfg.no_skip, dtype)
+        for i, stage in enumerate(self.dec_layers):
+            if stage is not None:
+                self.add_module(f"dec_layers_{i}", stage)
+
+    def forward(self, data: torch.Tensor):
+        enc1 = self.enc_l1(data)
+        enc2 = self.enc_l2(enc1)
+        enc3 = self.enc_l3(enc2)
+        enc4 = self.enc_l4(enc3)
+        enc5 = self.enc_l5(enc4)
+        return _run_decoder(self.dec_layers, self.cfg.dilation, self.cfg.no_skip,
+                            (enc1, enc2, enc3, enc4, enc5))
+
+
+class OutputTemplate(nn.Module):
+    """Final head (reference unet.py:175-197); the deep-supervision heads
+    are not ported (see :func:`check_supported`)."""
+
+    def __init__(self, n_class: int, fine_in: int, dtype: torch.dtype):
+        super().__init__()
+        self.output_block = OutputBlock(n_class, fine_in, dtype)
+
+    def forward(self, dec5) -> torch.Tensor:
+        return self.output_block(dec5)
+
+
+class UNetLoc(nn.Module):
+    """Localization U-Net (reference unet.py:200-215), eval mode only."""
+
+    def __init__(self, cfg: Config, n_class: int = 2):
+        super().__init__()
+        check_supported(cfg)
+        self.unet = UNetTemplate(cfg)
+        self.output_block = OutputTemplate(n_class, DECODER_CHANNELS[-1], cfg.compute_dtype)
+
+    def forward(self, data: torch.Tensor, train: bool = False) -> torch.Tensor:
+        if train or self.training:
+            raise _unsupported("train mode", "train step")
+        dec5, _, _ = self.unet(data)
+        return self.output_block(dec5)
+
+
+def fused_head_defer_ok(cfg: Config) -> bool:
+    """The fused chain may defer dec5's final fold into the packed head: the
+    tail is packed unless the decoder is absent or interpolating."""
+    return not cfg.interpolate and not cfg.dec_interp
+
+
+def build_model(cfg: Config) -> nn.Module:
+    """Task-level model factory (reference plt.py:26); ``.eval()`` mode."""
+    if cfg.type != "pre":
+        raise _unsupported("--type post (the damage variants)", "damage variants")
+    return UNetLoc(cfg).eval()

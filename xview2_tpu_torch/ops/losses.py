@@ -1,0 +1,105 @@
+"""Segmentation losses of the eval path (port of ``focal_loss``,
+``dice_loss`` and ``make_loss_fn`` of ``xview2_tpu/ops/losses.py``).
+
+monai 0.4.0 numerics as in the JAX package: DiceLoss(softmax, to_onehot_y,
+batch=True, smooth 1e-5) and FocalLoss(gamma=2) with its mean-over-classes
+normalization; reductions are mask-weighted sums.  Logits are NHWC
+``(B, H, W, C)``, labels ``(B, H, W)`` integers.  The other loss terms (ce,
+ohem, mse, coral) are not ported yet (ROADMAP Queue 1, losses).
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import torch
+
+_SMOOTH_NR = 1e-5  # monai 0.4.0 DiceLoss defaults
+_SMOOTH_DR = 1e-5
+
+
+def _acc(logits: torch.Tensor) -> torch.Tensor:
+    """Upcast to the accumulation dtype: f32 floor, f64 kept."""
+    return logits.to(torch.promote_types(logits.dtype, torch.float32))
+
+
+def _ensure_mask(labels: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
+    if mask is None:
+        return torch.ones(labels.shape, dtype=torch.float32, device=labels.device)
+    return mask.to(torch.float32)
+
+
+def _one_hot(labels: torch.Tensor, n_class: int, dtype=torch.float32) -> torch.Tensor:
+    """``jax.nn.one_hot`` semantics: an out-of-range label is an all-zero row."""
+    classes = torch.arange(n_class, device=labels.device)
+    return (labels[..., None] == classes).to(dtype)
+
+
+def dice_loss(logits: torch.Tensor, labels: torch.Tensor,
+              mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Soft Dice over softmax probabilities; background excluded iff the
+    prediction has exactly 2 channels (reference loss.py:17-20)."""
+    n_class = logits.shape[-1]
+    w = _ensure_mask(labels, mask)
+    probs = torch.softmax(_acc(logits), dim=-1)
+    onehot = _one_hot(labels, n_class)
+    if n_class == 2:
+        probs = probs[..., 1:]
+        onehot = onehot[..., 1:]
+    w_ = w[..., None]
+    intersection = torch.sum(w_ * probs * onehot, dim=(0, 1, 2))
+    pred_o = torch.sum(w_ * probs, dim=(0, 1, 2))
+    ground_o = torch.sum(w_ * onehot, dim=(0, 1, 2))
+    f = 1.0 - (2.0 * intersection + _SMOOTH_NR) / (ground_o + pred_o + _SMOOTH_DR)
+    return torch.mean(f)
+
+
+def focal_loss(logits: torch.Tensor, labels: torch.Tensor,
+               mask: Optional[torch.Tensor] = None, gamma: float = 2.0) -> torch.Tensor:
+    """Multiclass focal loss, monai 0.4.0 normalization: the global pixel
+    mean of the true-class focal term divided by the number of classes."""
+    n_class = logits.shape[-1]
+    w = _ensure_mask(labels, mask)
+    logp = torch.log_softmax(_acc(logits), dim=-1)
+    onehot = _one_hot(labels.clamp(0, n_class - 1), n_class, logp.dtype)
+    logpt = torch.sum(logp * onehot, dim=-1)
+    pt = torch.exp(logpt)
+    per_pixel = -((1.0 - pt) ** gamma) * logpt
+    total = torch.sum(w * per_pixel)
+    count = torch.clamp(torch.sum(w), min=1.0)
+    return total / (count * n_class)
+
+
+_LOSS_FNS = {"dice": dice_loss, "focal": focal_loss}
+
+
+def make_loss_fn(loss_str: str, task_type: str) -> Callable[..., torch.Tensor]:
+    """The combined loss for ``--loss_str`` (reference loss.py:78-101).
+
+    For the post task supervision is restricted to building pixels with
+    labels shifted down by one, and label 255 (un-classified) is masked."""
+    terms = loss_str.split("+")
+    for t in terms:
+        if t not in _LOSS_FNS:
+            raise NotImplementedError(f"loss term {t!r} is not ported to xview2_tpu_torch yet "
+                                      "(ROADMAP Queue 1, losses)")
+    is_post = task_type == "post"
+
+    def loss_fn(logits: torch.Tensor, labels: torch.Tensor,
+                sample_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``sample_valid``: optional (B,) weights for padded eval batches."""
+        labels = labels.to(torch.int64)
+        mask = None
+        shifted = labels
+        if is_post:
+            mask = ((labels > 0) & (labels != 255)).to(torch.float32)
+            shifted = torch.clamp(labels - 1, min=0)
+        if sample_valid is not None:
+            sv = sample_valid.to(torch.float32)[:, None, None]
+            mask = sv * (mask if mask is not None else _ensure_mask(labels, None))
+        total = torch.zeros((), dtype=torch.float32, device=logits.device)
+        for t in terms:
+            total = total + _LOSS_FNS[t](logits, shifted, mask)
+        return total
+
+    return loss_fn
