@@ -3,8 +3,8 @@
 
 Run from the root of a checkout on a machine with one NVIDIA GPU::
 
-    python3 chip_smoke.py            # build, check, time, drive the eval CLI
-    python3 chip_smoke.py --profile  # also print a per-kernel profile of one eval step
+    python3 chip_smoke.py            # build, check, time, drive the eval and train CLIs
+    python3 chip_smoke.py --profile  # also print per-kernel profiles of one eval and one train step
 
 Phases, each of which fails the script (non-zero exit, no result line):
 
@@ -12,16 +12,22 @@ Phases, each of which fails the script (non-zero exit, no result line):
 2. build every CUDA kernel of the port from ``xview2_tpu_torch/csrc``, one
    ``nvcc`` per source in parallel;
 3. hold each kernel against its plain PyTorch version on the card, at the
-   shapes the eval path gives it, and time the kernel, the plain version
-   and one PyTorch library call computing the same function (the yardstick;
-   the port never calls it);
-4. the main path: a synthetic holdout of 8 tiles of 1024^2, a ResNet-50
+   shapes the eval path and the train path give it, and time the kernel, the
+   plain version and one PyTorch library call computing the same function
+   (the yardstick; the port never calls it);
+4. the eval main path: a synthetic holdout of 8 tiles of 1024^2, a ResNet-50
    UNetLoc made from a fixed seed saved as a port checkpoint, and
    ``xview2_tpu_torch.main.main([... --exec_mode eval ...])`` with 4-flip TTA
    and the fused decoder tail, with every launch counter set to 0 just
    before and read just after; then the eval step's steady-state rate and
    peak memory, and the fused path against the stock (cuDNN) path;
-5. one JSON line listing every kernel, then the ``nvidia-smi`` line, then
+5. the train main path: a synthetic train split of 32 tiles of 1024^2 and a
+   small validation split, ``main([... --exec_mode train --fused_tail 1
+   --batch_size 16 --epochs 1 ...])`` with the counters set to 0 just before
+   and read just after (two train steps, validation, checkpoints); then the
+   train step's steady state, fused tail against stock tail, and a small
+   float32 train step on the card against the same step on the CPU;
+6. one JSON line listing every kernel, then the ``nvidia-smi`` line, then
    ``{"ok": true, "device": {...}}`` as the last line.
 """
 
@@ -41,6 +47,10 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 TILE = 1024
 N_TILES = 8
 VAL_BATCH = 4
+TRAIN_TILES = 32   # two steps at batch 16
+TRAIN_BATCH = 16
+TRAIN_VAL_TILES = 4
+CROP = 512
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # dense tensor core bf16; f32 without TF32
 
@@ -104,8 +114,36 @@ def check_relayout():
             f"bound {b:.4f} ms ({by})")
         rows[tag] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain, library_ms=lib,
                          bound_ms=b, bound_by=by)
-    return rows["permuted"]
+    # the train step's three launches: the int32 labels and the bf16 logits
+    # in the packed loss view, and the logits' cotangent (same shape and type)
+    total = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
+    lab = torch.randint(0, 2, (TRAIN_BATCH, CROP // 2, 2 * CROP), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    logit = torch.randn((TRAIN_BATCH, CROP // 2, 2 * CROP, 2), generator=gen,
+                        device="cuda").to(torch.bfloat16)
+    for x, count in ((lab, 1), (logit, 2)):
+        got = layout.relayout_cuda(x)
+        torch.cuda.synchronize()
+        if not torch.equal(got, x):
+            raise AssertionError(f"relayout {tuple(x.shape)} {x.dtype}: not bit-exact")
+        total["ms"] += count * cuda_ms(lambda: layout.relayout_cuda(x), 20)
+        total["plain_ms"] += count * cuda_ms(lambda: layout.relayout_reference(x), 20)
+        total["library_ms"] += count * cuda_ms(lambda: x.clone(), 20)
+        total["bound_ms"] += count * bound_ms(2 * x.numel() * x.element_size(), 0.0, "float32")[0]
+    log(f"K1 relayout per train step (3 launches: labels {tuple(lab.shape)} int32, logits and "
+        f"cotangent {tuple(logit.shape)} bf16): bit-exact, kernel {total['ms']:.4f} ms, plain "
+        f"{total['plain_ms']:.4f} ms, library (clone) {total['library_ms']:.4f} ms, bound "
+        f"{total['bound_ms']:.4f} ms (bytes)")
+    return dict(rows["permuted"], **{f"train_{k}": v for k, v in total.items()})
 
+
+# (name, B, H, W, C, Co): the six fused convs of one train step at batch 16
+# on 512^2 crops; K4 and K5 run once behind each of them
+TRAIN_PATH = [
+    ("dec_l2.conv1", 16, 64, 64, 768, 256), ("dec_l2.conv2", 16, 64, 64, 256, 256),
+    ("dec_l3.conv1", 16, 128, 128, 384, 128), ("dec_l3.conv2", 16, 128, 128, 128, 128),
+    ("dec_l5.conv1", 16, 256, 256, 128, 128), ("dec_l5.conv2", 16, 256, 256, 128, 128),
+]
 
 # (name, B, H, W, C, Co): the six fused convs of one eval step at
 # --val_batch_size 4 with 4-flip TTA (16 images of 1024^2)
@@ -160,56 +198,186 @@ def check_conv_bn_fused():
 
     from xview2_tpu_torch.ops import packed_fused_conv as pfc
 
-    total = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
-    bound_by = set()
-    for i, (name, b, h, w, c, co) in enumerate(K2_PATH):
-        x, k, fold = _k2_case(b, h, w, c, co, torch.bfloat16, seed=10 + i)
-        has_fold = name.endswith("conv2")  # the path: conv1 takes the input as it is
-        f = fold if has_fold else None
-        for variant in ((fold, True), (fold, False)):
-            got = pfc.conv_bn_fused(x, k, *variant)
-            want = pfc.reference_conv_bn(x, k, variant[0] if variant[1] else None)
-            torch.cuda.synchronize()
-            err, rel = _compare_conv(got, want, f"{name} fold={variant[1]}")
-            total["max_abs_err"] = max(total["max_abs_err"], err)
-            log(f"K2 {name} {(b, h, w, c)}->{co} bf16 fold={variant[1]}: max abs err "
-                f"{err:.4g}, max rel err {rel:.4g}, tolerance 2*eps*|out| + 1e-3*max|out|")
-        a = pfc.prologue(x, f)
-        kc = k.permute(3, 2, 0, 1).contiguous()
-        ms = cuda_ms(lambda: pfc.conv_bn_fused(x, k, fold, has_fold), 3)
-        plain = cuda_ms(lambda: pfc.reference_conv_bn(x, k, f), 3)
-        lib = cuda_ms(lambda: F.conv2d(a.permute(0, 3, 1, 2), kc, padding=1), 3)
-        flops = 2.0 * b * h * w * 9 * c * co
-        nbytes = (b * h * w * (c + co) + 9 * c * co) * 2 + (3 * c + 2 * co) * 4
-        bnd, by = bound_ms(nbytes, flops, "bfloat16")
-        bound_by.add(by)
-        log(f"K2 {name} timing: kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain "
-            f"{plain:.3f} ms, library (cuDNN conv) {lib:.3f} ms, bound {bnd:.3f} ms ({by})")
-        total["ms"] += ms
-        total["plain_ms"] += plain
-        total["library_ms"] += lib
-        total["bound_ms"] += bnd
-        del x, a, k, fold
+    def run_path(path, tag, seed0):
+        """Both fold variants of every layer against the plain version, then
+        the path's variant timed; returns the sums over the path."""
+        total = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
+        bound_by = set()
+        for i, (name, b, h, w, c, co) in enumerate(path):
+            x, k, fold = _k2_case(b, h, w, c, co, torch.bfloat16, seed=seed0 + i)
+            has_fold = name.endswith("conv2")  # the path: conv1 takes the input as it is
+            f = fold if has_fold else None
+            for hf in (True, False):
+                got = pfc.conv_bn_fused(x, k, fold, hf)
+                want = pfc.reference_conv_bn(x, k, fold if hf else None)
+                torch.cuda.synchronize()
+                err, rel = _compare_conv(got, want, f"{tag} {name} fold={hf}")
+                total["max_abs_err"] = max(total["max_abs_err"], err)
+                log(f"K2 {tag} {name} {(b, h, w, c)}->{co} bf16 fold={hf}: max abs err "
+                    f"{err:.4g}, max rel err {rel:.4g}, tolerance 2*eps*|out| + 1e-3*max|out|")
+            a = pfc.prologue(x, f)
+            kc = k.permute(3, 2, 0, 1).contiguous()
+            ms = cuda_ms(lambda: pfc.conv_bn_fused(x, k, fold, has_fold), 3)
+            plain = cuda_ms(lambda: pfc.reference_conv_bn(x, k, f), 3)
+            lib = cuda_ms(lambda: F.conv2d(a.permute(0, 3, 1, 2), kc, padding=1), 3)
+            flops = 2.0 * b * h * w * 9 * c * co
+            nbytes = (b * h * w * (c + co) + 9 * c * co) * 2 + (3 * c + 2 * co) * 4
+            bnd, by = bound_ms(nbytes, flops, "bfloat16")
+            bound_by.add(by)
+            log(f"K2 {tag} {name} timing: kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s), "
+                f"plain {plain:.3f} ms, library (cuDNN conv) {lib:.3f} ms, bound {bnd:.3f} ms "
+                f"({by})")
+            total["ms"] += ms
+            total["plain_ms"] += plain
+            total["library_ms"] += lib
+            total["bound_ms"] += bnd
+            del x, a, k, fold
+        total["bound_by"] = "operations" if "operations" in bound_by else "bytes"
+        log(f"K2 per {tag} step (6 launches): kernel {total['ms']:.3f} ms, plain "
+            f"{total['plain_ms']:.3f} ms, library {total['library_ms']:.3f} ms, bound "
+            f"{total['bound_ms']:.3f} ms")
+        return total
+
+    total = run_path(K2_PATH, "eval", 10)
+    train = run_path(TRAIN_PATH, "train", 50)
+    total["max_abs_err"] = max(total["max_abs_err"], train.pop("max_abs_err"))
+    total.update({f"train_{k}": v for k, v in train.items() if k != "bound_by"})
     # one float32 case (--precision 32): the FMA kernel, no TF32
     x, k, fold = _k2_case(4, 256, 256, 128, 128, torch.float32, seed=30)
-    tf32 = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
-    try:
+    with pfc.full_precision():
         got = pfc.conv_bn_fused(x, k, fold, True)
         want = pfc.reference_conv_bn(x, k, fold)
         torch.cuda.synchronize()
         err, rel = _compare_conv(got, want, "f32 case")
         ms = cuda_ms(lambda: pfc.conv_bn_fused(x, k, fold, True), 3)
         plain = cuda_ms(lambda: pfc.reference_conv_bn(x, k, fold), 3)
-    finally:
-        torch.backends.cudnn.allow_tf32 = tf32
     log(f"K2 f32 (4, 256, 256, 128)->128 fold=True: max abs err {err:.4g}, max rel err "
         f"{rel:.4g}, kernel {ms:.3f} ms, plain {plain:.3f} ms (TF32 off)")
-    total["bound_by"] = "operations" if "operations" in bound_by else "bytes"
-    log(f"K2 per eval step (6 launches): kernel {total['ms']:.3f} ms, plain "
-        f"{total['plain_ms']:.3f} ms, library {total['library_ms']:.3f} ms, bound "
-        f"{total['bound_ms']:.3f} ms")
     return total
+
+
+def _bwd_case(b, h, w, c, co, dtype, seed):
+    import torch
+
+    x, k, fold = _k2_case(b, h, w, c, co, dtype, seed)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1000)
+    g = torch.randn((b, h, w, co), generator=gen, device="cuda").to(dtype)
+    return x, g, k, fold
+
+
+def _compare_wgrad(got, want, tag):
+    """dW stays float32 in the kernel and in the plain version: they differ
+    by the f32 order of the sums only (atomics across the pixel splits, whose
+    order changes from run to run): 1e-3 of max |dW|."""
+    err = (got - want).abs().max().item()
+    scale = want.abs().max().item()
+    if not err <= 1e-3 * scale:
+        raise AssertionError(f"{tag}: dW disagrees, max abs err {err:.4g} of {scale:.4g}")
+    return err, err / scale
+
+
+def _compare_dgrad(got, want, tag):
+    """dx within one rounding of its dtype plus 1e-3 of the scale; the fold
+    sums within 1e-3 * max(1, max |sum|) (f32 sums of up to a million terms
+    in another order, with atomics whose order changes from run to run)."""
+    import torch
+
+    dx, db, dm = got
+    rx, rb, rm = want
+    eps = torch.finfo(rx.dtype).eps
+    rf = rx.float()
+    scale = rf.abs().max().item()
+    err = (dx.float() - rf).abs()
+    if not bool((err <= 2 * eps * rf.abs() + 1e-3 * scale).all()):
+        raise AssertionError(f"{tag}: dx disagrees, max abs err {err.max().item():.4g}")
+    for name, a, r in (("dbias", db, rb), ("dmul", dm, rm)):
+        e = (a - r).abs().max().item()
+        if not e <= 1e-3 * max(1.0, r.abs().max().item()):
+            raise AssertionError(f"{tag}: {name} disagrees, max abs err {e:.4g} of "
+                                 f"{r.abs().max().item():.4g}")
+    return err.max().item()
+
+
+def check_conv_bn_backward():
+    """K4 (wgrad) and K5 (dgrad) at the six train-path shapes, fold on and
+    off, against their plain versions; times beside the plain version, one
+    library call each (``torch.nn.grad.conv2d_weight`` / ``conv2d_input`` on
+    the already activated bf16 input) and the bound."""
+    import torch
+
+    from xview2_tpu_torch.ops import packed_fused_conv as pfc
+
+    keys = ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms")
+    rows = {"conv_bn_wgrad": dict.fromkeys(keys, 0.0), "conv_bn_dgrad": dict.fromkeys(keys, 0.0)}
+    bound_by = {"conv_bn_wgrad": set(), "conv_bn_dgrad": set()}
+    for i, (name, b, h, w, c, co) in enumerate(TRAIN_PATH):
+        x, g, k, fold = _bwd_case(b, h, w, c, co, torch.bfloat16, seed=70 + i)
+        kf = pfc.flip_kernel(k)
+        has_fold = name.endswith("conv2")  # the path: conv1 takes the input as it is
+        for hf in (True, False):
+            f = fold if hf else None
+            e4, r4 = _compare_wgrad(pfc.conv_bn_wgrad(x, g, fold, hf),
+                                    pfc.reference_wgrad(x, g, f), f"K4 {name} fold={hf}")
+            e5 = _compare_dgrad(pfc.conv_bn_dgrad(g, kf, x, fold, hf),
+                                pfc.reference_dgrad(g, kf, x, f), f"K5 {name} fold={hf}")
+            torch.cuda.synchronize()
+            rows["conv_bn_wgrad"]["max_abs_err"] = max(rows["conv_bn_wgrad"]["max_abs_err"], e4)
+            rows["conv_bn_dgrad"]["max_abs_err"] = max(rows["conv_bn_dgrad"]["max_abs_err"], e5)
+            log(f"K4/K5 {name} {(b, h, w, c)}->{co} bf16 fold={hf}: dW max abs err {e4:.4g} "
+                f"({r4:.3g} of max|dW|, tolerance 1e-3), dx max abs err {e5:.4g} (tolerance "
+                f"2*eps*|dx| + 1e-3*max|dx|)")
+        f = fold if has_fold else None
+        a = pfc.prologue(x, f).permute(0, 3, 1, 2)
+        gc = g.permute(0, 3, 1, 2)
+        kc = k.permute(3, 2, 0, 1).contiguous()
+        flops = 2.0 * b * h * w * 9 * c * co
+        act = b * h * w * (c + co) * 2
+        times = {
+            "conv_bn_wgrad": (
+                cuda_ms(lambda: pfc.conv_bn_wgrad(x, g, fold, has_fold), 3),
+                cuda_ms(lambda: pfc.reference_wgrad(x, g, f), 2),
+                cuda_ms(lambda: torch.nn.grad.conv2d_weight(a, kc.shape, gc, padding=1), 3),
+                bound_ms(act + 9 * c * co * 4 + 3 * c * 4, flops, "bfloat16")),
+            "conv_bn_dgrad": (
+                cuda_ms(lambda: pfc.conv_bn_dgrad(g, kf, x, fold, has_fold), 3),
+                cuda_ms(lambda: pfc.reference_dgrad(g, kf, x, f), 2),
+                cuda_ms(lambda: torch.nn.grad.conv2d_input(a.shape, kc, gc, padding=1), 3),
+                bound_ms(act + (b * h * w * c + 9 * c * co) * 2 + 5 * c * 4, flops, "bfloat16")),
+        }
+        for kern, (ms, plain, lib, (bnd, by)) in times.items():
+            r = rows[kern]
+            r["ms"] += ms
+            r["plain_ms"] += plain
+            r["library_ms"] += lib
+            r["bound_ms"] += bnd
+            bound_by[kern].add(by)
+            log(f"{'K4' if kern.endswith('wgrad') else 'K5'} {name} timing: kernel {ms:.3f} ms "
+                f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain:.3f} ms, library (cuDNN "
+                f"{'wgrad' if kern.endswith('wgrad') else 'dgrad'}) {lib:.3f} ms, bound "
+                f"{bnd:.3f} ms ({by})")
+        del x, g, k, kf, fold, a, gc, kc
+        torch.cuda.empty_cache()
+    # one float32 case each (--precision 32): the FMA kernels, TF32 off in the
+    # plain versions (they turn it off themselves)
+    x, g, k, fold = _bwd_case(4, 128, 128, 128, 128, torch.float32, seed=90)
+    kf = pfc.flip_kernel(k)
+    e4, r4 = _compare_wgrad(pfc.conv_bn_wgrad(x, g, fold, True), pfc.reference_wgrad(x, g, fold),
+                            "K4 f32 case")
+    e5 = _compare_dgrad(pfc.conv_bn_dgrad(g, kf, x, fold, True),
+                        pfc.reference_dgrad(g, kf, x, fold), "K5 f32 case")
+    ms4 = cuda_ms(lambda: pfc.conv_bn_wgrad(x, g, fold, True), 3)
+    ms5 = cuda_ms(lambda: pfc.conv_bn_dgrad(g, kf, x, fold, True), 3)
+    p4 = cuda_ms(lambda: pfc.reference_wgrad(x, g, fold), 3)
+    p5 = cuda_ms(lambda: pfc.reference_dgrad(g, kf, x, fold), 3)
+    log(f"K4/K5 f32 (4, 128, 128, 128)->128 fold=True (TF32 off): dW max abs err {e4:.4g} "
+        f"({r4:.3g} of max|dW|), dx max abs err {e5:.4g}; wgrad kernel {ms4:.3f} ms, plain "
+        f"{p4:.3f} ms; dgrad kernel {ms5:.3f} ms, plain {p5:.3f} ms")
+    for kern, r in rows.items():
+        r["bound_by"] = "operations" if "operations" in bound_by[kern] else "bytes"
+        log(f"{'K4' if kern.endswith('wgrad') else 'K5'} per train step (6 launches): kernel "
+            f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, library {r['library_ms']:.3f} ms, "
+            f"bound {r['bound_ms']:.3f} ms")
+    return rows
 
 
 def check_head_conv_fused():
@@ -249,8 +417,30 @@ def check_head_conv_fused():
         f"{rel:.4g} (of max(|gemm|, |out|)), tolerance "
         f"2*eps*(|gemm| + |out|) + 1e-3*max|out|; kernel {ms:.3f} ms, plain {plain:.3f} ms, library "
         f"(matmul) {lib:.3f} ms, bound {bnd:.3f} ms ({by})")
-    return dict(max_abs_err=err.max().item(), ms=ms, plain_ms=plain, library_ms=lib,
-                bound_ms=bnd, bound_by=by)
+    row = dict(max_abs_err=err.max().item(), ms=ms, plain_ms=plain, library_ms=lib,
+               bound_ms=bnd, bound_by=by)
+    # the train step's launch: the packed dec_l5 map of batch 16 of 512^2
+    xt = x[:, :CROP // 2, :CROP // 2].contiguous()
+    at = pfc.prologue(xt, fold)
+    got, want = pfc.head_conv_fused(xt, kmat, hbias, fold), pfc.reference_head(xt, kmat, hbias, fold)
+    torch.cuda.synchronize()
+    gemm = torch.matmul(at, kb).float()
+    errt = (got.float() - want.float()).abs()
+    if not bool((errt <= 2 * torch.finfo(torch.bfloat16).eps * (gemm.abs() + want.float().abs())
+                 + 1e-3 * want.float().abs().max()).all()):
+        raise AssertionError(f"head_conv_fused (train shape) disagrees: {errt.max().item():.4g}")
+    row["max_abs_err"] = max(row["max_abs_err"], errt.max().item())
+    row["train_ms"] = cuda_ms(lambda: pfc.head_conv_fused(xt, kmat, hbias, fold), 10)
+    row["train_plain_ms"] = cuda_ms(lambda: pfc.reference_head(xt, kmat, hbias, fold), 10)
+    row["train_library_ms"] = cuda_ms(lambda: torch.matmul(at, kb), 10)
+    row["train_bound_ms"] = bound_ms(xt.numel() * 2 + xt.numel() // c * co * 2
+                                     + (c * co + co + 3 * c) * 4,
+                                     2.0 * xt.numel() * co, "bfloat16")[0]
+    log(f"K3 head per train step {tuple(xt.shape)}->{co} bf16: max abs err "
+        f"{errt.max().item():.4g}; kernel {row['train_ms']:.3f} ms, plain "
+        f"{row['train_plain_ms']:.3f} ms, library (matmul) {row['train_library_ms']:.3f} ms, "
+        f"bound {row['train_bound_ms']:.3f} ms (bytes)")
+    return row
 
 
 # --------------------------------------------------------------- main path
@@ -279,14 +469,36 @@ def seeded_model(cfg, seed: int):
     return model
 
 
-def run_main_path(work: str, profile: bool):
+def _counters():
+    from xview2_tpu_torch.ops import layout
+    from xview2_tpu_torch.ops import packed_fused_conv as pfc
+
+    return (layout.relayout_cuda, pfc.conv_bn_fused, pfc.head_conv_fused, pfc.conv_bn_wgrad,
+            pfc.conv_bn_dgrad)
+
+
+def _zero_counters() -> None:
+    for fn in _counters():
+        fn.launches = 0
+
+
+def _read_counters() -> dict:
+    return {fn.__name__: fn.launches for fn in _counters()}
+
+
+def _need_launches(launches: dict, need: dict, path: str) -> None:
+    for k, n in need.items():
+        if launches[k] < n:
+            raise AssertionError(f"{k} launched {launches[k]} times on the {path} main path, "
+                                 f"expected >= {n}")
+
+
+def run_eval_path(work: str, profile: bool):
     import torch
 
     from xview2_tpu_torch.config import Config
     from xview2_tpu_torch.data.synthetic import make_synthetic_split
     from xview2_tpu_torch.main import main as port_main
-    from xview2_tpu_torch.ops import layout
-    from xview2_tpu_torch.ops import packed_fused_conv as pfc
     from xview2_tpu_torch.ops.metrics import init_f1_state
     from xview2_tpu_torch.parallel import checkpoint as ckpt_lib
     from xview2_tpu_torch.parallel.steps import make_eval_step
@@ -307,15 +519,13 @@ def run_main_path(work: str, profile: bool):
     argv = ["--exec_mode", "eval", "--type", "pre", "--data", work, "--results", results,
             "--ckpt", ckpt, "--val_batch_size", str(VAL_BATCH), "--num_workers", "8",
             "--eval_tta", "on", "--eval_fused_tail", "on"]
-    counters = (layout.relayout_cuda, pfc.conv_bn_fused, pfc.head_conv_fused)
-    for fn in counters:
-        fn.launches = 0
+    _zero_counters()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     rc = port_main(argv, device="cuda")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {fn.__name__: fn.launches for fn in counters}
+    launches = _read_counters()
     if rc != 0:
         raise AssertionError(f"main returned {rc}")
     log(f"main path: main(--exec_mode eval, {N_TILES} tiles) {wall:.2f} s end to end "
@@ -339,11 +549,8 @@ def run_main_path(work: str, profile: bool):
     if not math.isfinite(metrics["f1"]):
         raise AssertionError(f"F1 is not finite: {metrics}")
     steps = N_TILES // VAL_BATCH
-    need = {"relayout_cuda": steps, "conv_bn_fused": 6 * steps, "head_conv_fused": steps}
-    for k, n in need.items():
-        if launches[k] < n:
-            raise AssertionError(f"{k} launched {launches[k]} times on the main path, "
-                                 f"expected >= {n}")
+    _need_launches(launches, {"relayout_cuda": steps, "conv_bn_fused": 6 * steps,
+                              "head_conv_fused": steps}, "eval")
     log(f"main path outputs: {len(probs)} probs, {len(targets)} targets, metrics {metrics}")
 
     # steady state of the eval step on a device-resident batch, and the fused
@@ -376,9 +583,185 @@ def run_main_path(work: str, profile: bool):
 
     if profile:
         for fused in (False, True):
-            profile_step(make_eval_step(cfg.replace(fused_tail=fused), model, device="cuda"),
-                         (images, masks, valid), "fused tail" if fused else "stock tail")
+            step = make_eval_step(cfg.replace(fused_tail=fused), model, device="cuda")
+            f1 = init_f1_state(2, device="cuda")
+            profile_step(lambda: step(f1, images, masks, valid),
+                         f"eval step, {'fused' if fused else 'stock'} tail")
     return launches
+
+
+def run_train_path(work: str, profile: bool):
+    """The train main path through ``main``, then the train step's steady
+    state (fused tail against stock tail) on a device-resident batch."""
+    import numpy as np
+    import torch
+
+    from xview2_tpu_torch.config import Config
+    from xview2_tpu_torch.data.synthetic import make_synthetic_split
+    from xview2_tpu_torch.main import main as port_main
+    from xview2_tpu_torch.parallel import checkpoint as ckpt_lib
+    from xview2_tpu_torch.parallel.steps import (init_train_state, make_train_step,
+                                                 step_generator)
+    from xview2_tpu_torch.train.optimizers import build_optimizer
+    from xview2_tpu_torch.train.trainer import initial_model
+    from xview2_tpu_torch.weights import from_flax
+
+    t0 = time.perf_counter()
+    make_synthetic_split(work, "train", TRAIN_TILES, size=TILE, seed=11)
+    make_synthetic_split(work, "test", TRAIN_VAL_TILES, size=TILE, seed=12)
+    log(f"train path setup (train split of {TRAIN_TILES} tiles and validation split of "
+        f"{TRAIN_VAL_TILES} tiles of {TILE}^2): {time.perf_counter() - t0:.1f} s")
+    results = os.path.join(work, "train_results")
+    argv = ["--exec_mode", "train", "--type", "pre", "--encoder", "resnet50", "--fused_tail",
+            "1", "--batch_size", str(TRAIN_BATCH), "--epochs", "1", "--val_batch_size",
+            str(VAL_BATCH), "--num_workers", "8", "--data", work, "--results", results]
+    _zero_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rc = port_main(argv, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _read_counters()
+    if rc != 0:
+        raise AssertionError(f"main returned {rc}")
+    steps = TRAIN_TILES // TRAIN_BATCH
+    log(f"train main path: main(--exec_mode train, {TRAIN_TILES} tiles = {steps} steps at batch "
+        f"{TRAIN_BATCH} of {CROP}^2 crops, validation on {TRAIN_VAL_TILES} tiles, best and last "
+        f"checkpoints) {wall:.2f} s end to end (index build, model build and PNG decode "
+        f"included); launches {launches}")
+    _need_launches(launches, {"relayout_cuda": 3 * steps, "conv_bn_fused": 6 * steps,
+                              "head_conv_fused": steps, "conv_bn_wgrad": 6 * steps,
+                              "conv_bn_dgrad": 6 * steps}, "train")
+    with open(os.path.join(results, "logs.json")) as f:
+        metrics = json.loads(f.readlines()[-1])["data"]
+    if not (math.isfinite(metrics["val_loss"]) and metrics["imgs_per_sec"] > 0):
+        raise AssertionError(f"validation loss is not finite: {metrics}")
+    cfg = ckpt_lib.load_config(os.path.join(results, "checkpoints", "last"))
+    fresh = initial_model(cfg).state_dict()
+    for name in ("best", "last"):
+        path = os.path.join(results, "checkpoints", name)
+        if not ckpt_lib.checkpoint_exists(path):
+            raise AssertionError(f"no {name} checkpoint at {path}")
+        payload, meta = ckpt_lib.restore_raw(path)
+        trained = from_flax(payload["params"], payload["batch_stats"])
+        initial_model(cfg).load_state_dict(trained, strict=True)  # it reloads
+        if int(payload["train"]["step"]) != steps or "opt_state" not in payload:
+            raise AssertionError(f"{name}: step {payload['train']['step']}, expected {steps}, "
+                                 "with optimizer state")
+        moved = [k for k, v in trained.items() if not torch.equal(v, fresh[k])]
+        finite = all(bool(torch.isfinite(v).all()) for v in trained.values())
+        stats = [k for k in moved if "running" in k]
+        if not finite or len(moved) < 0.9 * len(trained) or not stats:
+            raise AssertionError(f"{name}: finite={finite}, {len(moved)} of {len(trained)} "
+                                 f"tensors differ from the initial ones ({len(stats)} running "
+                                 "statistics)")
+    log(f"train main path outputs: metrics {metrics}; best and last checkpoints reload, step "
+        f"{steps}, {len(moved)} of {len(trained)} tensors moved from their initial values "
+        f"({len(stats)} BN running statistics), all finite")
+
+    # steady state of the train step on a device-resident batch of raw tiles
+    rng = np.random.default_rng(13)
+    images = torch.from_numpy(
+        rng.integers(0, 256, (TRAIN_BATCH, TILE, TILE, 3), np.uint8)).cuda()
+    masks = torch.from_numpy((rng.random((TRAIN_BATCH, TILE, TILE)) > 0.9)
+                             .astype(np.uint8)).cuda()
+    base = Config(type="pre", encoder="resnet50", precision=16, loss_str="focal+dice",
+                  batch_size=TRAIN_BATCH, optimizer="adamw")
+    for fused in (True, False):
+        cfg = base.replace(fused_tail=fused)
+        model = seeded_model(cfg, seed=0)
+        opt = build_optimizer(cfg, model.parameters(), cfg.lr)
+        state = init_train_state(model, opt, device="cuda")
+        step = make_train_step(cfg, model, opt, crop=CROP, device="cuda")
+        losses = []
+
+        def one_step():
+            losses.append(step(state, images, masks, step_generator(cfg, state.step, "cuda"))[1])
+
+        _zero_counters()
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_ms(one_step, 3)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        vals = [float(v) for v in losses]
+        if not all(math.isfinite(v) for v in vals):
+            raise AssertionError(f"train step losses are not finite: {vals}")
+        log(f"train step ({'fused tail' if fused else 'stock tail'}, batch {TRAIN_BATCH} raw "
+            f"{TILE}^2 tiles -> {CROP}^2 crops, bf16, AdamW): {ms:.2f} ms = "
+            f"{TRAIN_BATCH / ms * 1e3:.3f} tiles/s, peak memory {peak:.2f} GiB, losses "
+            f"{[round(v, 4) for v in vals]}, launches over 4 steps {_read_counters()}")
+        if profile:
+            profile_step(one_step, f"train step, {'fused' if fused else 'stock'} tail")
+        del model, opt, state, step
+        torch.cuda.empty_cache()
+    check_f32_train_step_against_cpu()
+    return launches
+
+
+def check_f32_train_step_against_cpu() -> None:
+    """One small float32 train-mode forward, loss and backward (TF32 off) on
+    the card with the fused tail, through the f32 kernels, against the same
+    on the CPU through the plain versions, from the same weights and the same
+    augmented crop.  The card's stock tail (no kernel of the port) is run
+    beside it: its distance from the CPU is the float32 noise of the network
+    itself (sums in another order through a backward whose BN-statistics
+    path cancels), which the tolerances have to allow.
+
+    Tolerances: loss rtol 1e-4; all gradients together, and each leaf of the
+    decoder blocks the kernels run (dec_l2, dec_l3, dec_l5) on its own,
+    within 5e-2 in relative L2 norm of the CPU's, and within the same of the
+    card's own stock tail; running statistics within 1e-3 of each tensor's
+    scale."""
+    import numpy as np
+    import torch
+
+    from xview2_tpu_torch.config import Config, apply_precision
+    from xview2_tpu_torch.ops import packed_fused_conv as pfc
+    from xview2_tpu_torch.ops.losses import make_loss_fn, packed_loss_view_labels
+    from xview2_tpu_torch.parallel.steps import forward_loss
+
+    base = Config(type="pre", encoder="resnet50", precision=32)
+    apply_precision(base)
+    rng = np.random.default_rng(17)
+    x = torch.from_numpy(rng.normal(size=(4, 256, 256, 3)).astype(np.float32))
+    y = packed_loss_view_labels(torch.from_numpy((rng.random((4, 256, 256)) > 0.7)
+                                                 .astype(np.int32)))
+    loss_fn = make_loss_fn(base.loss_str, base.type)
+
+    def run(dev, fused):
+        cfg = base.replace(fused_tail=fused)
+        model = seeded_model(cfg, seed=2).to(dev)
+        before = pfc.conv_bn_wgrad.launches + pfc.conv_bn_dgrad.launches
+        loss = forward_loss(cfg, model, loss_fn, x.to(dev), y.to(dev))
+        names, params = zip(*model.named_parameters())
+        grads = dict(zip(names, (g.cpu() for g in torch.autograd.grad(loss, params))))
+        stats = {k: v.cpu() for k, v in model.state_dict().items() if "running" in k}
+        return (loss.item(), grads, stats,
+                pfc.conv_bn_wgrad.launches + pfc.conv_bn_dgrad.launches - before)
+
+    def rel_l2(got, want, names):
+        num = math.sqrt(sum(float(((got[k] - want[k]) ** 2).sum()) for k in names))
+        return num / max(math.sqrt(sum(float((want[k] ** 2).sum()) for k in names)), 1e-30)
+
+    lc, gc, sc, nc = run("cpu", True)
+    lg, gg, sg, ng = run("cuda", True)
+    ls, gs, _, _ = run("cuda", False)
+    tail = [k for k in gc if any(f"dec_layers_{i}.conv_block" in k for i in (1, 2, 4))]
+    err_all, floor_all = rel_l2(gg, gc, list(gc)), rel_l2(gs, gc, list(gc))
+    err_tail = max(rel_l2(gg, gc, [k]) for k in tail)
+    floor_tail = max(rel_l2(gs, gc, [k]) for k in tail)
+    card_all = rel_l2(gg, gs, list(gs))
+    card_tail = max(rel_l2(gg, gs, [k]) for k in tail)
+    stat_err = max(float((sg[k] - sc[k]).abs().max() / sc[k].abs().max()) for k in sc)
+    log(f"f32 train step (4 x 256^2, fused tail), card vs CPU plain path: loss {lg:.6f} vs "
+        f"{lc:.6f}; gradients relative L2 error {err_all:.3g} over all {len(gc)} leaves, worst "
+        f"of the {len(tail)} fused-tail leaves {err_tail:.3g} (tolerance 5e-2; the card's stock "
+        f"tail, no kernel of the port, is {floor_all:.3g} and {floor_tail:.3g} from the CPU, "
+        f"loss {ls:.6f}; fused against stock tail on the card: {card_all:.3g} and "
+        f"{card_tail:.3g}); running statistics max err {stat_err:.3g} of scale (tolerance "
+        f"1e-3); {ng} K4+K5 launches on the card, {nc} on the CPU")
+    if not (ng > 0 and nc == 0 and abs(lg - lc) <= 1e-4 * abs(lc) and stat_err <= 1e-3
+            and max(err_all, err_tail, card_all, card_tail) <= 5e-2):
+        raise AssertionError("float32 train step on the card disagrees with the CPU path")
 
 
 def check_f32_against_cpu() -> None:
@@ -418,8 +801,10 @@ def check_f32_against_cpu() -> None:
         raise AssertionError("float32 eval step on the card disagrees with the CPU path")
 
 
-# kernel-name fragments -> category of the eval-step breakdown
-_CATEGORIES = (("K2 conv_bn_fused", ("conv_bf16_kernel", "conv_f32_kernel")),
+# kernel-name fragments -> category of a step's breakdown
+_CATEGORIES = (("K4 conv_bn_wgrad", ("wgrad_bf16_kernel", "wgrad_f32_kernel")),
+               ("K5 conv_bn_dgrad", ("dgrad_bf16_kernel", "dgrad_f32_kernel")),
+               ("K2 conv_bn_fused", ("conv_bf16_kernel", "conv_f32_kernel")),
                ("K3 head_conv_fused", ("head_kernel",)),
                ("K1 relayout", ("relayout_kernel",)),
                ("library conv/GEMM", ("xmma", "cudnn", "cutlass", "gemm", "conv")),
@@ -427,20 +812,18 @@ _CATEGORIES = (("K2 conv_bn_fused", ("conv_bf16_kernel", "conv_f32_kernel")),
                ("cat/copy", ("CatArray", "copy", "Memcpy", "Memset")))
 
 
-def profile_step(step, batch, tag: str) -> None:
-    """torch.profiler over one eval step: device time by category, the
-    device's idle share of the step's wall time, and the top kernels."""
+def profile_step(fn, tag: str) -> None:
+    """torch.profiler over one call of ``fn`` (one step): device time by
+    category, the device's idle share of the step's wall time, and the top
+    kernels."""
     import torch
     from torch.profiler import ProfilerActivity, profile as tprofile
 
-    from xview2_tpu_torch.ops.metrics import init_f1_state
-
-    f1 = init_f1_state(2, device="cuda")
-    step(f1, *batch)
+    fn()
     torch.cuda.synchronize()
     with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        step(f1, *batch)
+        fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.key_averages()
@@ -463,7 +846,7 @@ def profile_step(step, batch, tag: str) -> None:
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
-                        help="print a torch.profiler table of one eval step")
+                        help="print torch.profiler tables of one eval and one train step")
     args = parser.parse_args(argv)
     if not os.path.isdir(os.path.join(ROOT, "xview2_tpu_torch")):
         print("chip_smoke.py must run from a checkout holding xview2_tpu_torch/", file=sys.stderr)
@@ -486,11 +869,15 @@ def main(argv=None) -> int:
     rows = {"relayout": check_relayout(), "conv_bn_fused": check_conv_bn_fused(),
             "head_conv_fused": check_head_conv_fused()}
     torch.cuda.empty_cache()
+    rows.update(check_conv_bn_backward())
+    torch.cuda.empty_cache()
 
     work = os.path.join(ROOT, ".smoke")
     shutil.rmtree(work, ignore_errors=True)
     try:
-        launches = run_main_path(work, args.profile)
+        eval_launches = run_eval_path(work, args.profile)
+        torch.cuda.empty_cache()
+        train_launches = run_train_path(work, args.profile)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -501,14 +888,25 @@ def main(argv=None) -> int:
                           "xview2_tpu/ops/packed_fused_conv.py:157"),
         "head_conv_fused": ("head_conv_fused", "xview2_tpu_torch/csrc/fused_head.cu",
                             "xview2_tpu/ops/packed_fused_conv.py:463"),
+        "conv_bn_wgrad": ("conv_bn_wgrad", "xview2_tpu_torch/csrc/fused_conv_bwd.cu",
+                          "xview2_tpu/ops/packed_fused_conv.py:259"),
+        "conv_bn_dgrad": ("conv_bn_dgrad", "xview2_tpu_torch/csrc/fused_conv_bwd.cu",
+                          "xview2_tpu/ops/packed_fused_conv.py:338"),
     }
+    # launches: the eval main path's and the train main path's runs of main(),
+    # each counted from 0.  ms/plain_ms/library_ms/bound_ms: K1-K3 per eval
+    # step (train_* keys: per train step), K4/K5 per train step.
     kernels = []
     for name, (counter, source, replaces) in meta.items():
         r = rows[name]
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                        "launches": launches[counter], "max_abs_err": r["max_abs_err"],
+                        "launches": eval_launches[counter] + train_launches[counter],
+                        "eval_path_launches": eval_launches[counter],
+                        "train_path_launches": train_launches[counter],
+                        "max_abs_err": r["max_abs_err"],
                         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                        "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+                        "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+                        **{k: v for k, v in r.items() if k.startswith("train_")}})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -95,3 +95,65 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take():
     with pytest.raises(ValueError):
         pfc.head_conv_fused(torch.zeros((1, 4, 4, 128), device="cuda").permute(0, 2, 1, 3),
                             torch.zeros((128, 8)), torch.zeros(8), _fold(128, None))
+
+
+def _bwd_case(shape, dtype, seed=3):
+    b, h, w, c, co = shape
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((b, h, w, c), generator=gen, device="cuda").to(dtype)
+    g = torch.randn((b, h, w, co), generator=gen, device="cuda").to(dtype)
+    k = (torch.randn((3, 3, c, co), generator=gen, device="cuda") / math.sqrt(9 * c)).to(dtype)
+    return x, g, k, _fold(c, gen)
+
+
+_BWD_SHAPES = [(2, 16, 16, 128, 128), (1, 24, 136, 384, 192), (2, 9, 7, 32, 64),
+               (1, 8, 70, 64, 64)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("has_fold", [False, True])
+@pytest.mark.parametrize("shape", _BWD_SHAPES)
+def test_conv_bn_wgrad_matches_plain(shape, has_fold, dtype):
+    """dW stays f32 in the kernel and in the plain version: they differ by
+    the f32 order of the sums only (atomics across the pixel splits), held
+    to 1e-3 of max |dW|."""
+    x, g, _, fold = _bwd_case(shape, dtype)
+    got = pfc.conv_bn_wgrad(x, g, fold, has_fold)
+    want = pfc.reference_wgrad(x, g, fold if has_fold else None)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert (got - want).abs().max().item() <= 1e-3 * want.abs().max().item()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("has_fold", [False, True])
+@pytest.mark.parametrize("shape", _BWD_SHAPES)
+def test_conv_bn_dgrad_matches_plain(shape, has_fold, dtype):
+    """dx within one rounding of its dtype plus 1e-3 of the scale (f32 sums
+    in another order); the fold sums within 1e-3 * max(1, max |sum|)."""
+    b, h, w, c, co = shape
+    if c % 64:
+        pytest.skip("the dgrad kernel tiles the produced channels (C) by 64")
+    x, g, k, fold = _bwd_case(shape, dtype)
+    kf = pfc.flip_kernel(k)
+    dx, db, dm = pfc.conv_bn_dgrad(g, kf, x, fold, has_fold)
+    rx, rb, rm = pfc.reference_dgrad(g, kf, x, fold if has_fold else None)
+    eps = torch.finfo(dtype).eps
+    scale = rx.float().abs().max().item()
+    err = (dx.float() - rx.float()).abs()
+    assert bool((err <= 2 * eps * rx.float().abs() + 1e-3 * scale).all()), err.max().item()
+    for got, want in ((db, rb), (dm, rm)):
+        assert (got - want).abs().max().item() <= 1e-3 * max(want.abs().max().item(), 1.0)
+
+
+def test_fused_conv_backward_runs_the_kernels():
+    x, g, k, fold = _bwd_case((2, 16, 16, 128, 128), torch.bfloat16)
+    x.requires_grad_()
+    k.requires_grad_()
+    fold = tuple(f.requires_grad_() for f in fold)
+    before = (pfc.conv_bn_wgrad.launches, pfc.conv_bn_dgrad.launches)
+    out, s1, s2 = pfc.conv_bn_fused(x, k, fold, True)
+    ((out.float() * g.float()).sum() + s1.sum() + 0.1 * s2.sum()).backward()
+    assert (pfc.conv_bn_wgrad.launches, pfc.conv_bn_dgrad.launches) == \
+        (before[0] + 1, before[1] + 1)
+    assert x.grad.shape == x.shape and k.grad.shape == k.shape
+    assert all(f.grad is not None and torch.isfinite(f.grad).all() for f in fold)

@@ -105,6 +105,12 @@ def test_f1_equal(evaluated):
 
 
 def test_train_mode_raises(tmp_path):
-    with pytest.raises(NotImplementedError):
-        main(["--exec_mode", "train", "--type", "pre", "--results", str(tmp_path)],
-             device="cpu")
+    """Train mode is ported (tests/test_torch_train_cli.py); what it cannot do
+    yet still raises, naming its ROADMAP item, before any data is read."""
+    base = ["--exec_mode", "train", "--type", "pre", "--encoder", "resnet50",
+            "--results", str(tmp_path)]
+    for extra in (["--encoder", "resnest200"], ["--autoaugment"], ["--remat", "tail"],
+                  ["--optimizer", "radam"], ["--loss_str", "ce"], ["--deep_supervision"],
+                  ["--pretrained_enc", "enc.npz"], ["--gpus", "2"]):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            main(base + extra, device="cpu")

@@ -47,7 +47,71 @@ def test_every_port_module_imports_without_jax():
         print(len(names))
     """)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 16
+    assert int(proc.stdout.split()[-1]) >= 28
+
+
+def test_no_port_source_names_the_jax_stack():
+    """A static read of every port source and of chip_smoke.py: no import of
+    jax, flax, optax, orbax, chex or the JAX package, lazy ones included."""
+    import re
+
+    pat = re.compile(r"^\s*(?:import|from)\s+(jax|jaxlib|flax|optax|orbax|chex|xview2_tpu)\b",
+                     re.M)
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for base, _, names in os.walk(os.path.join(ROOT, "xview2_tpu_torch")):
+        files += [os.path.join(base, n) for n in names if n.endswith(".py")]
+    assert len(files) >= 30
+    for path in files:
+        with open(path) as f:
+            assert not pat.search(f.read()), path
+    expected = {"data/index.py", "data/exclude_list.py", "train/optimizers.py",
+                "train/scheduler.py", "csrc/fused_conv_bwd.cu", "csrc/conv_tile.cuh"}
+    for rel in expected:
+        assert os.path.exists(os.path.join(ROOT, "xview2_tpu_torch", rel)), rel
+
+
+def test_options_left_out_raise_naming_a_roadmap_item():
+    """Every option outside the ported slices raises NotImplementedError
+    naming its ROADMAP item, through ``main`` (train and eval) or
+    ``build_model``; none returns numbers."""
+    proc = _run("""
+        import torch
+        from xview2_tpu_torch.config import Config
+        from xview2_tpu_torch.main import main
+        from xview2_tpu_torch.models.unet import build_model
+        from xview2_tpu_torch.parallel import steps
+
+        def raises(fn, what):
+            try:
+                fn()
+            except NotImplementedError as e:
+                assert "ROADMAP" in str(e), (what, str(e))
+                return
+            raise AssertionError(f"{what} did not raise NotImplementedError")
+
+        train = ["--exec_mode", "train", "--type", "pre", "--encoder", "resnet50",
+                 "--results", "/nonexistent"]
+        cli = [["--type", "post"], ["--encoder", "resnest50"], ["--encoder", "resnest200"],
+               ["--ppm"], ["--aspp"], ["--attention"], ["--deep_supervision"],
+               ["--dec_interp"], ["--interpolate"], ["--autoaugment"],
+               ["--loss_str", "ce"], ["--loss_str", "focal+ohem"], ["--loss_str", "mse"],
+               ["--loss_str", "coral"], ["--pretrained_enc", "enc.npz"],
+               ["--ckpt_pre", "loc"], ["--gpus", "2"], ["--gpus", "2", "--spatial_shards", "2"],
+               ["--remat", "tail"], ["--remat", "dots"], ["--remat", "full"],
+               ["--fold_eval_bn", "0"]]
+        cli += [["--optimizer", o] for o in ("radam", "adabelief", "adabound", "adamp",
+                                             "novograd")]
+        for extra in cli:
+            raises(lambda: main(train + extra, device="cpu"), extra)
+        for kw in (dict(type="post"), dict(ppm=True), dict(aspp=True), dict(attention=True),
+                   dict(deep_supervision=True), dict(dec_interp=True), dict(interpolate=True),
+                   dict(encoder="resnest101")):
+            raises(lambda: build_model(Config(**{"encoder": "resnet50", **kw})), kw)
+        raises(lambda: steps.make_train_multistep(None, None, None, 2), "make_train_multistep")
+        print("checked", len(cli) + 9)
+    """)
+    assert proc.returncode == 0, proc.stderr + proc.stdout
+    assert proc.stdout.split()[-2:] == ["checked", "36"]
 
 
 def test_cuda_request_without_a_device_raises():

@@ -130,9 +130,9 @@ def test_unported_options_raise():
                dict(encoder="resnest50")):
         with pytest.raises(NotImplementedError):
             build_model(Config(**{"encoder": "resnet50", **kw}))
+    # train mode is ported: the logits come out in the packed loss view
     model = build_model(Config(encoder="resnet50", precision=32))
-    with pytest.raises(NotImplementedError):
-        model(torch.zeros(1, 64, 64, 3), train=True)
+    assert model(torch.zeros(1, 64, 64, 3), train=True).shape == (1, 32, 128, 2)
 
 
 def test_cuda_request_without_a_card_raises(monkeypatch):

@@ -77,7 +77,7 @@ class Config:
     dec_interp: bool = False
 
     # --- extensions of the JAX package (not present in the reference) ---
-    profile: bool = False  # train-mode profiler trace (train mode is not ported yet)
+    profile: bool = False  # torch.profiler trace of the first 6 train steps under --results/profile
     index_csv: Optional[str] = None  # train index.csv; None -> auto-generated under --results on first train
     exclude: Optional[str] = None  # JSON list of excluded train indices; None -> bundled reference list on xBD-shaped trees
     train_crop: int = 512  # train crop size (reference pytorch_loader.py:57)

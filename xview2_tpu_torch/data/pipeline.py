@@ -1,17 +1,19 @@
-"""Host-side input pipeline: file discovery, decode, batch (a copy of
-``xview2_tpu/data/pipeline.py`` for the eval path, PIL decode only).
+"""Host-side input pipeline: file discovery, index selection, decode, batch
+(a copy of ``xview2_tpu/data/pipeline.py``, PIL decode only).
 
 The host discovers files, decodes PNGs in a thread pool and assembles raw
-uint8 batches; normalization runs on the device inside the eval step.  The
-native C++ decoder and the train-index selection come with the train slice
-(ROADMAP Queue 1).
+uint8 batches; every per-pixel transform (crop, zoom, flip, noise,
+normalize) runs on the device inside the train and eval steps.  The native
+C++ decoder is not ported (ROADMAP Queue 1, remaining CLI knobs).
 
 Semantics preserved:
  * directory layout ``{data}/{train,test,holdout}/{images,targets}`` with
    ``*pre*`` / ``*post*`` sorted-glob pairing (``pytorch_loader.py:32-36``,
    ``data_module.py:12-14``),
- * eval batches sequential, last partial batch kept (``data_module.py:16-29``)
-   and padded with a validity mask.
+ * train index restriction from ``index.csv`` (``data/index.py``),
+ * train batches shuffled by a seed keyed on the loader's ``epoch``,
+   ``drop_last``; eval batches sequential, last partial batch kept
+   (``data_module.py:16-29``) and padded with a validity mask.
 """
 
 from __future__ import annotations
@@ -68,14 +70,21 @@ class XView2Dataset:
     is the host pipeline's only CPU-heavy stage.
     """
 
-    def __init__(self, path: str, task_type: str, cache_dir: Optional[str] = None):
+    def __init__(self, path: str, task_type: str, training: bool = False,
+                 index_csv: Optional[str] = None, cache_dir: Optional[str] = None):
         self.task_type = task_type
         self.imgs_pre, self.lbls_pre = load_data(path, "pre")
-        self.imgs_post, self.lbls_post = load_data(path, "post")
-        if len(self.imgs_pre) != len(self.imgs_post):
-            raise ValueError(f"{path}: {len(self.imgs_pre)} pre vs {len(self.imgs_post)} "
-                             "post images")
-        self.indices = list(range(len(self.imgs_pre)))
+        if task_type == "post" or not training:
+            self.imgs_post, self.lbls_post = load_data(path, "post")
+            if len(self.imgs_pre) != len(self.imgs_post):
+                raise ValueError(f"{path}: {len(self.imgs_pre)} pre vs {len(self.imgs_post)} "
+                                 "post images")
+        if training and index_csv is not None:
+            from xview2_tpu_torch.data.index import read_index_csv
+
+            self.indices = read_index_csv(index_csv, task_type)
+        else:
+            self.indices = list(range(len(self.imgs_pre)))
         self.cache_dir = None
         if cache_dir:
             tag = f"{os.path.basename(os.path.abspath(path))}_{task_type}"
@@ -210,9 +219,25 @@ class Loader:
 
 def make_test_loader(cfg) -> Loader:
     """The holdout loader of eval mode (reference data_module.py): sequential,
-    last partial batch kept and padded.  The train and val loaders come with
-    the train slice."""
+    last partial batch kept and padded."""
     test_ds = XView2Dataset(os.path.join(cfg.data, "holdout"), cfg.type,
                             cache_dir=cfg.raw_cache)
     return Loader(test_ds, cfg.val_batch_size, shuffle=False, drop_last=False,
                   num_workers=cfg.num_workers)
+
+
+def make_train_loaders(cfg) -> Tuple[Loader, Loader]:
+    """The train and validation loaders of train mode (the ``train`` and
+    ``test`` splits).  Training is ALWAYS index-restricted, as in the
+    reference: without ``--index_csv`` the index is generated once under
+    ``--results`` (``data/index.ensure_index``)."""
+    from xview2_tpu_torch.data.index import ensure_index
+
+    train_ds = XView2Dataset(os.path.join(cfg.data, "train"), cfg.type, True,
+                             index_csv=ensure_index(cfg), cache_dir=cfg.raw_cache)
+    val_ds = XView2Dataset(os.path.join(cfg.data, "test"), cfg.type, cache_dir=cfg.raw_cache)
+    train = Loader(train_ds, cfg.batch_size, shuffle=True, drop_last=True,
+                   num_workers=cfg.num_workers, seed=cfg.seed)
+    val = Loader(val_ds, cfg.val_batch_size, shuffle=False, drop_last=False,
+                 num_workers=cfg.num_workers)
+    return train, val

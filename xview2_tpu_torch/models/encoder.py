@@ -31,8 +31,8 @@ class MaxPoolStage(nn.Module):
         super().__init__()
         self.stage = stage
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.stage(max_pool_3x3_s2(x))
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        return self.stage(max_pool_3x3_s2(x), train)
 
 
 def make_encoder_stages(encoder: str, dilation: int, in_channels: int,

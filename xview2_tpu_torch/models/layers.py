@@ -1,4 +1,4 @@
-"""Decoder building blocks of the xView2 U-Net, eval path (port of
+"""Decoder building blocks of the xView2 U-Net (port of
 ``xview2_tpu/models/layers.py``).
 
 Public tensors are NHWC, as in the JAX package; convolutions run on
@@ -8,18 +8,23 @@ mechanically: a flax ``Conv_0/kernel`` is the torch ``Conv_0.weight``, a
 ``BatchNorm_0/{scale,bias,mean,var}`` is ``BatchNorm_0.{weight,bias,
 running_mean,running_var}``.
 
-This slice is the eval path: BatchNorm always runs as the folded affine
+Every module takes ``train``.  At eval BatchNorm runs as the folded affine
 ``(x - mean) * mul + bias`` with ``mul = rsqrt(var + eps) * scale`` from the
 running statistics (``--fold_eval_bn 1``), applied in the compute dtype from
-f32 fold vectors exactly like the JAX ``_norm_act``.  Under
+f32 fold vectors exactly like the JAX ``_norm_act``.  In train mode it uses
+batch statistics and updates the running ones IN PLACE (the JAX package
+returns a new ``batch_stats`` tree and donates the old state), with torch's
+rule: biased variance to normalize, unbiased into ``running_var``.  Under
 ``fused_tail_scope`` the lane-full decoder ConvBlocks and the s2d-packed
 last stage run through the fused conv+BN kernels and the packed head
-through the fused head kernel (``ops/packed_fused_conv.py``).
+through the fused head kernel (``ops/packed_fused_conv.py``), forward and
+backward.
 
-JAX counterparts merged here: ``_BNStats``/``_PackedBN``/``_PackedBNSums``
-share one variable tree and, at eval, one fold, so they are one class,
-:class:`BatchNorm`; ``_FusedConvLayer``/``_FusedPackedConvLayer`` are the
-``forward_fused`` methods of :class:`ConvLayer`/:class:`PackedConvLayer`.
+JAX counterparts merged here: ``TorchBatchNorm``/``_BNStats``/``_PackedBN``/
+``_PackedBNSums`` share one variable tree, so they are one class,
+:class:`BatchNorm`, with one method per JAX module;
+``_FusedConvLayer``/``_FusedPackedConvLayer`` are the ``forward_fused``
+methods of :class:`ConvLayer`/:class:`PackedConvLayer`.
 """
 
 from __future__ import annotations
@@ -38,6 +43,7 @@ from xview2_tpu_torch.ops.packed_fused_conv import (Fold, conv3x3_nhwc, conv_bn_
                                                     supported)
 
 BN_EPS = 1e-5
+BN_MOMENTUM = 0.9  # flax momentum == 1 - torch momentum (torch default 0.1)
 
 
 def conv_nhwc(x: torch.Tensor, weight: torch.Tensor, stride: int = 1, padding: int = 0,
@@ -58,19 +64,36 @@ def norm_act(x: torch.Tensor, mean: torch.Tensor, mul: torch.Tensor, bias: torch
     """Folded BN affine in the compute dtype, then the activation (JAX
     ``_norm_act``: each op rounds to x's dtype)."""
     dt = x.dtype
-    y = (x - mean.to(dt)) * mul.to(dt) + bias.to(dt)
+    return _activate((x - mean.to(dt)) * mul.to(dt) + bias.to(dt), act)
+
+
+def bn_act(bn: "BatchNorm", x: torch.Tensor, train: bool, act: str,
+           dtype: torch.dtype) -> torch.Tensor:
+    """BN + activation of a stock (unfused) call site: batch statistics in
+    train mode, the eval fold otherwise."""
+    if train:
+        return _activate(bn.normalize_train(x, dtype), act)
+    return norm_act(x, *bn.fold(), act=act)
+
+
+def _activate(y: torch.Tensor, act: str) -> torch.Tensor:
     if act == "leaky":
-        return F.leaky_relu(y, leaky_slope(dt))
+        return F.leaky_relu(y, leaky_slope(y.dtype))
     if act == "relu":
         return F.relu(y)
     return y
 
 
 class BatchNorm(nn.Module):
-    """Eval-mode BatchNorm as a fold, with ``nn.BatchNorm``'s variable tree.
+    """BatchNorm with ``nn.BatchNorm``'s variable tree (JAX ``TorchBatchNorm``,
+    ``_PackedBN``, ``_PackedBNSums`` and, at eval, ``_BNStats``).
 
-    ``fold(phases)`` returns the f32 ``(mean, mul, bias)`` vectors, tiled
-    ``phases`` times for s2d-packed maps (phase-major channels)."""
+    Eval: ``fold(phases)`` returns the f32 ``(mean, mul, bias)`` vectors from
+    the running statistics, tiled ``phases`` times for s2d-packed maps
+    (phase-major channels).  Train: batch statistics with the fast variance
+    ``E[x^2] - E[x]^2`` in f32 (f64 kept), the running statistics updated in
+    place with flax momentum 0.9 and the UNBIASED variance (``n / (n - 1)``),
+    as torch's ``BatchNorm2d`` does."""
 
     def __init__(self, features: int):
         super().__init__()
@@ -80,9 +103,63 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(features))
 
     def fold(self, phases: int = 1) -> Fold:
-        mul = torch.rsqrt(self.running_var + BN_EPS) * self.weight
-        vecs = (self.running_mean, mul, self.bias)
+        return self._fold(self.running_mean, self.running_var, phases)
+
+    def _fold(self, mean: torch.Tensor, var: torch.Tensor, phases: int) -> Fold:
+        mul = torch.rsqrt(var + BN_EPS) * self.weight
+        vecs = (mean, mul, self.bias)
         return tuple(v.repeat(phases) for v in vecs) if phases > 1 else vecs
+
+    @torch.no_grad()
+    def _update_running(self, mean: torch.Tensor, var: torch.Tensor, n: int) -> None:
+        bessel = n / max(n - 1, 1)
+        self.running_mean.mul_(BN_MOMENTUM).add_(mean.to(self.running_mean.dtype),
+                                                 alpha=1 - BN_MOMENTUM)
+        self.running_var.mul_(BN_MOMENTUM).add_((var * bessel).to(self.running_var.dtype),
+                                                alpha=1 - BN_MOMENTUM)
+
+    def normalize_train(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        """Stock train-mode BN (JAX ``TorchBatchNorm``, i.e. flax's
+        ``_compute_stats`` + ``_normalize``): statistics and the normalize
+        itself in f32, ONE cast to ``dtype`` at the end (unlike the eval
+        fold, which rounds after each op)."""
+        xf = x.to(stat_dtype(x.dtype))
+        n = x.numel() // x.shape[-1]
+        dims = tuple(range(x.dim() - 1))
+        mean = xf.mean(dim=dims)
+        var = torch.clamp((xf * xf).mean(dim=dims) - mean * mean, min=0.0)
+        self._update_running(mean, var, n)
+        y = (xf - mean) * (torch.rsqrt(var + BN_EPS) * self.weight) + self.bias
+        return y.to(dtype)
+
+    def normalize_train_packed(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        """Train-mode BN over an s2d-packed map (JAX ``_PackedBN``): the sums
+        fold the four phase copies of each fine channel (always in f32), the
+        normalize runs in the compute dtype, rounding after each op."""
+        c = self.weight.shape[0]
+        xf = x.to(torch.float32)
+        n = x.shape[0] * x.shape[1] * x.shape[2] * 4
+        s1 = xf.sum(dim=(0, 1, 2)).reshape(4, c).sum(0)
+        s2 = (xf * xf).sum(dim=(0, 1, 2)).reshape(4, c).sum(0)
+        mean = s1 / n
+        var = s2 / n - mean * mean
+        self._update_running(mean, var, n)
+        mul = (torch.rsqrt(var + BN_EPS) * self.weight).to(dtype)
+        y = (x - mean.to(dtype).repeat(4)) * mul.repeat(4) + self.bias.to(dtype).repeat(4)
+        return y.to(dtype)
+
+    def fold_from_sums(self, s1: torch.Tensor, s2: torch.Tensor, n: int, phases: int,
+                       train: bool) -> Fold:
+        """The fold of a fused-chain layer (JAX ``_PackedBNSums``): in train
+        mode from the fused kernel's per-channel sums ``(s1, s2)`` over ``n``
+        elements per fine channel, else from the running statistics."""
+        if not train:
+            return self.fold(phases)
+        c = self.weight.shape[0]
+        mean = s1.reshape(phases, c).sum(0) / n
+        var = s2.reshape(phases, c).sum(0) / n - mean * mean
+        self._update_running(mean, var, n)
+        return self._fold(mean, var, phases)
 
 
 # ---------------------------------------------------------------------------
@@ -159,16 +236,16 @@ class ConvLayer(nn.Module):
         self.Conv_0 = nn.Conv2d(in_features, features, 3, padding=1, bias=False)
         self.BatchNorm_0 = BatchNorm(features)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         x = conv_nhwc(x.to(self.dtype), self.Conv_0.weight, padding=1)
-        return norm_act(x, *self.BatchNorm_0.fold(), act="leaky")
+        return bn_act(self.BatchNorm_0, x, train, "leaky", self.dtype)
 
-    def forward_fused(self, xprev: torch.Tensor, fold: Fold,
-                      has_fold: bool) -> Tuple[torch.Tensor, Fold]:
+    def forward_fused(self, xprev: torch.Tensor, fold: Fold, has_fold: bool, n: int,
+                      train: bool) -> Tuple[torch.Tensor, Fold]:
         """JAX ``_FusedConvLayer``: RAW conv output + this layer's fold."""
-        out, _, _ = conv_bn_fused(xprev.to(self.dtype), hwio(self.Conv_0.weight).to(self.dtype),
-                                  fold, has_fold)
-        return out, self.BatchNorm_0.fold()
+        out, s1, s2 = conv_bn_fused(xprev.to(self.dtype),
+                                    hwio(self.Conv_0.weight).to(self.dtype), fold, has_fold)
+        return out, self.BatchNorm_0.fold_from_sums(s1, s2, n, 1, train)
 
 
 class ConvBlock(nn.Module):
@@ -182,7 +259,7 @@ class ConvBlock(nn.Module):
         self.conv1 = ConvLayer(in_features, features, dtype)
         self.conv2 = ConvLayer(features, features, dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         fused, _ = fused_tail_state()
         if fused:
             it = torch.finfo(self.dtype).bits // 8
@@ -190,11 +267,12 @@ class ConvBlock(nn.Module):
             # both-or-nothing, as in JAX (dec_l1's conv1 weights exceed the budget)
             if supported(tuple(x.shape), self.features, it) and \
                     supported(mid, self.features, it):
+                n = x.shape[0] * x.shape[1] * x.shape[2]
                 zero = _zero_fold(x.shape[-1], self.dtype, x.device)
-                out1, fold1 = self.conv1.forward_fused(x, zero, False)
-                out2, fold2 = self.conv2.forward_fused(out1, fold1, True)
+                out1, fold1 = self.conv1.forward_fused(x, zero, False, n, train)
+                out2, fold2 = self.conv2.forward_fused(out1, fold1, True, n, train)
                 return norm_act(out2, *fold2, act="leaky")
-        return self.conv2(self.conv1(x))
+        return self.conv2(self.conv1(x, train), train)
 
 
 def _convt_matmul(x: torch.Tensor, weight: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -243,14 +321,15 @@ class UpsampleBlock(nn.Module):
         else:
             self.conv_block = ConvBlock(features + skip_channels, features, dtype)
 
-    def forward(self, x: torch.Tensor, skip: Optional[torch.Tensor] = None):
+    def forward(self, x: torch.Tensor, skip: Optional[torch.Tensor] = None,
+                train: bool = False):
         if self.packed_out:
             ct = self.conv_transpose
-            return self.conv_block(_convt_matmul(x, ct.weight, ct.dtype))
+            return self.conv_block(_convt_matmul(x, ct.weight, ct.dtype), train)
         out = self.conv_transpose(x)
         if self.skip_channels:
             out = torch.cat([out, skip], dim=-1)
-        return self.conv_block(out)
+        return self.conv_block(out, train)
 
 
 # ---------------------------------------------------------------------------
@@ -303,6 +382,17 @@ def depth_to_space(x: torch.Tensor) -> torch.Tensor:
     return x.reshape(b, 2 * h, 2 * w, n)
 
 
+def unview_loss_logits(x: torch.Tensor) -> torch.Tensor:
+    """Inverse of the packed loss view: (B, H, 4W, n) -> (B, 2H, 2W, n).
+
+    The loss view (``OutputBlock`` in train mode) is the packed head output
+    with the phases merged into the W axis, a pixel permutation of the fine
+    logits (index ``j*4 + di*2 + dj``) that the permutation-invariant losses
+    consume without a depth-to-space transpose.  For tests and debugging."""
+    b, h, w4, n = x.shape
+    return depth_to_space(x.reshape(b, h, w4 // 4, 4 * n))
+
+
 class PackedConvLayer(nn.Module):
     """ConvLayer on s2d-packed activations; variable tree of ``ConvLayer``."""
 
@@ -315,15 +405,17 @@ class PackedConvLayer(nn.Module):
     def packed_kernel(self) -> torch.Tensor:
         return s2d_conv_kernel(hwio(self.Conv_0.weight)).to(self.dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         x = conv3x3_nhwc(x.to(self.dtype), self.packed_kernel())
+        if train:
+            return _activate(self.BatchNorm_0.normalize_train_packed(x, self.dtype), "leaky")
         return norm_act(x, *self.BatchNorm_0.fold(4), act="leaky")
 
-    def forward_fused(self, xprev: torch.Tensor, fold: Fold,
-                      has_fold: bool) -> Tuple[torch.Tensor, Fold]:
+    def forward_fused(self, xprev: torch.Tensor, fold: Fold, has_fold: bool, n: int,
+                      train: bool) -> Tuple[torch.Tensor, Fold]:
         """JAX ``_FusedPackedConvLayer`` (groups=1)."""
-        out, _, _ = conv_bn_fused(xprev.to(self.dtype), self.packed_kernel(), fold, has_fold)
-        return out, self.BatchNorm_0.fold(4)
+        out, s1, s2 = conv_bn_fused(xprev.to(self.dtype), self.packed_kernel(), fold, has_fold)
+        return out, self.BatchNorm_0.fold_from_sums(s1, s2, n, 4, train)
 
 
 class PackedConvBlock(nn.Module):
@@ -335,16 +427,17 @@ class PackedConvBlock(nn.Module):
         self.conv1 = PackedConvLayer(in_features, features, dtype)
         self.conv2 = PackedConvLayer(features, features, dtype)
 
-    def forward(self, x: torch.Tensor):
+    def forward(self, x: torch.Tensor, train: bool = False):
         fused, outstanding = fused_tail_state()
         if fused and supported(tuple(x.shape), 4 * self.features):
+            n = x.shape[0] * x.shape[1] * x.shape[2] * 4  # elements per FINE channel
             zero = _zero_fold(x.shape[-1], self.dtype, x.device)
-            out1, fold1 = self.conv1.forward_fused(x, zero, False)
-            out2, fold2 = self.conv2.forward_fused(out1, fold1, True)
+            out1, fold1 = self.conv1.forward_fused(x, zero, False, n, train)
+            out2, fold2 = self.conv2.forward_fused(out1, fold1, True, n, train)
             if outstanding is not None:
                 return defer_fold(out2, fold2)
             return norm_act(out2, *fold2, act="leaky")
-        return self.conv2(self.conv1(x))
+        return self.conv2(self.conv1(x, train), train)
 
 
 class PackedHead(nn.Module):
@@ -369,8 +462,10 @@ class PackedHead(nn.Module):
 
 
 class OutputBlock(nn.Module):
-    """Final head over the s2d-packed tail (JAX ``OutputBlock(packed_in=True)``,
-    eval mode): the packed 1x1 head, then depth-to-space of the logits."""
+    """Final head over the s2d-packed tail (JAX ``OutputBlock(packed_in=True,
+    emit_loss_view=True)``): the packed 1x1 head, then at eval the
+    depth-to-space of the logits, in train mode the loss view ``(B, H, 4W,
+    n)``, a reshape with no transpose."""
 
     def __init__(self, n_class: int, fine_in: int, dtype: torch.dtype):
         super().__init__()
@@ -379,6 +474,10 @@ class OutputBlock(nn.Module):
                                       "(ROADMAP Queue 1, damage variants)")
         self.conv = PackedHead(fine_in, n_class, dtype)
 
-    def forward(self, x) -> torch.Tensor:
+    def forward(self, x, train: bool = False) -> torch.Tensor:
         x, fold = consume_fold(x)
-        return depth_to_space(self.conv(x, fold=fold))
+        out = self.conv(x, fold=fold)
+        if train:
+            b, h, w, pn = out.shape
+            return out.reshape(b, h, 4 * w, pn // 4)
+        return depth_to_space(out)

@@ -1,4 +1,4 @@
-"""ResNet-50/101/152 encoder backbones, eval path (port of
+"""ResNet-50/101/152 encoder backbones (port of
 ``xview2_tpu/models/resnet.py``).
 
 torchvision Bottleneck semantics, including ``replace_stride_with_dilation``
@@ -16,7 +16,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from xview2_tpu_torch.models.layers import BatchNorm, conv_nhwc, norm_act
+from xview2_tpu_torch.models.layers import BatchNorm, bn_act, conv_nhwc
 
 RESNET_LAYERS = {
     "resnet50": (3, 4, 6, 3),
@@ -50,17 +50,18 @@ class Bottleneck(nn.Module):
             self.downsample_conv = _conv(in_planes, out, 1)
             self.downsample_bn = BatchNorm(out)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         x = x.to(self.dtype)
-        out = norm_act(conv_nhwc(x, self.conv1.weight), *self.bn1.fold(), act="relu")
+        dt = self.dtype
+        out = bn_act(self.bn1, conv_nhwc(x, self.conv1.weight), train, "relu", dt)
         out = conv_nhwc(out, self.conv2.weight, stride=self.stride, padding=self.dilation,
                         dilation=self.dilation)
-        out = norm_act(out, *self.bn2.fold(), act="relu")
-        out = norm_act(conv_nhwc(out, self.conv3.weight), *self.bn3.fold(), act="none")
+        out = bn_act(self.bn2, out, train, "relu", dt)
+        out = bn_act(self.bn3, conv_nhwc(out, self.conv3.weight), train, "none", dt)
         identity = x
         if self.downsample:
             identity = conv_nhwc(x, self.downsample_conv.weight, stride=self.stride)
-            identity = norm_act(identity, *self.downsample_bn.fold(), act="none")
+            identity = bn_act(self.downsample_bn, identity, train, "none", dt)
         return F.relu(out + identity)
 
 
@@ -78,9 +79,9 @@ class ResNetStage(nn.Module):
         for i in range(1, num_blocks):
             setattr(self, f"block{i}", Bottleneck(out, planes, 1, dilation, dtype=dtype))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         for i in range(self.num_blocks):
-            x = getattr(self, f"block{i}")(x)
+            x = getattr(self, f"block{i}")(x, train)
         return x
 
 
@@ -93,9 +94,9 @@ class ResNetStem(nn.Module):
         self.conv1 = nn.Conv2d(in_channels, 64, 7, bias=False)
         self.bn1 = BatchNorm(64)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         x = conv_nhwc(x.to(self.dtype), self.conv1.weight, stride=2, padding=3)
-        return norm_act(x, *self.bn1.fold(), act="relu")
+        return bn_act(self.bn1, x, train, "relu", self.dtype)
 
 
 def max_pool_3x3_s2(x: torch.Tensor) -> torch.Tensor:

@@ -1,14 +1,16 @@
-"""The localization U-Net, eval path (port of ``xview2_tpu/models/unet.py``).
+"""The localization U-Net (port of ``xview2_tpu/models/unet.py``).
 
 ``build_model(cfg)`` builds ``UNetLoc`` for ``--type pre`` with a ResNet
 encoder and the s2d-packed decoder tail feeding the packed head.  Inputs are
-NHWC ``(B, H, W, 3)``, logits NHWC ``(B, H, W, 2)``.  Module names follow
-the flax tree (``unet.enc_l1``, ``unet.dec_layers_4.conv_block.conv1.Conv_0``,
+NHWC ``(B, H, W, 3)``, logits NHWC ``(B, H, W, 2)``; in train mode the
+logits come out in the packed loss view ``(B, H/2, 2W, 2)``
+(:func:`emits_packed_loss_view`).  Module names follow the flax tree
+(``unet.enc_l1``, ``unet.dec_layers_4.conv_block.conv1.Conv_0``,
 ``output_block.output_block.conv``).
 
 Not ported yet, each raising ``NotImplementedError`` that names its ROADMAP
-item: train mode, the damage variants, PPM/ASPP, attention, deep
-supervision, ``--dec_interp`` and ``--interpolate``.
+item: the damage variants, PPM/ASPP, attention, deep supervision,
+``--dec_interp`` and ``--interpolate``.
 """
 
 from __future__ import annotations
@@ -60,21 +62,21 @@ def make_decoder_stages(encf: List[int], dilation: int, no_skip: bool,
     return stages
 
 
-def _run_decoder(dec_layers, dilation: int, no_skip: bool, encs):
+def _run_decoder(dec_layers, dilation: int, no_skip: bool, encs, train: bool):
     """Shared decoder chain (reference ``UNetTemplate.forward``)."""
     enc1, enc2, enc3, enc4, enc5 = encs
     dec_l1, dec_l2, dec_l3, dec_l4, dec_l5 = dec_layers
     if no_skip:
         enc1 = enc2 = enc3 = enc4 = None
     if dilation == 1:
-        dec3_in = dec_l2(dec_l1(enc5, enc4), enc3)
+        dec3_in = dec_l2(dec_l1(enc5, enc4, train), enc3, train)
     elif dilation == 2:
-        dec3_in = dec_l2(enc5, enc3)
+        dec3_in = dec_l2(enc5, enc3, train)
     else:
         dec3_in = enc5
-    dec3 = dec_l3(dec3_in, enc2)
-    dec4 = dec_l4(dec3, enc1)
-    dec5 = dec_l5(dec4)
+    dec3 = dec_l3(dec3_in, enc2, train)
+    dec4 = dec_l4(dec3, enc1, train)
+    dec5 = dec_l5(dec4, None, train)
     return dec5, dec4, dec3
 
 
@@ -92,14 +94,14 @@ class UNetTemplate(nn.Module):
             if stage is not None:
                 self.add_module(f"dec_layers_{i}", stage)
 
-    def forward(self, data: torch.Tensor):
-        enc1 = self.enc_l1(data)
-        enc2 = self.enc_l2(enc1)
-        enc3 = self.enc_l3(enc2)
-        enc4 = self.enc_l4(enc3)
-        enc5 = self.enc_l5(enc4)
+    def forward(self, data: torch.Tensor, train: bool = False):
+        enc1 = self.enc_l1(data, train)
+        enc2 = self.enc_l2(enc1, train)
+        enc3 = self.enc_l3(enc2, train)
+        enc4 = self.enc_l4(enc3, train)
+        enc5 = self.enc_l5(enc4, train)
         return _run_decoder(self.dec_layers, self.cfg.dilation, self.cfg.no_skip,
-                            (enc1, enc2, enc3, enc4, enc5))
+                            (enc1, enc2, enc3, enc4, enc5), train)
 
 
 class OutputTemplate(nn.Module):
@@ -110,12 +112,14 @@ class OutputTemplate(nn.Module):
         super().__init__()
         self.output_block = OutputBlock(n_class, fine_in, dtype)
 
-    def forward(self, dec5) -> torch.Tensor:
-        return self.output_block(dec5)
+    def forward(self, dec5, train: bool = False) -> torch.Tensor:
+        return self.output_block(dec5, train)
 
 
 class UNetLoc(nn.Module):
-    """Localization U-Net (reference unet.py:200-215), eval mode only."""
+    """Localization U-Net (reference unet.py:200-215).  ``train`` is an
+    explicit argument, as in the JAX package; ``nn.Module.training`` is not
+    read."""
 
     def __init__(self, cfg: Config, n_class: int = 2):
         super().__init__()
@@ -124,10 +128,16 @@ class UNetLoc(nn.Module):
         self.output_block = OutputTemplate(n_class, DECODER_CHANNELS[-1], cfg.compute_dtype)
 
     def forward(self, data: torch.Tensor, train: bool = False) -> torch.Tensor:
-        if train or self.training:
-            raise _unsupported("train mode", "train step")
-        dec5, _, _ = self.unet(data)
-        return self.output_block(dec5)
+        dec5, _, _ = self.unet(data, train)
+        return self.output_block(dec5, train)
+
+
+def emits_packed_loss_view(cfg: Config) -> bool:
+    """True when the model's TRAIN-mode logits come out in the packed loss
+    view (B, H/2, 2W, n) instead of the fine grid; the loss consumer pairs it
+    with ``ops.losses.packed_loss_view_labels``.  The tail is packed unless
+    the decoder is absent or interpolating (both raise in the port)."""
+    return not cfg.interpolate and not cfg.dec_interp
 
 
 def fused_head_defer_ok(cfg: Config) -> bool:

@@ -1,16 +1,40 @@
-"""Eval-time input normalization (port of ``normalize``/``eval_batch`` of
+"""Input normalization and the on-device training augmentations (port of
 ``xview2_tpu/ops/augment.py``).
 
-The train-time augmentations (zoom-crop, flips, noise, brightness/contrast,
-AutoAugment) belong to the train slice (ROADMAP Queue 1).
+The host feeds raw uint8 tiles; the whole chain runs on the device inside
+the train step, batched by hand (the JAX package vmaps a per-sample
+function):
+
+1. RandomScale (p=0.2, zoom 1.0-1.3, cubic) fused with the crop: a
+   ``crop / s`` window is resized to ``crop`` through separable weight
+   matrices (Keys cubic kernel a = -0.5, half-pixel centres, weights
+   renormalized over the in-bounds taps, as ``jax.image.scale_and_translate``
+   builds them; ``F.interpolate(mode="bicubic")`` uses a = -0.75 and clamps,
+   so it is not the same function).
+2. CropNonEmptyMaskIfExists: a random non-zero mask pixel and a random offset
+   place the window to contain it.
+3. HFlip / VFlip p=0.33 each.
+4. GaussNoise p=0.1 (var U(10, 50), per-channel, uint8 scale, clipped).
+5. RandomBrightnessContrast p=0.2 (alpha 1 +- 0.2, beta +- 0.2 of 255).
+6. Normalize: (img/255 - imagenet_mean)/imagenet_std.
+
+DRAWING the random numbers (:func:`draw_augment`, from a ``torch.Generator``
+on the device) is split from APPLYING them (:func:`apply_augment`), so a test
+can hand the JAX package's own draws to the port.  AutoAugment is not ported
+(ROADMAP Queue 1, ``ops/autoaugment.py``).
 """
 
 from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
 
 import torch
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
+
+CROP = 512
 
 
 def normalize(img: torch.Tensor, channels: int = 3, bgr: bool = False) -> torch.Tensor:
@@ -30,3 +54,148 @@ def normalize(img: torch.Tensor, channels: int = 3, bgr: bool = False) -> torch.
 def eval_batch(images: torch.Tensor, bgr: bool = False) -> torch.Tensor:
     """Eval-time: normalize only, full tiles (reference pytorch_loader.py:151-171)."""
     return normalize(images, images.shape[-1], bgr)
+
+
+@dataclasses.dataclass
+class AugmentDraws:
+    """The random numbers of one batch's augmentation, one entry per sample
+    (the draws of JAX ``augment_sample`` for 3-channel inputs)."""
+
+    do_zoom: torch.Tensor    # (B,) bool: RandomScale fires (p = 0.2)
+    zoom_u: torch.Tensor     # (B,) f32 U[0, 1): zoom s = 1 + 0.3 * u when it fires
+    pix_y: torch.Tensor      # (B,) int: row of the sampled non-zero mask pixel
+    pix_x: torch.Tensor      # (B,) int: its column
+    off_y: torch.Tensor      # (B,) int in [0, crop): window offset above the pixel
+    off_x: torch.Tensor      # (B,) int in [0, crop)
+    flip_h: torch.Tensor     # (B,) bool (p = 0.33): reverse the W axis
+    flip_v: torch.Tensor     # (B,) bool (p = 0.33): reverse the H axis
+    noise_do: torch.Tensor   # (B,) bool (p = 0.1)
+    noise_var: torch.Tensor  # (B,) f32 U[10, 50)
+    noise: torch.Tensor      # (B, crop, crop, 3) f32 standard normal
+    bc_do: torch.Tensor      # (B,) bool (p = 0.2)
+    alpha: torch.Tensor      # (B,) f32 U[0.8, 1.2)
+    beta: torch.Tensor       # (B,) f32 U[-0.2, 0.2)
+
+
+def sample_nonzero_pixel(masks: torch.Tensor,
+                         gen: torch.Generator) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per sample, a uniformly drawn non-zero mask pixel ``(row, col)``;
+    uniform over the whole tile where the mask is empty."""
+    b, h, w = masks.shape
+    weights = (masks.reshape(b, h * w) > 0).to(torch.float32)
+    empty = weights.sum(dim=1, keepdim=True) == 0
+    weights = torch.where(empty, torch.ones_like(weights), weights)
+    idx = torch.multinomial(weights, 1, generator=gen)[:, 0]
+    return idx // w, idx % w
+
+
+def draw_augment(gen: torch.Generator, masks: torch.Tensor, crop: int = CROP) -> AugmentDraws:
+    """Draw one batch's random numbers on ``masks``'s device from ``gen``."""
+    b, dev = masks.shape[0], masks.device
+
+    def uniform(lo: float = 0.0, hi: float = 1.0) -> torch.Tensor:
+        return torch.rand((b,), generator=gen, device=dev) * (hi - lo) + lo
+
+    def bernoulli(p: float) -> torch.Tensor:
+        return uniform() < p
+
+    do_zoom, zoom_u = bernoulli(0.2), uniform()
+    pix_y, pix_x = sample_nonzero_pixel(masks, gen)
+    off_y = torch.randint(0, crop, (b,), generator=gen, device=dev)
+    off_x = torch.randint(0, crop, (b,), generator=gen, device=dev)
+    flip_h, flip_v = bernoulli(0.33), bernoulli(0.33)
+    noise_do, noise_var = bernoulli(0.1), uniform(10.0, 50.0)
+    noise = torch.randn((b, crop, crop, 3), generator=gen, device=dev)
+    bc_do, alpha, beta = bernoulli(0.2), uniform(0.8, 1.2), uniform(-0.2, 0.2)
+    return AugmentDraws(do_zoom, zoom_u, pix_y, pix_x, off_y, off_x, flip_h, flip_v, noise_do,
+                        noise_var, noise, bc_do, alpha, beta)
+
+
+def _keys_cubic(x: torch.Tensor) -> torch.Tensor:
+    """Keys cubic convolution kernel with a = -0.5 (``jax.image``'s "cubic")."""
+    out = ((1.5 * x - 2.5) * x) * x + 1.0
+    out = torch.where(x >= 1.0, ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0, out)
+    return torch.where(x >= 2.0, torch.zeros_like(out), out)
+
+
+def cubic_weight_matrix(in_size: int, out_size: int, scale: torch.Tensor,
+                        translation: torch.Tensor) -> torch.Tensor:
+    """(B, in_size, out_size) resampling weights of ``jax.image.
+    scale_and_translate(method="cubic", antialias=False)`` along one axis:
+    output ``o`` samples the input at ``(o + 0.5) / scale - translation /
+    scale - 0.5``; the weights of the taps that fall inside the input are
+    renormalized to sum to one, and an output whose sample lies outside the
+    input gets zeros."""
+    dev = scale.device
+    inv = 1.0 / scale
+    out_pos = torch.arange(out_size, dtype=torch.float32, device=dev)
+    sample = (out_pos[None, :] + 0.5) * inv[:, None] - (translation * inv)[:, None] - 0.5
+    in_pos = torch.arange(in_size, dtype=torch.float32, device=dev)
+    weights = _keys_cubic(torch.abs(sample[:, None, :] - in_pos[None, :, None]))
+    total = weights.sum(dim=1, keepdim=True)
+    eps = 1000.0 * float(torch.finfo(torch.float32).eps)
+    weights = torch.where(total.abs() > eps,
+                          weights / torch.where(total != 0, total, torch.ones_like(total)),
+                          torch.zeros_like(weights))
+    inside = (sample >= -0.5) & (sample <= in_size - 0.5)
+    return torch.where(inside[:, None, :], weights, torch.zeros_like(weights))
+
+
+def _zoom_crop(images: torch.Tensor, masks: torch.Tensor, d: AugmentDraws,
+               crop: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fused RandomScale + CropNonEmptyMaskIfExists -> (B, crop, crop, .)."""
+    b, h, w = masks.shape
+    dev = masks.device
+    one = torch.ones((b,), dtype=torch.float32, device=dev)
+    s = torch.where(d.do_zoom, 1.0 + d.zoom_u.to(torch.float32) * 0.3, one)
+    # albumentations: window start = nonzero pixel - U{0..crop-1}, clipped,
+    # in SCALED coordinates
+    zero = torch.zeros_like(s)
+    y_min = torch.clamp(d.pix_y.to(torch.float32) * s - d.off_y.to(torch.float32), zero,
+                        h * s - crop)
+    x_min = torch.clamp(d.pix_x.to(torch.float32) * s - d.off_x.to(torch.float32), zero,
+                        w * s - crop)
+    wy = cubic_weight_matrix(h, crop, s, -y_min)
+    wx = cubic_weight_matrix(w, crop, s, -x_min)
+    out = torch.einsum("bhwc,bho->bowc", images.to(torch.float32), wy)
+    out = torch.einsum("bowc,bwp->bopc", out, wx)
+    out = torch.clamp(out, 0.0, 255.0)
+
+    # nearest-sample the mask at the same source coordinates
+    o = torch.arange(crop, dtype=torch.float32, device=dev)[None, :]
+    src_y = torch.clamp(torch.round((o + 0.5 + y_min[:, None]) / s[:, None] - 0.5), 0, h - 1)
+    src_x = torch.clamp(torch.round((o + 0.5 + x_min[:, None]) / s[:, None] - 0.5), 0, w - 1)
+    rows = torch.gather(masks, 1, src_y.long()[:, :, None].expand(b, crop, w))
+    return out, torch.gather(rows, 2, src_x.long()[:, None, :].expand(b, crop, crop))
+
+
+def apply_augment(images: torch.Tensor, masks: torch.Tensor, d: AugmentDraws,
+                  crop: int = CROP, bgr: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Apply one batch's draws: raw uint8 ``images`` (B, H, W, 3) and
+    ``masks`` (B, H, W) -> normalized float32 (B, crop, crop, 3) crops and
+    int32 (B, crop, crop) labels."""
+    if images.shape[-1] != 3:
+        raise NotImplementedError("6-channel (pre+post) augmentation belongs to the damage "
+                                  "variants (ROADMAP Queue 1, damage variants)")
+    img, mask = _zoom_crop(images, masks, d, crop)
+    # flips are selects: both branches have the same shape
+    fh, fv = d.flip_h[:, None, None], d.flip_v[:, None, None]
+    img = torch.where(fh[..., None], img.flip(2), img)
+    mask = torch.where(fh, mask.flip(2), mask)
+    img = torch.where(fv[..., None], img.flip(1), img)
+    mask = torch.where(fv, mask.flip(1), mask)
+
+    def per_sample(v: torch.Tensor) -> torch.Tensor:
+        return v[:, None, None, None]
+
+    noisy = torch.clamp(img + d.noise * per_sample(torch.sqrt(d.noise_var)), 0.0, 255.0)
+    img = torch.where(per_sample(d.noise_do), noisy, img)
+    bright = torch.clamp(img * per_sample(d.alpha) + per_sample(d.beta) * 255.0, 0.0, 255.0)
+    img = torch.where(per_sample(d.bc_do), bright, img)
+    return normalize(img, 3, bgr), mask.to(torch.int32)
+
+
+def augment_batch(gen: torch.Generator, images: torch.Tensor, masks: torch.Tensor,
+                  crop: int = CROP, bgr: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Draw and apply: the train step's augmentation of a batch of raw tiles."""
+    return apply_augment(images, masks, draw_augment(gen, masks, crop), crop, bgr)

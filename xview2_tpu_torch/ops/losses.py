@@ -1,5 +1,6 @@
-"""Segmentation losses of the eval path (port of ``focal_loss``,
-``dice_loss`` and ``make_loss_fn`` of ``xview2_tpu/ops/losses.py``).
+"""Segmentation losses (port of ``focal_loss``, ``dice_loss``,
+``make_loss_fn`` and ``packed_loss_view_labels`` of
+``xview2_tpu/ops/losses.py``).
 
 monai 0.4.0 numerics as in the JAX package: DiceLoss(softmax, to_onehot_y,
 batch=True, smooth 1e-5) and FocalLoss(gamma=2) with its mean-over-classes
@@ -103,3 +104,15 @@ def make_loss_fn(loss_str: str, task_type: str) -> Callable[..., torch.Tensor]:
         return total
 
     return loss_fn
+
+
+def packed_loss_view_labels(labels: torch.Tensor) -> torch.Tensor:
+    """(B, H, W) fine labels -> (B, H/2, 2W) under the packed loss view.
+
+    The s2d-packed output head emits train-mode logits as ``(B, H/2, 2W, n)``
+    with fine pixel ``(2i+di, 2j+dj)`` at ``[i, j*4 + di*2 + dj]``
+    (``models/layers.OutputBlock``).  This is the label tensor under the same
+    pixel permutation, so every per-pixel and global loss term is unchanged."""
+    b, h, w = labels.shape
+    y = labels.reshape(b, h // 2, 2, w // 2, 2).permute(0, 1, 3, 2, 4)  # [b, i, j, di, dj]
+    return y.reshape(b, h // 2, 2 * w)

@@ -1,21 +1,31 @@
-"""The eval step (port of ``tta_forward``/``make_eval_step`` of
-``xview2_tpu/parallel/steps.py``): normalize, 4-flip TTA as one 4x-stacked
-forward, the relayout copy, the loss and the F1 state.
+"""The train and eval steps (port of ``xview2_tpu/parallel/steps.py``).
 
-The train step belongs to the next slice (ROADMAP Queue 1, train step).
+Train: on-device augmentation of raw uint8 tiles, the packed loss view of
+the labels, the relayout of labels and logits, the forward in train mode
+(batch statistics, running-stat updates, the fused tail), focal+dice, the
+backward and the optimizer update.  Eval: normalize, 4-flip TTA as one
+4x-stacked forward, the relayout copy, the loss and the F1 state.
+
+The JAX step is a pure function of a donated state; here the model's
+parameters, its BatchNorm buffers and the optimizer state are updated IN
+PLACE and ``TrainState`` only carries the references and the step count.
 """
 
 from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Tuple
 
 import torch
 
 from xview2_tpu_torch.config import Config
 from xview2_tpu_torch.models.layers import fused_tail_scope
-from xview2_tpu_torch.models.unet import fused_head_defer_ok
-from xview2_tpu_torch.ops.augment import eval_batch
+from xview2_tpu_torch.models.unet import emits_packed_loss_view, fused_head_defer_ok
+from xview2_tpu_torch.ops.augment import augment_batch, eval_batch
 from xview2_tpu_torch.ops.layout import relayout_standard
-from xview2_tpu_torch.ops.losses import make_loss_fn
+from xview2_tpu_torch.ops.losses import make_loss_fn, packed_loss_view_labels
 from xview2_tpu_torch.ops.metrics import F1State, update_f1_state
+from xview2_tpu_torch.train.optimizers import LearningRate, lr_at
 
 
 def resolve_device(device) -> torch.device:
@@ -64,3 +74,93 @@ def make_eval_step(cfg: Config, model, device="cuda"):
         return f1_state, loss, logits
 
     return step_fn
+
+
+@dataclasses.dataclass
+class TrainState:
+    """The step count with the model and the optimizer it counts for."""
+
+    step: int
+    model: torch.nn.Module
+    opt: torch.optim.Optimizer
+
+
+def init_train_state(model: torch.nn.Module, opt: torch.optim.Optimizer,
+                     device="cuda") -> TrainState:
+    """Move the model to ``device`` (the optimizer keeps pointing at the same
+    parameters; its state is created on first use) and start at step 0."""
+    model.to(resolve_device(device))
+    return TrainState(step=0, model=model, opt=opt)
+
+
+def step_generator(cfg: Config, global_step: int, device) -> torch.Generator:
+    """The random stream of one train step: a function of ``(cfg.seed ^
+    0x5EED, global_step)`` only, so a resumed run repeats an unbroken one."""
+    gen = torch.Generator(device=resolve_device(device))
+    gen.manual_seed((((cfg.seed ^ 0x5EED) & 0xFFFFFFFF) << 31) ^ global_step)
+    return gen
+
+
+def check_train_supported(cfg: Config) -> None:
+    """Raise for every train-step option outside the ported slice."""
+    if cfg.autoaugment:
+        raise NotImplementedError("--autoaugment is not ported to xview2_tpu_torch yet "
+                                  "(ROADMAP Queue 1, ops/autoaugment.py)")
+    if cfg.remat != "none":
+        raise NotImplementedError(f"--remat {cfg.remat} is not ported to xview2_tpu_torch yet "
+                                  "(ROADMAP Queue 1, remaining CLI knobs)")
+    if cfg.gpus != 1 or cfg.spatial_shards != 1:
+        raise NotImplementedError("--gpus/--spatial_shards > 1 are not ported yet "
+                                  "(ROADMAP Queue 1, multi-GPU)")
+
+
+def forward_loss(cfg: Config, model, loss_fn, x: torch.Tensor,
+                 y_main: torch.Tensor) -> torch.Tensor:
+    """Train-mode forward and loss of an augmented batch: the fused-tail
+    scope, the model, the relayout of the logits at the loss seam, the loss.
+    ``y_main`` is already in the logits' view (see ``make_train_step``)."""
+    with fused_tail_scope(bool(cfg.fused_tail), defer_head=fused_head_defer_ok(cfg)):
+        logits = model(x, True)
+    return loss_fn(relayout_standard(logits), y_main)
+
+
+def make_train_step(cfg: Config, model, opt: torch.optim.Optimizer, crop: int = 512,
+                    device="cuda", learning_rate: LearningRate = None,
+                    ) -> Callable[..., Tuple[TrainState, torch.Tensor]]:
+    """Build the augment+train step.  ``step_fn(state, images, masks, rng)``
+    takes raw uint8 (B, H, W, 3) tiles and (B, H, W) labels (numpy or
+    tensors; moved to ``device``) and a ``torch.Generator`` on the device
+    (:func:`step_generator`); it updates the model, its BN buffers and the
+    optimizer in place and returns ``(state, loss)``.  ``learning_rate`` is a
+    float or a schedule of the update count (default ``cfg.lr``)."""
+    dev = resolve_device(device)
+    check_train_supported(cfg)
+    loss_fn = make_loss_fn(cfg.loss_str, cfg.type)
+    packed_view = emits_packed_loss_view(cfg)
+    lr = cfg.lr if learning_rate is None else learning_rate
+
+    def step_fn(state: TrainState, images, masks, rng: torch.Generator):
+        images = torch.as_tensor(images).to(dev, non_blocking=True)
+        masks = torch.as_tensor(masks).to(dev, non_blocking=True)
+        with torch.no_grad():
+            x, y = augment_batch(rng, images, masks, crop=crop, bgr=cfg.bgr)
+            # the packed head emits train logits as a (B, H/2, 2W, n) pixel
+            # permutation; pair it with the same permutation of the labels
+            y_main = relayout_standard(packed_loss_view_labels(y) if packed_view else y)
+        loss = forward_loss(cfg, model, loss_fn, x, y_main)
+        loss.backward()
+        for group in opt.param_groups:
+            group["lr"] = lr_at(lr, state.step)
+        opt.step()
+        opt.zero_grad(set_to_none=True)
+        state.step += 1
+        return state, loss.detach()
+
+    return step_fn
+
+
+def make_train_multistep(*args, **kwargs):
+    """K fused train steps in one device program (JAX ``lax.scan``); an
+    experiment of the JAX package that its trainer does not use."""
+    raise NotImplementedError("make_train_multistep is not ported to xview2_tpu_torch yet "
+                              "(ROADMAP Queue 1, remaining CLI knobs)")

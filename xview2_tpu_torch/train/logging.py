@@ -40,3 +40,14 @@ def test_metrics(f1: float, dmgs_f1: Optional[Sequence[float]]) -> Dict[str, Any
         for i in range(4):
             metrics[f"D{i + 1}"] = round(float(dmgs_f1[i]), 3)
     return metrics
+
+
+def epoch_metrics(f1: float, val_loss: float, top_f1: float,
+                  dmgs_f1: Optional[Sequence[float]]) -> Dict[str, Any]:
+    """Validation-epoch payload (reference plt.py:104-112, 84-87)."""
+    metrics = {"f1": round(float(f1), 3), "val_loss": round(float(val_loss), 3),
+               "top_f1": round(float(top_f1), 3)}
+    if dmgs_f1 is not None:
+        for i in range(4):
+            metrics[f"D{i + 1}"] = round(float(dmgs_f1[i]), 3)
+    return metrics

@@ -1,30 +1,43 @@
-"""Eval mode (port of ``test``, ``_save_predictions`` and
-``_clear_task_artifacts`` of ``xview2_tpu/train/trainer.py``).
+"""Epoch driver: ``fit`` and ``test`` (port of
+``xview2_tpu/train/trainer.py``).
 
-``test(cfg)`` restores a checkpoint, runs the holdout split through the eval
-step, dumps ``probs/*.npy`` and ``targets/*.png`` in the JAX package's
-format (localization probs = sigmoid of channel 1, filenames
-``test_localization_{idx:05d}.npy`` and ``..._target.png``) and logs the F1.
-Training (``fit``) belongs to the next slice (ROADMAP Queue 1, train step).
+``fit(cfg)`` trains with per-epoch validation, keeps ``best`` (by F1) and
+``last`` checkpoints with the optimizer state, honours ``--patience`` and
+logs one JSON line per epoch; a run resumed from ``--ckpt`` repeats an
+unbroken one bit for bit (loader epoch, step count and per-step random
+streams are restored).  ``test(cfg)`` restores a checkpoint, runs the holdout
+split through the eval step, dumps ``probs/*.npy`` and ``targets/*.png`` in
+the JAX package's format (localization probs = sigmoid of channel 1,
+filenames ``test_localization_{idx:05d}.npy`` and ``..._target.png``) and
+logs the F1.
 """
 
 from __future__ import annotations
 
 import glob
+import math
 import os
+import time
 
 import numpy as np
 import torch
 from PIL import Image
 
 from xview2_tpu_torch.config import Config, apply_precision
-from xview2_tpu_torch.data.pipeline import make_test_loader
+from xview2_tpu_torch.data.pipeline import Loader, make_test_loader, make_train_loaders
+from xview2_tpu_torch.models.encoder import encoder_channels
 from xview2_tpu_torch.models.unet import build_model
+from xview2_tpu_torch.models.unet import check_supported as check_model_supported
+from xview2_tpu_torch.ops.losses import make_loss_fn
 from xview2_tpu_torch.ops.metrics import compute_f1, init_f1_state
 from xview2_tpu_torch.parallel import checkpoint as ckpt_lib
-from xview2_tpu_torch.parallel.steps import make_eval_step, resolve_device
-from xview2_tpu_torch.train.logging import MetricsLogger, test_metrics
-from xview2_tpu_torch.weights import from_flax
+from xview2_tpu_torch.parallel.steps import (TrainState, check_train_supported,
+                                             init_train_state, make_eval_step,
+                                             make_train_step, resolve_device, step_generator)
+from xview2_tpu_torch.train.logging import MetricsLogger, epoch_metrics, test_metrics
+from xview2_tpu_torch.train.optimizers import build_optimizer, check_optimizer
+from xview2_tpu_torch.train.scheduler import noam_schedule
+from xview2_tpu_torch.weights import from_flax, to_flax
 
 
 def _save_predictions(cfg: Config, logits: torch.Tensor, targets: np.ndarray,
@@ -59,10 +72,190 @@ def _clear_task_artifacts(cfg: Config) -> None:
             os.unlink(p)
 
 
+def _is_improvement(f1: float, best_f1: float, best_exists: bool) -> bool:
+    """Best-checkpoint selection, NaN-safe: under a NaN F1 a best checkpoint
+    is still written once, so eval always has one, but NaN never counts as an
+    improvement afterwards."""
+    if math.isnan(f1):
+        return not best_exists
+    return f1 >= best_f1
+
+
+def _warn_nan_f1(f1: float, per_class, epoch: int, patience_left: int) -> None:
+    """Say WHY the validation F1 is NaN instead of burning patience silently
+    (the damage harmonic mean is 0/0 when a class never occurs in the split)."""
+    if not math.isnan(f1) or per_class is None:
+        return
+    absent = [i + 1 for i, v in enumerate(per_class) if math.isnan(float(v))]
+    print(f"WARNING: val F1 is NaN at epoch {epoch}: damage class(es) {absent} "
+          f"never occur in the val split (no predictions or targets); "
+          f"early-stopping patience is still being consumed "
+          f"({patience_left} epoch(s) left)", flush=True)
+
+
+def initial_model(cfg: Config) -> torch.nn.Module:
+    """The model a fresh run starts from: torch's default initializers,
+    drawn from ``--seed`` alone (the global random state is left as it was)."""
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(cfg.seed)
+        model = build_model(cfg)
+    return model.double() if cfg.precision == 64 else model
+
+
+class Runner:
+    """Holds the device, the model, the optimizer and the steps of one run."""
+
+    def __init__(self, cfg: Config, steps_per_epoch: int, device="cuda"):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        apply_precision(cfg)
+        self.model = initial_model(cfg)
+        if cfg.use_scheduler:
+            self.learning_rate = noam_schedule(cfg.init_lr, cfg.lr, cfg.final_lr, cfg.warmup,
+                                               cfg.epochs, max(steps_per_epoch, 1))
+        else:
+            self.learning_rate = cfg.lr
+        self.opt = build_optimizer(cfg, self.model.parameters(), self.learning_rate)
+        self.state = init_train_state(self.model, self.opt, device=self.device)
+        self.train_step = make_train_step(cfg, self.model, self.opt, crop=cfg.train_crop,
+                                          device=self.device, learning_rate=self.learning_rate)
+        self.eval_step = make_eval_step(cfg, self.model, device=self.device)
+
+    def restore(self, path: str) -> dict:
+        """Load a training checkpoint into the model, the optimizer and the
+        step count; returns its metadata."""
+        payload, meta = ckpt_lib.restore_raw(path)
+        self.model.load_state_dict(from_flax(payload["params"], payload["batch_stats"]),
+                                   strict=True)
+        ckpt_lib.load_optimizer_arrays(self.model, self.opt, payload.get("opt_state", {}))
+        self.state.step = int(payload.get("train", {}).get("step", 0))
+        return meta
+
+    def save(self, path: str, *, epoch: int, best_f1: float, best_epoch: int) -> None:
+        ckpt_lib.save_checkpoint(path, *to_flax(self.model.state_dict()), epoch=epoch,
+                                 best_f1=best_f1, best_epoch=best_epoch, cfg=self.cfg,
+                                 opt_state=ckpt_lib.optimizer_arrays(self.model, self.opt),
+                                 step=self.state.step)
+
+    def run_eval(self, loader: Loader):
+        f1_state = init_f1_state(self.cfg.n_metric_class, device=self.device)
+        losses = []
+        for batch in loader:
+            f1_state, loss, _ = self.eval_step(f1_state, batch.image, batch.mask, batch.valid)
+            losses.append(loss)
+        val_loss = float(torch.stack(losses).mean()) if losses else float("nan")
+        f1, per_class = compute_f1(f1_state, self.cfg.n_metric_class)
+        return float(f1), per_class, val_loss
+
+
+def _check_fit_supported(cfg: Config) -> None:
+    """Raise for every option outside the ported slice BEFORE touching the
+    data: the model options, the encoder, the loss terms, the optimizer, the
+    train-step options and the initializations."""
+    check_model_supported(cfg)
+    encoder_channels(cfg.encoder)
+    make_loss_fn(cfg.loss_str, cfg.type)
+    check_optimizer(cfg)
+    check_train_supported(cfg)
+    if cfg.pretrained_enc:
+        raise NotImplementedError("--pretrained_enc is not ported to xview2_tpu_torch yet "
+                                  "(ROADMAP Queue 1, models/pretrained.py)")
+    if cfg.ckpt_pre:
+        raise NotImplementedError("--ckpt_pre (the localization transplant) is not ported yet "
+                                  "(ROADMAP Queue 1, damage variants)")
+    if not cfg.fold_eval_bn:
+        raise NotImplementedError("--fold_eval_bn 0 is not ported: eval BatchNorm always "
+                                  "runs folded (ROADMAP Queue 1, remaining CLI knobs)")
+
+
+def fit(cfg: Config, device="cuda") -> str:
+    """Train with per-epoch validation; returns the best checkpoint path.
+    Runs on ``device``, CUDA by default."""
+    resolve_device(device)
+    _check_fit_supported(cfg)
+    train_loader, val_loader = make_train_loaders(cfg)
+    runner = Runner(cfg, len(train_loader), device=device)
+    state: TrainState = runner.state
+
+    start_epoch = 0
+    best_f1, best_epoch = 0.0, 0
+    if ckpt_lib.checkpoint_exists(cfg.ckpt):
+        meta = runner.restore(cfg.ckpt)
+        start_epoch = meta["epoch"] + 1
+        best_f1, best_epoch = meta["best_f1"], meta["best_epoch"]
+        # the loader's shuffle seed is a function of its epoch counter, which
+        # starts at 0 for every fresh Loader: restore it, or a resumed run
+        # replays epoch 0's sample order instead of epoch E's
+        train_loader.epoch = start_epoch
+        print(f"resumed from {cfg.ckpt} at epoch {start_epoch}", flush=True)
+
+    logger = MetricsLogger(cfg.results, cfg.logname)
+    best_path = os.path.join(cfg.results, "checkpoints", "best")
+    last_path = os.path.join(cfg.results, "checkpoints", "last")
+    patience_left = cfg.patience
+
+    prof = None
+    if cfg.profile:
+        from torch.profiler import ProfilerActivity, profile
+
+        acts = [ProfilerActivity.CPU]
+        if runner.device.type == "cuda":
+            acts.append(ProfilerActivity.CUDA)
+        prof = profile(activities=acts)
+        prof.start()
+    # stop after 6 steps from here (resume-safe), or at loop exit if the run
+    # is shorter: a trace must never be left running
+    profile_stop_at = state.step + 6
+
+    def stop_profile():
+        nonlocal prof
+        prof.stop()
+        os.makedirs(os.path.join(cfg.results, "profile"), exist_ok=True)
+        prof.export_chrome_trace(os.path.join(cfg.results, "profile", "trace.json"))
+        prof = None
+
+    for epoch in range(start_epoch, cfg.epochs):
+        t0 = time.time()
+        n_imgs = 0
+        for batch in train_loader:
+            rng = step_generator(cfg, state.step, runner.device)
+            state, _ = runner.train_step(state, batch.image, batch.mask, rng)
+            n_imgs += batch.image.shape[0]
+            if prof is not None and state.step >= profile_stop_at:
+                stop_profile()
+        if runner.device.type == "cuda":
+            torch.cuda.synchronize(runner.device)
+        train_time = time.time() - t0
+
+        f1, per_class, val_loss = runner.run_eval(val_loader)
+        _warn_nan_f1(f1, per_class, epoch, patience_left)
+        if _is_improvement(f1, best_f1, ckpt_lib.checkpoint_exists(best_path)):
+            if not math.isnan(f1):  # never poison best_f1 with NaN
+                best_f1, best_epoch = f1, epoch
+                patience_left = cfg.patience
+            runner.save(best_path, epoch=epoch, best_f1=best_f1, best_epoch=best_epoch)
+        else:
+            patience_left -= 1
+        runner.save(last_path, epoch=epoch, best_f1=best_f1, best_epoch=best_epoch)
+
+        data = epoch_metrics(f1, val_loss, best_f1, per_class)
+        data["imgs_per_sec"] = round(n_imgs / max(train_time, 1e-9), 2)
+        logger.log(epoch, data)
+
+        if patience_left <= 0:
+            print(f"early stopping at epoch {epoch} (patience {cfg.patience})", flush=True)
+            break
+
+    if prof is not None:  # run shorter than the 6-step window
+        stop_profile()
+    logger.close()
+    return best_path
+
+
 def _check_supported(cfg: Config) -> None:
     if not cfg.fold_eval_bn:
         raise NotImplementedError("--fold_eval_bn 0 is not ported: eval BatchNorm always "
-                                  "runs folded (ROADMAP Queue 1, open items)")
+                                  "runs folded (ROADMAP Queue 1, remaining CLI knobs)")
     if cfg.gpus != 1 or cfg.spatial_shards != 1:
         raise NotImplementedError("--gpus/--spatial_shards > 1 are not ported yet "
                                   "(ROADMAP Queue 1, multi-GPU)")
