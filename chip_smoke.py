@@ -4,7 +4,7 @@
 Run from the root of a checkout on a machine with one NVIDIA GPU::
 
     python3 chip_smoke.py            # build, check, time, drive the eval and train CLIs
-    python3 chip_smoke.py --profile  # also print per-kernel profiles of one eval and one train step
+    python3 chip_smoke.py --profile  # also print per-kernel profiles of the eval and train steps
 
 Phases, each of which fails the script (non-zero exit, no result line):
 
@@ -27,7 +27,16 @@ Phases, each of which fails the script (non-zero exit, no result line):
    and read just after (two train steps, validation, checkpoints); then the
    train step's steady state, fused tail against stock tail, and a small
    float32 train step on the card against the same step on the CPU;
-6. one JSON line listing every kernel, then the ``nvidia-smi`` line, then
+6. the small-channel conv entry point: ``conv3x3_small`` forward and
+   backward at (16, 512, 512, 32) -> 32 in bfloat16 with the counters set to
+   0 just before (K7 twice, K8 once), its output and gradients held against
+   autograd through the library convolution;
+7. the ``--autoaugment`` train main path: ``main([... --exec_mode train
+   --autoaugment ...])`` on the same train split with the counters set to 0
+   just before and read just after (K6 and K1-K5); the AutoAugment chain on
+   the card against the CPU on the same draws at full size; then the
+   AutoAugment train step's steady state beside the plain-augmentation step;
+8. one JSON line listing every kernel, then the ``nvidia-smi`` line, then
    ``{"ok": true, "device": {...}}`` as the last line.
 """
 
@@ -443,6 +452,190 @@ def check_head_conv_fused():
     return row
 
 
+# K6 shapes of the --autoaugment train path: a shear of 512^2 crops, and the
+# two passes of the three-shear rotation on the map widened to 654 columns
+# (the first and third pass shift rows, the second shifts columns)
+AA_GROUP = 2    # a typical group: 17% of a batch of 16 draw a spatial op
+ROT_WIDTH = CROP + 2 * (int(math.ceil(0.2680 * (CROP - 1) / 2.0)) + 2)
+
+
+def _row_shift_cases(n):
+    """(tag, x, shift, sel, axis) at the path's shapes and shift patterns."""
+    import numpy as np
+    import torch
+
+    from xview2_tpu_torch.ops import autoaugment as aa
+
+    gen = torch.Generator(device="cuda").manual_seed(60 + n)
+
+    def image(w, c=4):
+        return torch.randint(0, 256, (n, CROP, w, c), generator=gen, device="cuda").float()
+
+    rows = torch.arange(CROP, dtype=torch.float32, device="cuda")
+    cols = torch.arange(ROT_WIDTH, dtype=torch.float32, device="cuda")
+    mags = np.resize(np.array([30.0, -26.666666, 10.0], np.float32), n)
+    a, b = (torch.from_numpy(v).cuda() for v in aa.rotate_shear_factors(mags))
+    shear = torch.full((n, 1), float(aa._M1[18]), device="cuda") * rows[None, :]
+    lerp = torch.ones(n, dtype=torch.int32, device="cuda")
+    near = torch.zeros(n, dtype=torch.int32, device="cuda")
+    return [
+        ("shear", image(CROP), shear, lerp, 2),
+        ("rotate row pass", image(ROT_WIDTH), a[:, None] * (rows - (CROP - 1) / 2.0)[None, :],
+         near, 2),
+        ("rotate column pass", image(ROT_WIDTH),
+         b[:, None] * (cols - (ROT_WIDTH - 1) / 2.0)[None, :], near, 1),
+    ]
+
+
+def check_row_shift():
+    """K6 at the three shapes of the --autoaugment path against its plain
+    version: EQUAL (tolerance 0).  No PyTorch call computes this function, so
+    ``library_ms`` is null; ``clone`` of the same bytes is printed as the
+    card's copy rate.  The row sums one step's typical launches: a rotation
+    (row, column, row pass) and a shear on a group of AA_GROUP samples."""
+    import torch
+
+    from xview2_tpu_torch.ops import rowshift
+
+    row = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=None, bound_ms=0.0,
+               bound_by="bytes")
+    for n in (AA_GROUP, TRAIN_BATCH):
+        for tag, x, shift, sel, axis in _row_shift_cases(n):
+            got = rowshift.row_shift(x, shift, sel, axis=axis)
+            want = rowshift.row_shift_reference(x, shift, sel, axis=axis)
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            if not torch.equal(got, want):
+                raise AssertionError(f"K6 row_shift {tag} {tuple(x.shape)}: not bit-equal to "
+                                     f"the plain version, max abs err {err:.4g}")
+            ms = cuda_ms(lambda: rowshift.row_shift(x, shift, sel, axis=axis), 20)
+            plain = cuda_ms(lambda: rowshift.row_shift_reference(x, shift, sel, axis=axis), 5)
+            copy = cuda_ms(lambda: x.clone(), 20)
+            bnd, by = bound_ms(2 * x.numel() * 4 + shift.numel() * 4 + sel.numel() * 4, 0.0,
+                               "float32")
+            log(f"K6 row_shift {tag} {tuple(x.shape)} f32 axis {axis}: bit-equal (tolerance 0), "
+                f"kernel {ms:.4f} ms ({2 * x.numel() * 4 / ms / 1e9:.3f} TB/s), plain "
+                f"{plain:.4f} ms, clone of the same bytes {copy:.4f} ms, bound {bnd:.4f} ms ({by})")
+            if n == AA_GROUP:
+                times = 2 if tag == "rotate row pass" else 1
+                row["ms"] += times * ms
+                row["plain_ms"] += times * plain
+                row["bound_ms"] += times * bnd
+    # a 7-channel pair (pre + post + mask), lerp and nearest samples in one batch
+    gen = torch.Generator(device="cuda").manual_seed(61)
+    x = torch.randint(0, 256, (2, CROP, CROP, 7), generator=gen, device="cuda").float()
+    shift = (torch.rand((2, CROP), generator=gen, device="cuda") - 0.5) * 2.2 * CROP
+    sel = torch.tensor([1, 0], dtype=torch.int32, device="cuda")
+    for axis in (2, 1):
+        if not torch.equal(rowshift.row_shift(x, shift, sel, axis=axis),
+                           rowshift.row_shift_reference(x, shift, sel, axis=axis)):
+            raise AssertionError(f"K6 row_shift C=7 axis {axis}: not bit-equal")
+    log(f"K6 row_shift (2, {CROP}, {CROP}, 7) f32, shifts past both edges, axes 2 and 1: "
+        f"bit-equal; per --autoaugment step with one rotation and one shear group of "
+        f"{AA_GROUP} samples (4 launches): kernel {row['ms']:.4f} ms, plain "
+        f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms (bytes)")
+    return row
+
+
+SMALL_CONV = (16, 512, 512, 32, 32)   # (B, H, W, C, Co), bfloat16
+
+
+def _small_conv_case(shape, dtype, seed):
+    import torch
+
+    b, h, w, c, co = shape
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((b, h, w, c), generator=gen, device="cuda").to(dtype)
+    g = torch.randn((b, h, w, co), generator=gen, device="cuda").to(dtype)
+    k = (torch.randn((3, 3, c, co), generator=gen, device="cuda") / math.sqrt(9 * c)).to(dtype)
+    return x, g, k
+
+
+def _compare_small_fwd(got, want, tag):
+    """Within one rounding of the output dtype plus 1e-3 of the scale (the
+    f32 sums run in another order)."""
+    import torch
+
+    gf, wf = got.float(), want.float()
+    err = (gf - wf).abs()
+    scale = wf.abs().max().item()
+    if not bool((err <= 2 * torch.finfo(want.dtype).eps * wf.abs() + 1e-3 * scale).all()):
+        raise AssertionError(f"{tag}: disagrees, max abs err {err.max().item():.4g}")
+    return err.max().item()
+
+
+def check_small_conv():
+    """K7 (forward, and as dx with the flipped, IO-transposed kernel) and K8
+    (dW) at (16, 512, 512, 32) -> 32 in bfloat16 and at one float32 shape
+    against their plain versions; times beside the plain version, one library
+    call each (``F.conv2d``, ``torch.nn.grad.conv2d_weight``) and the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from xview2_tpu_torch.ops import small_conv as sc
+
+    b, h, w, c, co = SMALL_CONV
+    x, g, k = _small_conv_case(SMALL_CONV, torch.bfloat16, seed=80)
+    kmat = sc.kernel_to_mat(k)
+    kflip = sc.kernel_to_mat(k.flip(0, 1).permute(0, 1, 3, 2)).contiguous()
+    e_fwd = _compare_small_fwd(sc.small_conv_fwd(x, kmat), sc.reference_conv3x3(x, kmat),
+                               "K7 small_conv_fwd bf16")
+    e_dx = _compare_small_fwd(sc.small_conv_fwd(g, kflip), sc.reference_conv3x3(g, kflip),
+                              "K7 small_conv_fwd bf16 (dx)")
+    e_dw, r_dw = _compare_wgrad(sc.small_conv_wgrad(x, g), sc.reference_wgrad(x, g),
+                                "K8 small_conv_wgrad bf16")
+    torch.cuda.synchronize()
+    log(f"K7/K8 {(b, h, w, c)}->{co} bf16: out max abs err {e_fwd:.4g}, dx max abs err "
+        f"{e_dx:.4g} (tolerance 2*eps*|out| + 1e-3*max|out|), dW max abs err {e_dw:.4g} "
+        f"({r_dw:.3g} of max|dW|, tolerance 1e-3)")
+    xc, gc = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)
+    kc = k.permute(3, 2, 0, 1).contiguous()
+    kfc = k.flip(0, 1).permute(2, 3, 0, 1).contiguous()  # (C, Co, 3, 3): the dx conv's OIHW
+    flops = 2.0 * b * h * w * 9 * c * co
+    act = b * h * w * (c + co) * 2
+    rows = {}
+    ms = cuda_ms(lambda: sc.small_conv_fwd(x, kmat), 5)
+    dx_ms = cuda_ms(lambda: sc.small_conv_fwd(g, kflip), 5)
+    plain = cuda_ms(lambda: sc.reference_conv3x3(x, kmat), 5)
+    lib = cuda_ms(lambda: F.conv2d(xc, kc, padding=1), 5)
+    lib_dx = cuda_ms(lambda: F.conv2d(gc, kfc, padding=1), 5)
+    bnd, by = bound_ms(act + 9 * c * co * 2, flops, "bfloat16")
+    log(f"K7 small_conv_fwd timing: kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s, "
+        f"{act / ms / 1e9:.3f} TB/s), as dx {dx_ms:.3f} ms, plain {plain:.3f} ms, library "
+        f"(cuDNN conv) {lib:.3f} ms, as dx {lib_dx:.3f} ms, bound {bnd:.3f} ms ({by})")
+    rows["small_conv_fwd"] = dict(max_abs_err=max(e_fwd, e_dx), ms=ms, dx_ms=dx_ms,
+                                  plain_ms=plain, library_ms=lib, bound_ms=bnd, bound_by=by)
+    ms = cuda_ms(lambda: sc.small_conv_wgrad(x, g), 5)
+    plain = cuda_ms(lambda: sc.reference_wgrad(x, g), 2)
+    lib = cuda_ms(lambda: torch.nn.grad.conv2d_weight(xc, kc.shape, gc, padding=1), 5)
+    bnd, by = bound_ms(act + 9 * c * co * 4, flops, "bfloat16")
+    log(f"K8 small_conv_wgrad timing: kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s), "
+        f"plain {plain:.3f} ms, library (cuDNN wgrad) {lib:.3f} ms, bound {bnd:.3f} ms ({by})")
+    rows["small_conv_wgrad"] = dict(max_abs_err=e_dw, ms=ms, plain_ms=plain, library_ms=lib,
+                                    bound_ms=bnd, bound_by=by)
+    del x, g, xc, gc
+    torch.cuda.empty_cache()
+    # odd channel counts of the domain (padding to 16 inside the kernels) and
+    # a ragged width, in bfloat16; then one float32 shape (FMA kernels, TF32 off)
+    for shape, dtype in (((2, 70, 200, 24, 40), torch.bfloat16),
+                         ((4, 256, 256, 32, 32), torch.float32)):
+        x, g, k = _small_conv_case(shape, dtype, seed=81)
+        kmat = sc.kernel_to_mat(k)
+        e_fwd = _compare_small_fwd(sc.small_conv_fwd(x, kmat), sc.reference_conv3x3(x, kmat),
+                                   f"K7 {shape} {dtype}")
+        e_dw, r_dw = _compare_wgrad(sc.small_conv_wgrad(x, g), sc.reference_wgrad(x, g),
+                                    f"K8 {shape} {dtype}")
+        ms7 = cuda_ms(lambda: sc.small_conv_fwd(x, kmat), 3)
+        p7 = cuda_ms(lambda: sc.reference_conv3x3(x, kmat), 3)
+        ms8 = cuda_ms(lambda: sc.small_conv_wgrad(x, g), 3)
+        p8 = cuda_ms(lambda: sc.reference_wgrad(x, g), 3)
+        log(f"K7/K8 {shape[:4]}->{shape[4]} {str(dtype).split('.')[-1]}: out max abs err "
+            f"{e_fwd:.4g}, dW max abs err {e_dw:.4g} ({r_dw:.3g} of max|dW|); forward kernel "
+            f"{ms7:.3f} ms, plain {p7:.3f} ms; wgrad kernel {ms8:.3f} ms, plain {p8:.3f} ms "
+            f"(plain versions with TF32 off)")
+    return rows
+
+
 # --------------------------------------------------------------- main path
 
 def seeded_model(cfg, seed: int):
@@ -470,11 +663,12 @@ def seeded_model(cfg, seed: int):
 
 
 def _counters():
-    from xview2_tpu_torch.ops import layout
+    from xview2_tpu_torch.ops import layout, rowshift, small_conv
     from xview2_tpu_torch.ops import packed_fused_conv as pfc
 
     return (layout.relayout_cuda, pfc.conv_bn_fused, pfc.head_conv_fused, pfc.conv_bn_wgrad,
-            pfc.conv_bn_dgrad)
+            pfc.conv_bn_dgrad, rowshift.row_shift_cuda, small_conv.small_conv_fwd,
+            small_conv.small_conv_wgrad)
 
 
 def _zero_counters() -> None:
@@ -590,31 +784,22 @@ def run_eval_path(work: str, profile: bool):
     return launches
 
 
-def run_train_path(work: str, profile: bool):
-    """The train main path through ``main``, then the train step's steady
-    state (fused tail against stock tail) on a device-resident batch."""
-    import numpy as np
+def _drive_train_cli(work: str, results_name: str, extra_argv, need_total: dict, tag: str):
+    """``main([--exec_mode train ...])`` on the synthetic train split with the
+    launch counters set to 0 just before and read just after; then its log
+    and both checkpoints are checked.  Returns the launch counts."""
     import torch
 
-    from xview2_tpu_torch.config import Config
-    from xview2_tpu_torch.data.synthetic import make_synthetic_split
     from xview2_tpu_torch.main import main as port_main
     from xview2_tpu_torch.parallel import checkpoint as ckpt_lib
-    from xview2_tpu_torch.parallel.steps import (init_train_state, make_train_step,
-                                                 step_generator)
-    from xview2_tpu_torch.train.optimizers import build_optimizer
     from xview2_tpu_torch.train.trainer import initial_model
     from xview2_tpu_torch.weights import from_flax
 
-    t0 = time.perf_counter()
-    make_synthetic_split(work, "train", TRAIN_TILES, size=TILE, seed=11)
-    make_synthetic_split(work, "test", TRAIN_VAL_TILES, size=TILE, seed=12)
-    log(f"train path setup (train split of {TRAIN_TILES} tiles and validation split of "
-        f"{TRAIN_VAL_TILES} tiles of {TILE}^2): {time.perf_counter() - t0:.1f} s")
-    results = os.path.join(work, "train_results")
+    results = os.path.join(work, results_name)
     argv = ["--exec_mode", "train", "--type", "pre", "--encoder", "resnet50", "--fused_tail",
             "1", "--batch_size", str(TRAIN_BATCH), "--epochs", "1", "--val_batch_size",
             str(VAL_BATCH), "--num_workers", "8", "--data", work, "--results", results]
+    argv += list(extra_argv)
     _zero_counters()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -625,13 +810,12 @@ def run_train_path(work: str, profile: bool):
     if rc != 0:
         raise AssertionError(f"main returned {rc}")
     steps = TRAIN_TILES // TRAIN_BATCH
-    log(f"train main path: main(--exec_mode train, {TRAIN_TILES} tiles = {steps} steps at batch "
-        f"{TRAIN_BATCH} of {CROP}^2 crops, validation on {TRAIN_VAL_TILES} tiles, best and last "
-        f"checkpoints) {wall:.2f} s end to end (index build, model build and PNG decode "
-        f"included); launches {launches}")
-    _need_launches(launches, {"relayout_cuda": 3 * steps, "conv_bn_fused": 6 * steps,
-                              "head_conv_fused": steps, "conv_bn_wgrad": 6 * steps,
-                              "conv_bn_dgrad": 6 * steps}, "train")
+    log(f"{tag} main path: main(--exec_mode train {' '.join(extra_argv)}, {TRAIN_TILES} tiles = "
+        f"{steps} steps at batch {TRAIN_BATCH} of {CROP}^2 crops, validation on "
+        f"{TRAIN_VAL_TILES} tiles, best and last checkpoints) {wall:.2f} s end to end (index "
+        f"build, model build and PNG decode included); launches {launches}")
+    _need_launches(launches, dict({k: n * steps for k, n in TRAIN_NEED.items()}, **need_total),
+                   tag)
     with open(os.path.join(results, "logs.json")) as f:
         metrics = json.loads(f.readlines()[-1])["data"]
     if not (math.isfinite(metrics["val_loss"]) and metrics["imgs_per_sec"] > 0):
@@ -655,45 +839,188 @@ def run_train_path(work: str, profile: bool):
             raise AssertionError(f"{name}: finite={finite}, {len(moved)} of {len(trained)} "
                                  f"tensors differ from the initial ones ({len(stats)} running "
                                  "statistics)")
-    log(f"train main path outputs: metrics {metrics}; best and last checkpoints reload, step "
+    log(f"{tag} main path outputs: metrics {metrics}; best and last checkpoints reload, step "
         f"{steps}, {len(moved)} of {len(trained)} tensors moved from their initial values "
         f"({len(stats)} BN running statistics), all finite")
+    return launches
 
-    # steady state of the train step on a device-resident batch of raw tiles
+
+TRAIN_NEED = {"relayout_cuda": 3, "conv_bn_fused": 6, "head_conv_fused": 1, "conv_bn_wgrad": 6,
+              "conv_bn_dgrad": 6}   # launches per train step
+
+
+def _raw_train_batch():
+    """A device-resident batch of raw tiles for the steady-state timings."""
+    import numpy as np
+    import torch
+
     rng = np.random.default_rng(13)
     images = torch.from_numpy(
         rng.integers(0, 256, (TRAIN_BATCH, TILE, TILE, 3), np.uint8)).cuda()
     masks = torch.from_numpy((rng.random((TRAIN_BATCH, TILE, TILE)) > 0.9)
                              .astype(np.uint8)).cuda()
+    return images, masks
+
+
+def _time_train_step(cfg, images, masks, profile: bool, tag: str) -> None:
+    """Steady state of the train step of ``cfg`` on a device-resident batch:
+    CUDA events over 3 steps after 1 warm-up, peak memory, launch counts."""
+    import torch
+
+    from xview2_tpu_torch.parallel.steps import (init_train_state, make_train_step,
+                                                 step_generator)
+    from xview2_tpu_torch.train.optimizers import build_optimizer
+
+    model = seeded_model(cfg, seed=0)
+    opt = build_optimizer(cfg, model.parameters(), cfg.lr)
+    state = init_train_state(model, opt, device="cuda")
+    step = make_train_step(cfg, model, opt, crop=CROP, device="cuda")
+    losses = []
+
+    def one_step():
+        losses.append(step(state, images, masks, step_generator(cfg, state.step, "cuda"))[1])
+
+    _zero_counters()
+    torch.cuda.reset_peak_memory_stats()
+    ms = cuda_ms(one_step, 3)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    vals = [float(v) for v in losses]
+    if not all(math.isfinite(v) for v in vals):
+        raise AssertionError(f"train step losses are not finite: {vals}")
+    log(f"train step ({tag}, batch {TRAIN_BATCH} raw {TILE}^2 tiles -> {CROP}^2 crops, bf16, "
+        f"AdamW): {ms:.2f} ms = {TRAIN_BATCH / ms * 1e3:.3f} tiles/s, peak memory {peak:.2f} "
+        f"GiB, losses {[round(v, 4) for v in vals]}, launches over 4 steps "
+        f"{ {k: v for k, v in _read_counters().items() if v} }")
+    if profile:
+        profile_step(one_step, f"train step, {tag}")
+    del model, opt, state, step
+    torch.cuda.empty_cache()
+
+
+def run_train_path(work: str, profile: bool):
+    """The train main path through ``main``, then the train step's steady
+    state (fused tail against stock tail) on a device-resident batch."""
+    from xview2_tpu_torch.config import Config
+    from xview2_tpu_torch.data.synthetic import make_synthetic_split
+
+    t0 = time.perf_counter()
+    make_synthetic_split(work, "train", TRAIN_TILES, size=TILE, seed=11)
+    make_synthetic_split(work, "test", TRAIN_VAL_TILES, size=TILE, seed=12)
+    log(f"train path setup (train split of {TRAIN_TILES} tiles and validation split of "
+        f"{TRAIN_VAL_TILES} tiles of {TILE}^2): {time.perf_counter() - t0:.1f} s")
+    launches = _drive_train_cli(work, "train_results", [], {}, "train")
+
+    images, masks = _raw_train_batch()
     base = Config(type="pre", encoder="resnet50", precision=16, loss_str="focal+dice",
                   batch_size=TRAIN_BATCH, optimizer="adamw")
     for fused in (True, False):
-        cfg = base.replace(fused_tail=fused)
-        model = seeded_model(cfg, seed=0)
-        opt = build_optimizer(cfg, model.parameters(), cfg.lr)
-        state = init_train_state(model, opt, device="cuda")
-        step = make_train_step(cfg, model, opt, crop=CROP, device="cuda")
-        losses = []
-
-        def one_step():
-            losses.append(step(state, images, masks, step_generator(cfg, state.step, "cuda"))[1])
-
-        _zero_counters()
-        torch.cuda.reset_peak_memory_stats()
-        ms = cuda_ms(one_step, 3)
-        peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        vals = [float(v) for v in losses]
-        if not all(math.isfinite(v) for v in vals):
-            raise AssertionError(f"train step losses are not finite: {vals}")
-        log(f"train step ({'fused tail' if fused else 'stock tail'}, batch {TRAIN_BATCH} raw "
-            f"{TILE}^2 tiles -> {CROP}^2 crops, bf16, AdamW): {ms:.2f} ms = "
-            f"{TRAIN_BATCH / ms * 1e3:.3f} tiles/s, peak memory {peak:.2f} GiB, losses "
-            f"{[round(v, 4) for v in vals]}, launches over 4 steps {_read_counters()}")
-        if profile:
-            profile_step(one_step, f"train step, {'fused' if fused else 'stock'} tail")
-        del model, opt, state, step
-        torch.cuda.empty_cache()
+        _time_train_step(base.replace(fused_tail=fused), images, masks, profile,
+                         "fused tail" if fused else "stock tail")
     check_f32_train_step_against_cpu()
+    return launches
+
+
+def run_small_conv_path():
+    """The second entry point: ``conv3x3_small`` forward and backward at
+    (16, 512, 512, 32) -> 32 in bfloat16, counters from 0.  Its output and
+    both gradients are held against autograd through the library convolution
+    on the same tensors: within one bf16 rounding plus 1e-2 of the scale (the
+    cotangent 2*out is itself rounded to bf16 on both sides)."""
+    import torch
+
+    from xview2_tpu_torch.ops import small_conv as sc
+    from xview2_tpu_torch.ops.packed_fused_conv import conv3x3_nhwc
+
+    x, _, k = _small_conv_case(SMALL_CONV, torch.bfloat16, seed=85)
+    x.requires_grad_()
+    k.requires_grad_()
+    _zero_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = sc.conv3x3_small(x, k)
+    loss = (out.float() ** 2).mean()
+    loss.backward()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    launches = _read_counters()
+    _need_launches(launches, {"small_conv_fwd": 2, "small_conv_wgrad": 1}, "conv3x3_small")
+    xr, kr = x.detach().clone().requires_grad_(), k.detach().clone().requires_grad_()
+    ref = conv3x3_nhwc(xr, kr)
+    (ref.float() ** 2).mean().backward()
+    torch.cuda.synchronize()
+    errs = []
+    for name, got, want in (("out", out, ref), ("dx", x.grad, xr.grad), ("dk", k.grad, kr.grad)):
+        gf, wf = got.detach().float(), want.detach().float()
+        if got.shape != want.shape or got.dtype != torch.bfloat16 or \
+                not bool(torch.isfinite(gf).all()):
+            raise AssertionError(f"conv3x3_small {name}: shape, dtype or values are off")
+        err = (gf - wf).abs()
+        if not bool((err <= 2 ** -7 * wf.abs() + 1e-2 * wf.abs().max()).all()):
+            raise AssertionError(f"conv3x3_small {name} disagrees with the library's autograd: "
+                                 f"max abs err {err.max().item():.4g}")
+        errs.append(f"{name} {err.max().item():.3g} of {wf.abs().max().item():.3g}")
+    log(f"conv3x3_small path: forward and backward at {SMALL_CONV[:4]}->{SMALL_CONV[4]} bf16 in "
+        f"{wall:.2f} ms (first use), loss {loss.item():.6f}; max abs err against autograd "
+        f"through the library conv: {', '.join(errs)} (tolerance 2^-7*|v| + 1e-2*max|v|); "
+        f"launches { {k: v for k, v in launches.items() if v} }")
+    return launches
+
+
+def check_autoaugment_against_cpu() -> None:
+    """The --autoaugment chain (crop, AutoAugment, normalize) on the card,
+    through K6, against the same chain on the CPU, through the plain
+    version, on the same draws at full size (16 raw 1024^2 tiles -> 512^2
+    crops).  Labels EQUAL.  The image within 1e-5 of the normalized scale,
+    except where contrast's mean (a float32 sum of 262,144 pixels, in another
+    order on the card) lands on another side of .5."""
+    import torch
+
+    from xview2_tpu_torch.ops import augment, autoaugment, rowshift
+
+    images, masks = _raw_train_batch()
+    gen = torch.Generator().manual_seed(21)
+    d = augment.draw_augment_autoaugment(gen, masks.cpu(), CROP)
+    # every subpolicy with a spatial op at least once, slots forced to fire
+    pol = torch.tensor([0, 5, 8, 10, 11, 15, 18, 18], dtype=d.aa.policy.dtype)[:TRAIN_BATCH]
+    d.aa.policy[:len(pol)] = pol
+    d.aa.u1[:len(pol)] = 0.0
+    d.aa.u2[:len(pol)] = 0.0
+    want_x, want_y = augment.apply_augment_autoaugment(images.cpu(), masks.cpu(), d, CROP)
+    dc = augment.AutoAugmentBranchDraws(
+        d.pix_y.cuda(), d.pix_x.cuda(), d.off_y.cuda(), d.off_x.cuda(),
+        autoaugment.AutoAugmentDraws(d.aa.policy.cuda(), d.aa.u1.cuda(), d.aa.u2.cuda(),
+                                     d.aa.neg1.cuda(), d.aa.neg2.cuda()))
+    before = rowshift.row_shift_cuda.launches
+    got_x, got_y = augment.apply_augment_autoaugment(images, masks, dc, CROP)
+    torch.cuda.synchronize()
+    launched = rowshift.row_shift_cuda.launches - before
+    err = (got_x.cpu() - want_x).abs().amax(dim=(1, 2, 3))
+    labels_equal = torch.equal(got_y.cpu(), want_y)
+    log(f"--autoaugment chain ({TRAIN_BATCH} x {TILE}^2 -> {CROP}^2, every spatial subpolicy "
+        f"forced: two rotation groups and a shear group, 7 launches or more), "
+        f"card through K6 vs CPU through the plain version: labels equal: {labels_equal}, "
+        f"image max abs err per sample {[float(f'{e:.2g}') for e in err.tolist()]} (tolerance "
+        f"1e-5 normalized), {launched} K6 launches")
+    if not (labels_equal and launched >= 7 and float(err.max()) <= 1e-5
+            and bool(torch.isfinite(got_x).all())):
+        raise AssertionError("the --autoaugment chain on the card disagrees with the CPU")
+
+
+def run_autoaugment_path(work: str, profile: bool):
+    """The --autoaugment train main path through ``main`` (the train split of
+    ``run_train_path``), the chain against the CPU, then the AutoAugment train
+    step's steady state beside the plain-augmentation step, in turns."""
+    from xview2_tpu_torch.config import Config
+
+    launches = _drive_train_cli(work, "autoaugment_results", ["--autoaugment"],
+                                {"row_shift_cuda": 1}, "--autoaugment train")
+    check_autoaugment_against_cpu()
+    images, masks = _raw_train_batch()
+    base = Config(type="pre", encoder="resnet50", precision=16, loss_str="focal+dice",
+                  batch_size=TRAIN_BATCH, optimizer="adamw", fused_tail=True)
+    for aa in (False, True, True, False):
+        _time_train_step(base.replace(autoaugment=aa), images, masks, profile and aa,
+                         "fused tail, --autoaugment" if aa else "fused tail, plain augmentation")
     return launches
 
 
@@ -802,7 +1129,10 @@ def check_f32_against_cpu() -> None:
 
 
 # kernel-name fragments -> category of a step's breakdown
-_CATEGORIES = (("K4 conv_bn_wgrad", ("wgrad_bf16_kernel", "wgrad_f32_kernel")),
+_CATEGORIES = (("K6 row_shift", ("row_shift_kernel",)),
+               ("K7 small_conv_fwd", ("small_fwd_bf16_kernel", "small_fwd_f32_kernel")),
+               ("K8 small_conv_wgrad", ("small_wgrad_bf16_kernel", "small_wgrad_f32_kernel")),
+               ("K4 conv_bn_wgrad", ("wgrad_bf16_kernel", "wgrad_f32_kernel")),
                ("K5 conv_bn_dgrad", ("dgrad_bf16_kernel", "dgrad_f32_kernel")),
                ("K2 conv_bn_fused", ("conv_bf16_kernel", "conv_f32_kernel")),
                ("K3 head_conv_fused", ("head_kernel",)),
@@ -846,7 +1176,7 @@ def profile_step(fn, tag: str) -> None:
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
-                        help="print torch.profiler tables of one eval and one train step")
+                        help="print torch.profiler tables of the eval and train steps")
     args = parser.parse_args(argv)
     if not os.path.isdir(os.path.join(ROOT, "xview2_tpu_torch")):
         print("chip_smoke.py must run from a checkout holding xview2_tpu_torch/", file=sys.stderr)
@@ -865,48 +1195,73 @@ def main(argv=None) -> int:
 
     from xview2_tpu_torch.ops import cuda_build
 
+    t_start = time.perf_counter()
     log(f"kernel build: {cuda_build.build_all():.1f} s (nvcc, one per source, in parallel)")
     rows = {"relayout": check_relayout(), "conv_bn_fused": check_conv_bn_fused(),
             "head_conv_fused": check_head_conv_fused()}
     torch.cuda.empty_cache()
     rows.update(check_conv_bn_backward())
     torch.cuda.empty_cache()
+    rows["row_shift"] = check_row_shift()
+    rows.update(check_small_conv())
+    torch.cuda.empty_cache()
+    log(f"kernel checks done at {time.perf_counter() - t_start:.0f} s")
 
     work = os.path.join(ROOT, ".smoke")
     shutil.rmtree(work, ignore_errors=True)
     try:
         eval_launches = run_eval_path(work, args.profile)
         torch.cuda.empty_cache()
+        log(f"eval path done at {time.perf_counter() - t_start:.0f} s")
         train_launches = run_train_path(work, args.profile)
+        torch.cuda.empty_cache()
+        log(f"train path done at {time.perf_counter() - t_start:.0f} s")
+        small_launches = run_small_conv_path()
+        torch.cuda.empty_cache()
+        aa_launches = run_autoaugment_path(work, args.profile)
+        log(f"--autoaugment path done at {time.perf_counter() - t_start:.0f} s")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
+    src = "xview2_tpu_torch/csrc/"
     meta = {
-        "relayout": ("relayout_cuda", "xview2_tpu_torch/csrc/relayout.cu",
-                     "xview2_tpu/ops/layout.py:79"),
-        "conv_bn_fused": ("conv_bn_fused", "xview2_tpu_torch/csrc/fused_conv.cu",
+        "relayout": ("relayout_cuda", src + "relayout.cu", "xview2_tpu/ops/layout.py:79"),
+        "conv_bn_fused": ("conv_bn_fused", src + "fused_conv.cu",
                           "xview2_tpu/ops/packed_fused_conv.py:157"),
-        "head_conv_fused": ("head_conv_fused", "xview2_tpu_torch/csrc/fused_head.cu",
+        "head_conv_fused": ("head_conv_fused", src + "fused_head.cu",
                             "xview2_tpu/ops/packed_fused_conv.py:463"),
-        "conv_bn_wgrad": ("conv_bn_wgrad", "xview2_tpu_torch/csrc/fused_conv_bwd.cu",
+        "conv_bn_wgrad": ("conv_bn_wgrad", src + "fused_conv_bwd.cu",
                           "xview2_tpu/ops/packed_fused_conv.py:259"),
-        "conv_bn_dgrad": ("conv_bn_dgrad", "xview2_tpu_torch/csrc/fused_conv_bwd.cu",
+        "conv_bn_dgrad": ("conv_bn_dgrad", src + "fused_conv_bwd.cu",
                           "xview2_tpu/ops/packed_fused_conv.py:338"),
+        "row_shift": ("row_shift_cuda", src + "rowshift.cu", "xview2_tpu/ops/rowshift.py:85"),
+        "small_conv_fwd": ("small_conv_fwd", src + "small_conv.cu",
+                           "xview2_tpu/ops/pallas_conv.py:87"),
+        "small_conv_wgrad": ("small_conv_wgrad", src + "small_conv.cu",
+                             "xview2_tpu/ops/pallas_conv.py:121"),
     }
-    # launches: the eval main path's and the train main path's runs of main(),
-    # each counted from 0.  ms/plain_ms/library_ms/bound_ms: K1-K3 per eval
-    # step (train_* keys: per train step), K4/K5 per train step.
+    # launches: the four main paths' runs (eval CLI, train CLI, conv3x3_small,
+    # --autoaugment train CLI), each counted from 0.  ms/plain_ms/library_ms/
+    # bound_ms: K1-K3 per eval step (train_* keys: per train step), K4/K5 per
+    # train step, K6 per --autoaugment step with one rotation and one shear
+    # group, K7/K8 per launch at (16, 512, 512, 32) -> 32 bf16.
     kernels = []
     for name, (counter, source, replaces) in meta.items():
         r = rows[name]
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                        "launches": eval_launches[counter] + train_launches[counter],
+                        "launches": eval_launches[counter] + train_launches[counter]
+                        + small_launches[counter] + aa_launches[counter],
                         "eval_path_launches": eval_launches[counter],
                         "train_path_launches": train_launches[counter],
+                        "small_conv_path_launches": small_launches[counter],
+                        "autoaugment_path_launches": aa_launches[counter],
                         "max_abs_err": r["max_abs_err"],
                         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-                        **{k: v for k, v in r.items() if k.startswith("train_")}})
+                        **{k: v for k, v in r.items()
+                           if k.startswith("train_") or k == "dx_ms"}})
+    if any(k["launches"] < 1 for k in kernels):
+        raise AssertionError(f"a kernel was launched on no main path: {kernels}")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -5,7 +5,7 @@ On the card (no JAX needed)::
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
-Small shapes; ``chip_smoke.py`` holds the kernels at the eval path's shapes.
+Small shapes; ``chip_smoke.py`` holds the kernels at the main paths' shapes.
 """
 
 import math
@@ -13,8 +13,11 @@ import math
 import pytest
 import torch
 
+from xview2_tpu_torch.ops import autoaugment as taa
 from xview2_tpu_torch.ops import layout
 from xview2_tpu_torch.ops import packed_fused_conv as pfc
+from xview2_tpu_torch.ops import rowshift
+from xview2_tpu_torch.ops import small_conv as sc
 
 pytestmark = pytest.mark.cuda
 
@@ -157,3 +160,101 @@ def test_fused_conv_backward_runs_the_kernels():
         (before[0] + 1, before[1] + 1)
     assert x.grad.shape == x.shape and k.grad.shape == k.shape
     assert all(f.grad is not None and torch.isfinite(f.grad).all() for f in fold)
+
+
+@pytest.mark.parametrize("axis", [2, 1])
+@pytest.mark.parametrize("c", [4, 7, 1])
+@pytest.mark.parametrize("shape", [(3, 38, 54), (2, 64, 86), (1, 5, 3)])
+def test_row_shift_bit_exact(shape, c, axis):
+    """K6 against its plain version on the card: EQUAL (the kernel forbids
+    the FMA contraction of the lerp), for lerp and nearest samples in one
+    batch, shifts past both edges included."""
+    b, h, w = shape
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    x = torch.randn((b, h, w, c), generator=gen, device="cuda") * 50 + 100
+    n, lines = (w, h) if axis == 2 else (h, w)
+    shift = (torch.rand((b, lines), generator=gen, device="cuda") - 0.5) * 2.5 * n
+    shift[:, ::3] = torch.round(shift[:, ::3] * 2) / 2  # exact halves and integers too
+    sel = torch.arange(b, device="cuda") % 2
+    before = rowshift.row_shift_cuda.launches
+    got = rowshift.row_shift(x, shift, sel, axis=axis)
+    assert rowshift.row_shift_cuda.launches == before + 1
+    want = rowshift.row_shift_reference(x, shift, sel, axis=axis)
+    assert torch.equal(got, want)
+    assert torch.equal(got.cpu(), rowshift.row_shift(x.cpu(), shift.cpu(), sel.cpu(), axis=axis))
+
+
+def test_autoaugment_on_the_card_equals_the_cpu():
+    """The whole AutoAugment batch on the card against the same draws on the
+    CPU: masks EQUAL; the image within 1e-3 of 255 (every op is the same
+    float32 arithmetic on both devices; only contrast's per-sample mean is a
+    sum in another order, and it is rounded to a grey level)."""
+    gen = torch.Generator().manual_seed(6)
+    img = torch.randint(0, 256, (32, 64, 64, 3), generator=gen).float()
+    mask = (torch.rand((32, 64, 64), generator=gen) > 0.8).to(torch.uint8)
+    d = taa.draw_autoaugment(gen, 32, "cpu")
+    want_img, want_mask = taa.apply_autoaugment(img, mask, d)
+    dc = taa.AutoAugmentDraws(d.policy.cuda(), d.u1.cuda(), d.u2.cuda(), d.neg1.cuda(),
+                              d.neg2.cuda())
+    before = rowshift.row_shift_cuda.launches
+    got_img, got_mask = taa.apply_autoaugment(img.cuda(), mask.cuda(), dc)
+    assert rowshift.row_shift_cuda.launches > before
+    assert torch.equal(got_mask.cpu(), want_mask)
+    assert (got_img.cpu() - want_img).abs().max().item() <= 1e-3
+
+
+_SMALL = [(2, 16, 128, 32, 32), (1, 19, 70, 8, 8), (2, 9, 130, 24, 40), (1, 33, 257, 64, 64),
+          (1, 8, 16, 48, 16), (1, 16, 64, 16, 56)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", _SMALL)
+def test_small_conv_fwd_matches_plain(shape, dtype):
+    """K7: within one rounding of the output dtype plus 1e-3 of the scale
+    (f32 sums in another order)."""
+    b, h, w, c, co = shape
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    x = torch.randn((b, h, w, c), generator=gen, device="cuda").to(dtype)
+    kmat = (torch.randn((9 * c, co), generator=gen, device="cuda") / math.sqrt(9 * c)).to(dtype)
+    got = sc.small_conv_fwd(x, kmat).float()
+    want = sc.reference_conv3x3(x, kmat).float()
+    err = (got - want).abs()
+    tol = 2 * torch.finfo(dtype).eps * want.abs() + 1e-3 * want.abs().max()
+    assert bool((err <= tol).all()), err.max().item()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", _SMALL)
+def test_small_conv_wgrad_matches_plain(shape, dtype):
+    """K8: dW stays f32 in the kernel and in the plain version; they differ
+    by the order of the f32 sums (atomics): 1e-3 of max |dW|."""
+    b, h, w, c, co = shape
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    x = torch.randn((b, h, w, c), generator=gen, device="cuda").to(dtype)
+    g = torch.randn((b, h, w, co), generator=gen, device="cuda").to(dtype)
+    got = sc.small_conv_wgrad(x, g)
+    want = sc.reference_wgrad(x, g)
+    assert got.dtype == torch.float32 and got.shape == (9 * c, co)
+    assert (got - want).abs().max().item() <= 1e-3 * want.abs().max().item()
+
+
+def test_conv3x3_small_backward_runs_the_kernels():
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    x = torch.randn((2, 16, 128, 32), generator=gen, device="cuda").to(torch.bfloat16)
+    k = (torch.randn((3, 3, 32, 32), generator=gen, device="cuda") / 17).to(torch.bfloat16)
+    x.requires_grad_()
+    k.requires_grad_()
+    before = (sc.small_conv_fwd.launches, sc.small_conv_wgrad.launches)
+    out = sc.conv3x3_small(x, k)
+    (out.float() ** 2).sum().backward()
+    assert (sc.small_conv_fwd.launches, sc.small_conv_wgrad.launches) == \
+        (before[0] + 2, before[1] + 1)
+    xc = x.detach().cpu().requires_grad_()
+    kc = k.detach().cpu().requires_grad_()
+    (sc.conv3x3_small(xc, kc).float() ** 2).sum().backward()
+    for got, want in ((out, sc.conv3x3_small(xc, kc)), (x.grad, xc.grad), (k.grad, kc.grad)):
+        want = want.detach().float()
+        tol = 2 ** -6 * want.abs() + 1e-2 * want.abs().max()
+        assert bool(((got.detach().float().cpu() - want).abs() <= tol).all())
+    with pytest.raises(ValueError):
+        sc.small_conv_fwd(torch.zeros((1, 8, 8, 12), device="cuda"), torch.zeros((108, 8)))

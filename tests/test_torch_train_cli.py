@@ -3,7 +3,9 @@ writes the ``best``/``last`` checkpoints (with optimizer state) and the epoch
 line of ``logs.json``; the checkpoint reloads through the eval CLI; and 1 + 1
 resumed epochs equal 2 unbroken ones BIT FOR BIT (same host, same thread
 count: the port's CPU path is deterministic, and a step's random stream
-depends only on the seed and the global step)."""
+depends only on the seed and the global step).  The same with
+``--autoaugment`` (the crop, one AutoAugment draw per sample through the
+row-shift kernel's plain version, normalize)."""
 
 import json
 import os
@@ -95,3 +97,85 @@ def test_resumed_run_equals_unbroken_run_bit_for_bit(runs):
     assert [e["step"] for e in _logs(res["resumed"])] == [1]
     assert {k: v for k, v in _logs(res["resumed"])[-1]["data"].items() if k != "imgs_per_sec"} \
         == {k: v for k, v in _logs(res["unbroken"])[-1]["data"].items() if k != "imgs_per_sec"}
+
+
+@pytest.fixture(scope="module")
+def aa_runs(tmp_path_factory):
+    """Two unbroken ``--autoaugment`` epochs, and one epoch resumed for a
+    second, on 8 tiles (4 steps an epoch, so spatial ops are drawn).  The
+    checkpoints are compared here and their trees removed at once (six
+    checkpoints with optimizer state are 2 GB); the tests read the outcome."""
+    import shutil
+
+    root = str(tmp_path_factory.mktemp("xbd_aa"))
+    make_synthetic_dataset(root, n_train=8, n_val=2, n_test=2, size=SIZE, seed=5)
+    res = {k: os.path.join(root, k) for k in ("unbroken", "first", "resumed")}
+    common = BASE + ["--autoaugment", "--data", root]
+    assert main(common + ["--results", res["unbroken"]], device="cpu") == 0
+    assert main(common + ["--results", res["first"], "--patience", "0"], device="cpu") == 0
+    assert main(common + ["--results", res["resumed"], "--ckpt",
+                          os.path.join(res["first"], "checkpoints", "last")], device="cpu") == 0
+    out = {"logs": {k: _logs(v) for k, v in res.items()}}
+    first, out["meta_first"] = ckpt_lib.restore_raw(os.path.join(res["first"], "checkpoints",
+                                                                 "last"))
+    want, out["meta_unbroken"] = ckpt_lib.restore_raw(os.path.join(res["unbroken"],
+                                                                   "checkpoints", "last"))
+    got, out["meta_resumed"] = ckpt_lib.restore_raw(os.path.join(res["resumed"], "checkpoints",
+                                                                 "last"))
+    out["steps"] = {k: int(v["train"]["step"])
+                    for k, v in (("first", first), ("unbroken", want), ("resumed", got))}
+    a, b = dict(_flat(first["params"])), dict(_flat(want["params"]))
+    out["n_params"] = len(a)
+    out["finite"] = all(np.isfinite(v).all() for v in b.values())
+    out["moved"] = sum(not np.array_equal(a[k], b[k]) for k in a)
+    want, got = dict(_flat(want)), dict(_flat(got))
+    out["same_keys"] = set(want) == set(got)
+    out["has_opt_state"] = any(k.startswith("opt_state/") for k in got)
+    out["differing"] = [k for k in want if k in got and not np.array_equal(got[k], want[k])]
+    shutil.rmtree(root)
+    return out
+
+
+def test_autoaugment_run_trains(aa_runs):
+    """Finite validation loss, the flag in the checkpoint's config, every
+    parameter moved from the first epoch's to the second's."""
+    logs = aa_runs["logs"]["unbroken"]
+    assert [entry["step"] for entry in logs] == [0, 1]
+    assert all(np.isfinite(entry["data"]["val_loss"]) for entry in logs)
+    assert bool(aa_runs["meta_first"]["config"]["autoaugment"])
+    assert bool(aa_runs["meta_unbroken"]["config"]["autoaugment"])
+    assert aa_runs["steps"]["first"] == 4 and aa_runs["steps"]["unbroken"] == 8
+    assert aa_runs["finite"] and aa_runs["moved"] == aa_runs["n_params"] > 100
+
+
+def test_autoaugment_draws_reach_the_row_shift(monkeypatch):
+    """The flag reaches the AutoAugment branch: over the seeds of eight
+    steps a spatial op is drawn and goes through ``row_shift``."""
+    import torch
+
+    from xview2_tpu_torch.config import Config
+    from xview2_tpu_torch.ops import augment, autoaugment
+    from xview2_tpu_torch.parallel.steps import step_generator
+
+    calls = []
+    real = autoaugment.row_shift
+    monkeypatch.setattr(autoaugment, "row_shift",
+                        lambda *a, **k: calls.append(a[0].shape) or real(*a, **k))
+    cfg = Config(autoaugment=True)
+    masks = torch.zeros((8, SIZE, SIZE), dtype=torch.uint8)
+    images = torch.zeros((8, SIZE, SIZE, 3), dtype=torch.uint8)
+    for step in range(8):
+        x, y = augment.augment_batch(step_generator(cfg, step, "cpu"), images, masks, 64,
+                                     use_autoaugment=True)
+        assert x.shape == (8, 64, 64, 3) and y.shape == (8, 64, 64)
+    assert calls and all(len(s) == 4 and s[-1] == 4 for s in calls)
+
+
+def test_autoaugment_resumed_run_equals_unbroken_run_bit_for_bit(aa_runs):
+    assert aa_runs["meta_resumed"]["epoch"] == 1 and aa_runs["steps"]["resumed"] == 8
+    assert aa_runs["same_keys"] and aa_runs["has_opt_state"]
+    assert aa_runs["differing"] == []
+    last = {k: [e["step"] for e in v] for k, v in aa_runs["logs"].items()}
+    assert last["resumed"] == [1] and last["first"] == [0]
+    strip = lambda e: {k: v for k, v in e["data"].items() if k != "imgs_per_sec"}  # noqa: E731
+    assert strip(aa_runs["logs"]["resumed"][-1]) == strip(aa_runs["logs"]["unbroken"][-1])

@@ -157,6 +157,41 @@ def test_one_step_f64_matches_jax_at_64():
     _one_step_case(64)
 
 
+def test_autoaugment_step_is_its_augmentation_then_the_same_step():
+    """``make_train_step`` with ``cfg.autoaugment``: the loss equals
+    ``forward_loss`` on ``augment_batch(..., use_autoaugment=True)`` from the
+    same generator state, the parameters move, and the plain-augmentation
+    step from the same seed sees another batch (another loss)."""
+    from xview2_tpu_torch.ops.augment import augment_batch
+
+    rng = np.random.default_rng(8)
+    images = rng.integers(0, 256, (2, 96, 96, 3), np.uint8)
+    masks = (rng.random((2, 96, 96)) > 0.8).astype(np.uint8)
+    losses = {}
+    for aa in (True, False):
+        cfg = Config(type="pre", encoder="resnet50", precision=32, fused_tail=True,
+                     optimizer="sgd", autoaugment=aa)
+        torch.manual_seed(0)
+        model = build_model(cfg)
+        before = {k: v.clone() for k, v in model.named_parameters()}
+        x, y = augment_batch(port_steps.step_generator(cfg, 0, "cpu"), torch.from_numpy(images),
+                             torch.from_numpy(masks), crop=64, use_autoaugment=aa)
+        with torch.no_grad():
+            want = port_steps.forward_loss(cfg, model, make_loss_fn(cfg.loss_str, cfg.type), x,
+                                           packed_loss_view_labels(y))
+        torch.manual_seed(0)
+        model = build_model(cfg)
+        opt = build_optimizer(cfg, model.parameters(), cfg.lr)
+        state = port_steps.init_train_state(model, opt, device="cpu")
+        step = port_steps.make_train_step(cfg, model, opt, crop=64, device="cpu")
+        state, loss = step(state, images, masks, port_steps.step_generator(cfg, 0, "cpu"))
+        assert state.step == 1 and np.isfinite(loss.item())
+        assert loss.item() == pytest.approx(want.item(), rel=1e-6)
+        assert any(not torch.equal(v, before[k]) for k, v in model.named_parameters())
+        losses[aa] = loss.item()
+    assert losses[True] != losses[False]
+
+
 @pytest.mark.slow
 def test_one_step_f64_matches_jax_at_128():
     """128^2 also sends the fine dec_l2 (768->256) and dec_l3 (384->128)

@@ -20,8 +20,13 @@ function):
 
 DRAWING the random numbers (:func:`draw_augment`, from a ``torch.Generator``
 on the device) is split from APPLYING them (:func:`apply_augment`), so a test
-can hand the JAX package's own draws to the port.  AutoAugment is not ported
-(ROADMAP Queue 1, ``ops/autoaugment.py``).
+can hand the JAX package's own draws to the port.
+
+With ``--autoaugment`` the chain is the other branch of JAX
+``augment_sample``: the non-empty-mask crop WITHOUT the zoom, one ImageNet
+AutoAugment draw (``ops/autoaugment.py``) and the normalization; flips, noise
+and brightness/contrast are not applied (:func:`draw_augment_autoaugment`,
+:func:`apply_augment_autoaugment`).
 """
 
 from __future__ import annotations
@@ -30,6 +35,8 @@ import dataclasses
 from typing import Tuple
 
 import torch
+
+from xview2_tpu_torch.ops import autoaugment
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
@@ -195,7 +202,59 @@ def apply_augment(images: torch.Tensor, masks: torch.Tensor, d: AugmentDraws,
     return normalize(img, 3, bgr), mask.to(torch.int32)
 
 
+@dataclasses.dataclass
+class AutoAugmentBranchDraws:
+    """The random numbers of one batch's ``--autoaugment`` chain (the draws
+    of JAX ``augment_sample(use_autoaugment=True)``)."""
+
+    pix_y: torch.Tensor  # (B,) int: row of the sampled non-zero mask pixel
+    pix_x: torch.Tensor  # (B,) int: its column
+    off_y: torch.Tensor  # (B,) int in [0, crop): window offset above the pixel
+    off_x: torch.Tensor  # (B,) int in [0, crop)
+    aa: autoaugment.AutoAugmentDraws
+
+
+def draw_augment_autoaugment(gen: torch.Generator, masks: torch.Tensor,
+                             crop: int = CROP) -> AutoAugmentBranchDraws:
+    """Draw one batch's ``--autoaugment`` numbers on ``masks``'s device."""
+    b, dev = masks.shape[0], masks.device
+    pix_y, pix_x = sample_nonzero_pixel(masks, gen)
+    off_y = torch.randint(0, crop, (b,), generator=gen, device=dev)
+    off_x = torch.randint(0, crop, (b,), generator=gen, device=dev)
+    return AutoAugmentBranchDraws(pix_y, pix_x, off_y, off_x,
+                                  autoaugment.draw_autoaugment(gen, b, dev))
+
+
+def _crop_noscale(images: torch.Tensor, masks: torch.Tensor, d: AutoAugmentBranchDraws,
+                  crop: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """CropNonEmptyMaskIfExists without the zoom: the window starts at the
+    sampled pixel minus the offset, clipped into the tile."""
+    b, h, w = masks.shape
+    y0 = torch.clamp(d.pix_y - d.off_y, 0, h - crop)
+    x0 = torch.clamp(d.pix_x - d.off_x, 0, w - crop)
+    o = torch.arange(crop, device=masks.device)
+    batch = torch.arange(b, device=masks.device)[:, None, None]
+    rows = (y0[:, None] + o)[:, :, None]
+    cols = (x0[:, None] + o)[:, None, :]
+    return images[batch, rows, cols].to(torch.float32), masks[batch, rows, cols]
+
+
+def apply_augment_autoaugment(images: torch.Tensor, masks: torch.Tensor,
+                              d: AutoAugmentBranchDraws, crop: int = CROP,
+                              bgr: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Apply one batch's ``--autoaugment`` draws: raw uint8 ``images`` (B, H,
+    W, 3|6) and ``masks`` (B, H, W) -> normalized float32 (B, crop, crop, C)
+    crops and int32 (B, crop, crop) labels."""
+    img, mask = _crop_noscale(images, masks, d, crop)
+    img, mask = autoaugment.apply_autoaugment(img, mask, d.aa)
+    return normalize(img, img.shape[-1], bgr), mask.to(torch.int32)
+
+
 def augment_batch(gen: torch.Generator, images: torch.Tensor, masks: torch.Tensor,
-                  crop: int = CROP, bgr: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+                  crop: int = CROP, bgr: bool = False,
+                  use_autoaugment: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """Draw and apply: the train step's augmentation of a batch of raw tiles."""
+    if use_autoaugment:
+        return apply_augment_autoaugment(images, masks,
+                                         draw_augment_autoaugment(gen, masks, crop), crop, bgr)
     return apply_augment(images, masks, draw_augment(gen, masks, crop), crop, bgr)

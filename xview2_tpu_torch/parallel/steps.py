@@ -1,9 +1,10 @@
 """The train and eval steps (port of ``xview2_tpu/parallel/steps.py``).
 
-Train: on-device augmentation of raw uint8 tiles, the packed loss view of
-the labels, the relayout of labels and logits, the forward in train mode
-(batch statistics, running-stat updates, the fused tail), focal+dice, the
-backward and the optimizer update.  Eval: normalize, 4-flip TTA as one
+Train: on-device augmentation of raw uint8 tiles (the albumentations chain,
+or the crop and one AutoAugment draw with ``--autoaugment``), the packed
+loss view of the labels, the relayout of labels and logits, the forward in
+train mode (batch statistics, running-stat updates, the fused tail),
+focal+dice, the backward and the optimizer update.  Eval: normalize, 4-flip TTA as one
 4x-stacked forward, the relayout copy, the loss and the F1 state.
 
 The JAX step is a pure function of a donated state; here the model's
@@ -103,9 +104,6 @@ def step_generator(cfg: Config, global_step: int, device) -> torch.Generator:
 
 def check_train_supported(cfg: Config) -> None:
     """Raise for every train-step option outside the ported slice."""
-    if cfg.autoaugment:
-        raise NotImplementedError("--autoaugment is not ported to xview2_tpu_torch yet "
-                                  "(ROADMAP Queue 1, ops/autoaugment.py)")
     if cfg.remat != "none":
         raise NotImplementedError(f"--remat {cfg.remat} is not ported to xview2_tpu_torch yet "
                                   "(ROADMAP Queue 1, remaining CLI knobs)")
@@ -143,7 +141,8 @@ def make_train_step(cfg: Config, model, opt: torch.optim.Optimizer, crop: int = 
         images = torch.as_tensor(images).to(dev, non_blocking=True)
         masks = torch.as_tensor(masks).to(dev, non_blocking=True)
         with torch.no_grad():
-            x, y = augment_batch(rng, images, masks, crop=crop, bgr=cfg.bgr)
+            x, y = augment_batch(rng, images, masks, crop=crop, bgr=cfg.bgr,
+                                 use_autoaugment=cfg.autoaugment)
             # the packed head emits train logits as a (B, H/2, 2W, n) pixel
             # permutation; pair it with the same permutation of the labels
             y_main = relayout_standard(packed_loss_view_labels(y) if packed_view else y)
