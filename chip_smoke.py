@@ -14,7 +14,10 @@ Phases, each of which fails the script (non-zero exit, no result line):
 3. hold each kernel against its plain PyTorch version on the card, at the
    shapes the eval path and the train path give it, and time the kernel, the
    plain version and one PyTorch library call computing the same function
-   (the yardstick; the port never calls it);
+   (the yardstick; the port never calls it); for K2 and K4 also name the
+   kernel variant each shape takes (the dispatch inside the C entry point)
+   with its TFLOP/s, hold ragged and half-tile shapes, K2's ``out`` EQUAL
+   between two runs, and the prologue inside both EQUAL to the plain one;
 4. the eval main path: a synthetic holdout of 8 tiles of 1024^2, a ResNet-50
    UNetLoc made from a fixed seed saved as a port checkpoint, and
    ``xview2_tpu_torch.main.main([... --exec_mode eval ...])`` with 4-flip TTA
@@ -154,6 +157,13 @@ TRAIN_PATH = [
     ("dec_l5.conv1", 16, 256, 256, 128, 128), ("dec_l5.conv2", 16, 256, 256, 128, 128),
 ]
 
+# (B, H, W, C, Co) beside the path: W = 64 (a 4 x 64 tile, one strip of the
+# weight gradient), a W that is no multiple of any tile width, an H that is no
+# multiple of the rows per block, C = 768 with Co = 256, a W below the
+# narrowest tile, and shapes that the dispatch hands to the earlier tiles
+RAGGED = [(2, 64, 64, 768, 256), (3, 37, 200, 128, 256), (2, 13, 70, 256, 128),
+          (2, 9, 7, 64, 128), (1, 5, 97, 192, 128), (1, 24, 136, 384, 192), (2, 9, 7, 32, 64)]
+
 # (name, B, H, W, C, Co): the six fused convs of one eval step at
 # --val_batch_size 4 with 4-flip TTA (16 images of 1024^2)
 K2_PATH = [
@@ -226,16 +236,19 @@ def check_conv_bn_fused():
                     f"{err:.4g}, max rel err {rel:.4g}, tolerance 2*eps*|out| + 1e-3*max|out|")
             a = pfc.prologue(x, f)
             kc = k.permute(3, 2, 0, 1).contiguous()
-            ms = cuda_ms(lambda: pfc.conv_bn_fused(x, k, fold, has_fold), 3)
+            ms = cuda_ms(lambda: pfc.conv_bn_fused(x, k, fold, has_fold), 10)
             plain = cuda_ms(lambda: pfc.reference_conv_bn(x, k, f), 3)
-            lib = cuda_ms(lambda: F.conv2d(a.permute(0, 3, 1, 2), kc, padding=1), 3)
+            lib = cuda_ms(lambda: F.conv2d(a.permute(0, 3, 1, 2), kc, padding=1), 10)
             flops = 2.0 * b * h * w * 9 * c * co
             nbytes = (b * h * w * (c + co) + 9 * c * co) * 2 + (3 * c + 2 * co) * 4
             bnd, by = bound_ms(nbytes, flops, "bfloat16")
             bound_by.add(by)
-            log(f"K2 {tag} {name} timing: kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s), "
-                f"plain {plain:.3f} ms, library (cuDNN conv) {lib:.3f} ms, bound {bnd:.3f} ms "
-                f"({by})")
+            variant = pfc.kernel_variant("conv_bn_fused", h, w, c, co, torch.bfloat16)
+            if "pipelined" not in variant:
+                raise AssertionError(f"K2 {tag} {name}: the path shape took '{variant}'")
+            log(f"K2 {tag} {name} timing [{variant}]: kernel {ms:.3f} ms "
+                f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain:.3f} ms, library (cuDNN conv) "
+                f"{lib:.3f} ms, bound {bnd:.3f} ms ({by})")
             total["ms"] += ms
             total["plain_ms"] += plain
             total["library_ms"] += lib
@@ -251,6 +264,24 @@ def check_conv_bn_fused():
     train = run_path(TRAIN_PATH, "train", 50)
     total["max_abs_err"] = max(total["max_abs_err"], train.pop("max_abs_err"))
     total.update({f"train_{k}": v for k, v in train.items() if k != "bound_by"})
+    # ragged and half-tile shapes of the pipelined kernel, fold on and off, and
+    # out EQUAL between two runs on the same input (no atomics touch it)
+    for i, (b, h, w, c, co) in enumerate(RAGGED):
+        x, k, fold = _k2_case(b, h, w, c, co, torch.bfloat16, seed=110 + i)
+        variant = pfc.kernel_variant("conv_bn_fused", h, w, c, co, torch.bfloat16)
+        for hf in (True, False):
+            got = pfc.conv_bn_fused(x, k, fold, hf)
+            again = pfc.conv_bn_fused(x, k, fold, hf)
+            want = pfc.reference_conv_bn(x, k, fold if hf else None)
+            torch.cuda.synchronize()
+            err, rel = _compare_conv(got, want, f"K2 ragged {(b, h, w, c, co)} fold={hf}")
+            if not torch.equal(got[0], again[0]):
+                raise AssertionError(f"K2 {(b, h, w, c, co)} fold={hf}: out differs between "
+                                     "two runs on the same input")
+            total["max_abs_err"] = max(total["max_abs_err"], err)
+            log(f"K2 ragged {(b, h, w, c)}->{co} bf16 fold={hf} [{variant}]: max abs err "
+                f"{err:.4g}, max rel err {rel:.4g}; out bit-equal between two runs")
+        del x, k, fold
     # one float32 case (--precision 32): the FMA kernel, no TF32
     x, k, fold = _k2_case(4, 256, 256, 128, 128, torch.float32, seed=30)
     with pfc.full_precision():
@@ -263,6 +294,40 @@ def check_conv_bn_fused():
     log(f"K2 f32 (4, 256, 256, 128)->128 fold=True: max abs err {err:.4g}, max rel err "
         f"{rel:.4g}, kernel {ms:.3f} ms, plain {plain:.3f} ms (TF32 off)")
     return total
+
+
+def check_prologue_bit_equal():
+    """The prologue inside the pipelined K2 and K4 (packed bf16 arithmetic on
+    the landed stage) against the plain one, EQUAL (tolerance 0): an identity
+    centre tap makes K2's out the activated map itself, and a cotangent that
+    is 1 at one pixel makes K4's dW the activated 3x3 neighbourhood of that
+    pixel, zero in the SAME halo.  Inputs span 12 binades."""
+    import torch
+
+    from xview2_tpu_torch.ops import packed_fused_conv as pfc
+
+    b, h, w, c = 2, 70, 200, 128
+    gen = torch.Generator(device="cuda").manual_seed(140)
+    x = torch.randn((b, h, w, c), generator=gen, device="cuda")
+    x = (x * torch.exp2(torch.randint(-6, 6, x.shape, generator=gen, device="cuda").float()))
+    x = x.to(torch.bfloat16)
+    _, _, fold = _k2_case(1, 1, 1, c, c, torch.bfloat16, seed=141)
+    a = pfc.prologue(x, fold)
+    k = torch.zeros((3, 3, c, c), device="cuda", dtype=torch.bfloat16)
+    k[1, 1, torch.arange(c), torch.arange(c)] = 1
+    out, _, _ = pfc.conv_bn_fused(x, k, fold, True)
+    if not torch.equal(out, a):
+        raise AssertionError("K2: the prologue inside the kernel is not bit-equal to the plain one")
+    for y0, x0 in ((0, 0), (h - 1, w - 1), (h // 2, 63), (h // 2, 64)):
+        g = torch.zeros((b, h, w, c), device="cuda", dtype=torch.bfloat16)
+        g[1, y0, x0] = 1
+        dw = pfc.conv_bn_wgrad(x, g, fold, True).reshape(3, 3, c, c)
+        want = torch.nn.functional.pad(a[1].float(), (0, 0, 1, 1, 1, 1))[y0:y0 + 3, x0:x0 + 3]
+        if not torch.equal(dw, want[..., None].expand(3, 3, c, c)):
+            raise AssertionError(f"K4: the prologue inside the kernel is not bit-equal to the "
+                                 f"plain one around pixel {(y0, x0)}")
+    log(f"K2/K4 prologue inside the pipelined kernels vs the plain prologue at {(b, h, w, c)} "
+        f"bf16 (identity centre tap; one-pixel cotangent at 4 places): bit-equal (tolerance 0)")
 
 
 def _bwd_case(b, h, w, c, co, dtype, seed):
@@ -343,9 +408,9 @@ def check_conv_bn_backward():
         act = b * h * w * (c + co) * 2
         times = {
             "conv_bn_wgrad": (
-                cuda_ms(lambda: pfc.conv_bn_wgrad(x, g, fold, has_fold), 3),
+                cuda_ms(lambda: pfc.conv_bn_wgrad(x, g, fold, has_fold), 10),
                 cuda_ms(lambda: pfc.reference_wgrad(x, g, f), 2),
-                cuda_ms(lambda: torch.nn.grad.conv2d_weight(a, kc.shape, gc, padding=1), 3),
+                cuda_ms(lambda: torch.nn.grad.conv2d_weight(a, kc.shape, gc, padding=1), 10),
                 bound_ms(act + 9 * c * co * 4 + 3 * c * 4, flops, "bfloat16")),
             "conv_bn_dgrad": (
                 cuda_ms(lambda: pfc.conv_bn_dgrad(g, kf, x, fold, has_fold), 3),
@@ -353,6 +418,9 @@ def check_conv_bn_backward():
                 cuda_ms(lambda: torch.nn.grad.conv2d_input(a.shape, kc, gc, padding=1), 3),
                 bound_ms(act + (b * h * w * c + 9 * c * co) * 2 + 5 * c * 4, flops, "bfloat16")),
         }
+        variant = pfc.kernel_variant("conv_bn_wgrad", h, w, c, co, torch.bfloat16)
+        if "pipelined" not in variant:
+            raise AssertionError(f"K4 {name}: the path shape took '{variant}'")
         for kern, (ms, plain, lib, (bnd, by)) in times.items():
             r = rows[kern]
             r["ms"] += ms
@@ -360,12 +428,26 @@ def check_conv_bn_backward():
             r["library_ms"] += lib
             r["bound_ms"] += bnd
             bound_by[kern].add(by)
-            log(f"{'K4' if kern.endswith('wgrad') else 'K5'} {name} timing: kernel {ms:.3f} ms "
+            log(f"{'K4' if kern.endswith('wgrad') else 'K5'} {name} timing"
+                f"{f' [{variant}]' if kern.endswith('wgrad') else ''}: kernel {ms:.3f} ms "
                 f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain:.3f} ms, library (cuDNN "
                 f"{'wgrad' if kern.endswith('wgrad') else 'dgrad'}) {lib:.3f} ms, bound "
                 f"{bnd:.3f} ms ({by})")
         del x, g, k, kf, fold, a, gc, kc
         torch.cuda.empty_cache()
+    # ragged and half-tile shapes of the pipelined weight gradient (and those
+    # the dispatch hands to the earlier tile), fold on and off
+    for i, (b, h, w, c, co) in enumerate(RAGGED):
+        x, g, k, fold = _bwd_case(b, h, w, c, co, torch.bfloat16, seed=130 + i)
+        variant = pfc.kernel_variant("conv_bn_wgrad", h, w, c, co, torch.bfloat16)
+        for hf in (True, False):
+            e4, r4 = _compare_wgrad(pfc.conv_bn_wgrad(x, g, fold, hf),
+                                    pfc.reference_wgrad(x, g, fold if hf else None),
+                                    f"K4 ragged {(b, h, w, c, co)} fold={hf}")
+            rows["conv_bn_wgrad"]["max_abs_err"] = max(rows["conv_bn_wgrad"]["max_abs_err"], e4)
+            log(f"K4 ragged {(b, h, w, c)}->{co} bf16 fold={hf} [{variant}]: dW max abs err "
+                f"{e4:.4g} ({r4:.3g} of max|dW|, tolerance 1e-3)")
+        del x, g, k, fold
     # one float32 case each (--precision 32): the FMA kernels, TF32 off in the
     # plain versions (they turn it off themselves)
     x, g, k, fold = _bwd_case(4, 128, 128, 128, 128, torch.float32, seed=90)
@@ -1132,9 +1214,9 @@ def check_f32_against_cpu() -> None:
 _CATEGORIES = (("K6 row_shift", ("row_shift_kernel",)),
                ("K7 small_conv_fwd", ("small_fwd_bf16_kernel", "small_fwd_f32_kernel")),
                ("K8 small_conv_wgrad", ("small_wgrad_bf16_kernel", "small_wgrad_f32_kernel")),
-               ("K4 conv_bn_wgrad", ("wgrad_bf16_kernel", "wgrad_f32_kernel")),
+               ("K4 conv_bn_wgrad", ("wgrad_wgmma_kernel", "wgrad_bf16_kernel", "wgrad_f32_kernel")),
                ("K5 conv_bn_dgrad", ("dgrad_bf16_kernel", "dgrad_f32_kernel")),
-               ("K2 conv_bn_fused", ("conv_bf16_kernel", "conv_f32_kernel")),
+               ("K2 conv_bn_fused", ("conv_wgmma_kernel", "conv_bf16_kernel", "conv_f32_kernel")),
                ("K3 head_conv_fused", ("head_kernel",)),
                ("K1 relayout", ("relayout_kernel",)),
                ("library conv/GEMM", ("xmma", "cudnn", "cutlass", "gemm", "conv")),
@@ -1201,6 +1283,7 @@ def main(argv=None) -> int:
             "head_conv_fused": check_head_conv_fused()}
     torch.cuda.empty_cache()
     rows.update(check_conv_bn_backward())
+    check_prologue_bit_equal()
     torch.cuda.empty_cache()
     rows["row_shift"] = check_row_shift()
     rows.update(check_small_conv())

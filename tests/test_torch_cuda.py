@@ -34,6 +34,16 @@ def _fold(c, gen):
             torch.randn(c, generator=gen, device="cuda") * 0.5)
 
 
+# (B, H, W, C, Co) of the redesigned bf16 kernels: the six layers of the
+# decoder tail at reduced batch (W = 64 fills a 4 x 64 tile, C = 768, Co =
+# 256), then ragged ones: a W that is no multiple of any tile width, an H that
+# is no multiple of the rows per block, a W below the narrowest tile, one
+# column strip and a half
+_PATH_SHAPES = [(1, 64, 64, 768, 256), (1, 64, 64, 256, 256), (1, 128, 128, 384, 128),
+                (1, 128, 128, 128, 128), (1, 256, 256, 128, 128), (2, 13, 70, 128, 128),
+                (1, 37, 200, 64, 256), (2, 9, 7, 32, 128), (1, 5, 97, 192, 128)]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int32])
 def test_relayout_bit_exact(dtype):
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -51,10 +61,69 @@ def test_relayout_gradient_runs_the_kernel():
     assert torch.equal(x.grad, torch.full_like(x, 3.0))
 
 
+def test_kernel_variants_follow_the_static_shape():
+    """The dispatch inside the C entry points: the decoder tail's shapes take
+    the pipelined mma.sync kernels, the others the earlier tiles."""
+    bf, f32 = torch.bfloat16, torch.float32
+    assert "wgmma" in pfc.kernel_variant("conv_bn_fused", 64, 64, 768, 256, bf)
+    assert "4x64" in pfc.kernel_variant("conv_bn_fused", 64, 64, 256, 256, bf)
+    assert "2x128" in pfc.kernel_variant("conv_bn_fused", 512, 512, 128, 128, bf)
+    assert "16x16" in pfc.kernel_variant("conv_bn_fused", 9, 7, 32, 128, bf)
+    assert "wmma" in pfc.kernel_variant("conv_bn_fused", 24, 136, 384, 192, bf)
+    assert pfc.kernel_variant("conv_bn_fused", 64, 64, 128, 128, f32) == "f32 FMA"
+    assert "wgmma" in pfc.kernel_variant("conv_bn_wgrad", 64, 64, 768, 256, bf)
+    assert "wmma" in pfc.kernel_variant("conv_bn_wgrad", 9, 7, 32, 64, bf)
+    assert pfc.kernel_variant("conv_bn_wgrad", 9, 7, 32, 64, f32) == "f32 FMA"
+    with pytest.raises(ValueError):
+        pfc.kernel_variant("conv_bn_fused", 8, 8, 100, 64, bf)
+
+
+@pytest.mark.parametrize("has_fold", [False, True])
+def test_conv_bn_fused_out_is_bit_equal_between_runs(has_fold):
+    """out has no atomics in its way: two runs on the same input are EQUAL
+    (s1 and s2 are added with atomics and only agree to f32 sum order)."""
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    x = torch.randn((2, 37, 200, 128), generator=gen, device="cuda").to(torch.bfloat16)
+    k = (torch.randn((3, 3, 128, 256), generator=gen, device="cuda") / 34).to(torch.bfloat16)
+    fold = _fold(128, gen)
+    first = pfc.conv_bn_fused(x, k, fold, has_fold)
+    second = pfc.conv_bn_fused(x, k, fold, has_fold)
+    assert torch.equal(first[0], second[0])
+    for a, b in zip(first[1:], second[1:]):
+        assert torch.allclose(a, b, rtol=1e-4, atol=1e-2)
+
+
+@pytest.mark.parametrize("shape", [(2, 37, 70, 128, 128), (1, 9, 7, 64, 128), (1, 9, 7, 32, 64)])
+def test_fused_prologue_is_bit_equal_through_the_kernels(shape):
+    """The prologue inside K2 and K4 against the plain one, EQUAL: an identity
+    centre tap makes K2's out the activated map itself (a * 1 and zeros, one
+    exact rounding), and a cotangent that is 1 at one pixel makes K4's dW the
+    activated 3x3 neighbourhood of that pixel (zero in the SAME halo).  The
+    inputs span 12 binades so that every rounding of the prologue is met."""
+    b, h, w, c, co = shape
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    x = torch.randn((b, h, w, c), generator=gen, device="cuda")
+    x = (x * torch.exp2(torch.randint(-6, 6, x.shape, generator=gen, device="cuda").float()))
+    x = x.to(torch.bfloat16)
+    fold = _fold(c, gen)
+    a = pfc.prologue(x, fold)
+    k = torch.zeros((3, 3, c, co), device="cuda", dtype=torch.bfloat16)
+    k[1, 1, torch.arange(min(c, co)), torch.arange(min(c, co))] = 1
+    out, _, _ = pfc.conv_bn_fused(x, k, fold, True)
+    assert torch.equal(out[..., :min(c, co)], a[..., :min(c, co)])
+    for (y0, x0) in ((0, 0), (h - 1, w - 1), (h // 2, w // 2)):
+        g = torch.zeros((b, h, w, co), device="cuda", dtype=torch.bfloat16)
+        g[b - 1, y0, x0] = 1
+        dw = pfc.conv_bn_wgrad(x, g, fold, True).reshape(3, 3, c, co)
+        ap = torch.nn.functional.pad(a[b - 1].float(), (0, 0, 1, 1, 1, 1))
+        want = ap[y0:y0 + 3, x0:x0 + 3]
+        assert torch.equal(dw, want[..., None].expand(3, 3, c, co))
+
+
 @pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2 ** -7), (torch.float32, 1e-5)])
 @pytest.mark.parametrize("has_fold", [False, True])
 @pytest.mark.parametrize("shape", [(2, 16, 16, 128, 128), (1, 24, 136, 384, 192),
-                                   (2, 9, 7, 32, 64)])
+                                   (2, 9, 7, 32, 64)] + _PATH_SHAPES)
 def test_conv_bn_fused_matches_plain(shape, has_fold, dtype, tol, monkeypatch):
     b, h, w, c, co = shape
     monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)  # full-f32 plain version
@@ -110,7 +179,7 @@ def _bwd_case(shape, dtype, seed=3):
 
 
 _BWD_SHAPES = [(2, 16, 16, 128, 128), (1, 24, 136, 384, 192), (2, 9, 7, 32, 64),
-               (1, 8, 70, 64, 64)]
+               (1, 8, 70, 64, 64)] + _PATH_SHAPES
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

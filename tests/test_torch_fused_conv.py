@@ -116,3 +116,33 @@ def test_cpu_tensors_do_not_launch():
     port.conv_bn_fused(torch.from_numpy(x), torch.from_numpy(k), tf, True)
     port.head_conv_fused(torch.from_numpy(x), torch.zeros(128, 8), torch.zeros(8), tf)
     assert (port.conv_bn_fused.launches, port.head_conv_fused.launches) == before
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_identity_centre_tap_returns_the_activated_map(dtype):
+    """The premise of the on-card check of the prologue inside K2: with a
+    kernel that is the identity at its centre tap and zero elsewhere, the
+    plain version's out IS the activated map, bit for bit (a * 1 and zeros
+    summed in f32, one exact rounding), and the SAME halo adds nothing."""
+    rng = np.random.default_rng(31)
+    c = 32
+    x = rng.normal(size=(2, 9, 7, c)) * np.exp2(rng.integers(-6, 6, size=(2, 9, 7, c)))
+    x = _torch(x.astype(np.float32), dtype)
+    fold = tuple(torch.from_numpy(f) for f in _case(32, c=c)[2])
+    k = torch.zeros((3, 3, c, c), dtype=x.dtype)
+    k[1, 1, torch.arange(c), torch.arange(c)] = 1
+    out, s1, _ = port.conv_bn_fused(x, k, fold, True)
+    a = port.prologue(x, fold)
+    assert torch.equal(out, a)
+    np.testing.assert_allclose(_np(s1), _np(a.float().sum(dim=(0, 1, 2))), rtol=1e-5, atol=1e-4)
+
+
+def test_kernel_variant_names_cover_both_dispatches():
+    """Every code the two C entry points' variant queries can return has a
+    name: 0 and 1 for the earlier kernels, the four tile widths of the
+    pipelined forward, 2 for the pipelined weight gradient."""
+    assert set(port._VARIANTS) == {"conv_bn_fused", "conv_bn_wgrad"}
+    assert set(port._VARIANTS["conv_bn_fused"][1]) == {0, 1, 16, 32, 64, 128}
+    assert set(port._VARIANTS["conv_bn_wgrad"][1]) == {0, 1, 2}
+    for tw in (16, 32, 64, 128):
+        assert f"{256 // tw}x{tw} px" in port._VARIANTS["conv_bn_fused"][1][tw]

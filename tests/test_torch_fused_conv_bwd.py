@@ -149,3 +149,23 @@ def test_cpu_tensors_launch_no_backward_kernel():
     port.conv_bn_wgrad(_t(x), _t(g), tf, True)
     port.conv_bn_dgrad(_t(g), port.flip_kernel(_t(k)), _t(x), tf, True)
     assert (port.conv_bn_wgrad.launches, port.conv_bn_dgrad.launches) == before
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("pixel", [(0, 0), (8, 6), (3, 2)], ids=["corner", "far-corner", "inside"])
+def test_one_pixel_cotangent_returns_the_activated_neighbourhood(pixel, dtype):
+    """The premise of the on-card check of the prologue inside K4: with a
+    cotangent that is 1 at one pixel and zero elsewhere, the plain version's
+    dW IS the activated 3x3 neighbourhood of that pixel, bit for bit and zero
+    in the SAME halo, the same for every output channel."""
+    rng = np.random.default_rng(41)
+    c, co, (y0, x0) = 32, 64, pixel
+    x = rng.normal(size=(2, 9, 7, c)) * np.exp2(rng.integers(-6, 6, size=(2, 9, 7, c)))
+    x = _t(x.astype(np.float32), dtype)
+    fold = tuple(_t(f) for f in _case(42, c=c)[3])
+    g = torch.zeros((2, 9, 7, co), dtype=x.dtype)
+    g[1, y0, x0] = 1
+    dw = port.conv_bn_wgrad(x, g, fold, True).reshape(3, 3, c, co)
+    a = torch.nn.functional.pad(port.prologue(x, fold)[1].float(), (0, 0, 1, 1, 1, 1))
+    assert dw.dtype == torch.float32
+    assert torch.equal(dw, a[y0:y0 + 3, x0:x0 + 3, :, None].expand(3, 3, c, co))

@@ -41,4 +41,17 @@ __device__ __forceinline__ float prologue(float v, float mean, float mul, float 
   return fmaxf(y, rnd<T>(__fmul_rn(y, slope)));
 }
 
+// The same prologue on two bf16 values at once, in the card's packed bf16
+// arithmetic: bit-equal to prologue<__nv_bfloat16> on each half.  A sum, a
+// difference or a product of two bf16 values that is first rounded to f32 and
+// then to bf16 equals the one rounded to bf16 directly (the product is exact
+// in f32; a sum whose f32 rounding is inexact lies within 2^-17 of its larger
+// operand, far from a bf16 tie), and the _rn forms forbid contraction.
+__device__ __forceinline__ __nv_bfloat162 prologue2(__nv_bfloat162 v, __nv_bfloat162 mean,
+                                                    __nv_bfloat162 mul, __nv_bfloat162 bias,
+                                                    __nv_bfloat162 slope) {
+  const __nv_bfloat162 y = __hadd2_rn(__hmul2_rn(__hsub2_rn(v, mean), mul), bias);
+  return __hmax2(y, __hmul2_rn(y, slope));
+}
+
 }  // namespace xv

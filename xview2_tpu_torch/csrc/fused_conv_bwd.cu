@@ -21,26 +21,51 @@
 // Bound on the H100: operations for both (2*9*C*Co FLOP per pixel against
 // 2*(C + Co) bytes per pixel read, and for wgrad a small f32 output).
 //
-// Design (simple implicit GEMMs; wgmma/TMA pipelines are later work):
-//  * dgrad is the forward's tile code (conv_tile.cuh) on g with kflip and no
-//    prologue, with another epilogue; dbias/dmul are per-thread partials kept
-//    across the block's rows, one shared-memory reduction and one atomicAdd
-//    per channel per block into zeroed outputs (the TPU kernel's sequential
-//    grid added into resident vectors).
+// Design:
+//  * dgrad is the forward's wmma row tile (conv_tile.cuh, no copy/compute
+//    overlap) on g with kflip and no prologue, with another epilogue;
+//    dbias/dmul are per-thread partials kept across the block's rows, one
+//    shared-memory reduction and one atomicAdd per channel per block into
+//    zeroed outputs (the TPU kernel's sequential grid added into resident
+//    vectors).
 //  * wgrad: the TPU kernel adds into one resident (9C, Co) output across a
 //    sequential grid.  Here the reduction dimension, the B*H*W pixels, is
-//    SPLIT: a block owns an output tile (9 taps x KC input channels x TN
-//    output channels) and a contiguous range of pixel segments (WG_TM
-//    consecutive pixels of one image row), keeps the tile in registers over
-//    its whole range (bf16: nine 16x16 wmma f32 accumulators per warp, A^T
-//    read from the staged rows as a col-major fragment at the tap's pixel
-//    offset; f32: 9 x 4 FMA accumulators per thread), and adds it with f32
-//    atomicAdd into the ZEROED output at the end.  The number of splits is
-//    chosen so that about four blocks per SM exist whatever the tile count
-//    (dec_l5: 8 tiles; dec_l2.conv1: 96).  The order of the atomics changes
-//    from run to run, so dW is reproducible only to f32 sum-order noise
-//    (about 1e-6 of sum |terms|; the callers compare at 1e-3 of max |dW|).
+//    SPLIT over blocks that keep an output tile in registers over their pixel
+//    range and add it with f32 reductions into the ZEROED output at the end.
+//    The order of those additions changes from run to run, so dW is
+//    reproducible only to f32 sum-order noise (about 1e-6 of sum |terms|; the
+//    callers compare at 1e-3 of max |dW|).  Two bf16 kernels and one f32
+//    kernel, chosen in the C entry point by the static shape and dtype only
+//    (conv_bn_wgrad_variant reports the choice):
+//    - bf16 with C % 64 == 0 (every layer of the decoder tail): the
+//      pipelined wgmma kernel below.  A block of 384 threads owns the output
+//      tile 9 taps x 64 input channels x 64 output channels and a strip of 64
+//      image columns over a range of rows.  The tile is as large as the
+//      registers allow: 9 x 64 x 128 f32 accumulators would be 73,728
+//      registers, more than the 65,536 of an SM, so the output channels stay
+//      at 64 (x is read Co/64 times, g C/64 times, from L2 after the first).
+//      The taps are split over the three warpgroups, one dy each with its
+//      three dx accumulators of 64 x 64 (96 registers a thread).  Moving down
+//      one image row brings in ONE new row of x (66 pixels with the column
+//      halo) and one of g by cp.async (zero fill outside the image) into a
+//      six-slot ring, three rows ahead of the MMAs: each row is staged once
+//      per block and serves dy = 0, 1, 2 of three output rows.  With a fold
+//      each thread applies the prologue in place to the pieces of x it copied
+//      itself, once per element, one row ahead and behind queued MMAs.
+//      Pixels are the reduction dimension.  The shifted operand, x, goes
+//      through registers: ldmatrix.trans reads the A^T fragment from the
+//      channel-contiguous pixel rows, and a tap's dx is a one-pixel pointer
+//      offset.  The unshifted operand, g, lies in shared memory in the
+//      128-byte-swizzled N-contiguous layout and is read by
+//      wgmma.m64n64k16 itself (its transposed-B form); one g slab serves
+//      the three dx.  One barrier per image row.  The row ranges are cut so
+//      that at least two blocks per SM exist; the tile leaves with one
+//      red.global.add.v2.f32 per pair.
+//    - bf16 with another C (32): nine 16x16 wmma accumulators per warp over
+//      a (32 x 64) tile, operands staged through registers, no overlap.
+//    - f32: 9 x 4 FMA accumulators per thread, no TF32.
 
+#include "conv_mma.cuh"
 #include "conv_tile.cuh"
 
 namespace {
@@ -202,6 +227,209 @@ __global__ void __launch_bounds__(THREADS) wgrad_f32_kernel(
 #pragma unroll
     for (int j = 0; j < 4; ++j) atomicAdd(dst + j, acc[t][j]);
   }
+}
+
+// ------------------------------------------------- wgrad, pipelined bf16
+constexpr int WP_THREADS = 384;                // three warpgroups, one dy each
+constexpr int WP_TC = 64;                      // input channels of the tile
+constexpr int WP_TO = 64;                      // output channels of the tile
+constexpr int WP_PX = 64;                      // image columns of a block's strip
+constexpr int WP_LD = 64 + 8;                  // 72 halves = 144 bytes per staged pixel of x
+constexpr int WP_AHEAD = 3;                    // rows in flight ahead of the MMAs
+constexpr int WP_SLOTS = WP_AHEAD + 3;         // rows y-1, y, y+1 stay resident
+constexpr int WP_G_BYTES = WP_PX * 128;        // g row: 64 pixels x 128 bytes, swizzled
+constexpr int WP_X_BYTES = mm::align1024i((WP_PX + 2) * WP_LD * 2);
+constexpr int WP_STAGE = WP_G_BYTES + WP_X_BYTES;  // g first: it must be 1024-byte aligned
+constexpr int WP_SMEM = WP_SLOTS * WP_STAGE + 1024;
+constexpr int WP_X_VEC = (WP_PX + 2) * 8;      // 16-byte pieces of a staged x row
+constexpr int WP_VEC = WP_X_VEC + WP_PX * 8;   // ... and of the g row
+constexpr int WP_IT = (WP_VEC + WP_THREADS - 1) / WP_THREADS;
+
+// Block (blockIdx.x) = (output tile, image, column strip, row range).  Stage
+// s of a block holds x row ya - 1 + s and g row ya + s - 2, so that when stage
+// s has landed, output row y = ya + s - 2 has its three x rows (stages s - 2,
+// s - 1, s) and its g row.
+template <bool FOLD>
+__global__ void __launch_bounds__(WP_THREADS, 1) wgrad_wgmma_kernel(
+    const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ g,
+    const float* __restrict__ fold, float* __restrict__ out, int h, int w, int c, int co,
+    int strips, int row_splits, int rows_per, int c_tiles) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  __nv_bfloat16* fs = reinterpret_cast<__nv_bfloat16*>(smem_raw + WP_SMEM);  // (3, 64) fold
+  const uint32_t sraw = mm::smem_u32(smem_raw);
+  const uint32_t sbase = (sraw + 1023u) & ~1023u;
+  unsigned char* smem = smem_raw + (sbase - sraw);
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int dy = warp >> 2;  // this warpgroup's row of taps
+  const int wq = warp & 3;   // this warp's 16 input channels of the tile's 64
+  int idx = blockIdx.x;
+  const int rs = idx % row_splits;
+  idx /= row_splits;
+  const int x0 = (idx % strips) * WP_PX;
+  idx /= strips;
+  const int c0 = (idx % c_tiles) * WP_TC;
+  idx /= c_tiles;
+  const int co_tiles = co / WP_TO;
+  const int co0 = (idx % co_tiles) * WP_TO;
+  const int b = idx / co_tiles;
+  const int ya = rs * rows_per, yb = min(ya + rows_per, h);
+  const int n_stage = yb - ya + 2;
+  const __nv_bfloat162 slope = __float2bfloat162_rn(kLeakySlope);
+  if (FOLD) {
+    for (int i = tid; i < 3 * WP_TC; i += WP_THREADS)
+      fs[i] = __float2bfloat16(fold[(i / WP_TC) * c + c0 + i % WP_TC]);
+    __syncthreads();
+  }
+
+  // this thread's pieces of a stage: x pieces first, then g pieces
+  const __nv_bfloat16* src[WP_IT];  // row 0 of image b at this piece's column and channels
+  uint32_t dst[WP_IT];
+  bool is_x[WP_IT], col_in[WP_IT];
+#pragma unroll
+  for (int i = 0; i < WP_IT; ++i) {
+    const int v = tid + i * WP_THREADS;
+    is_x[i] = v < WP_X_VEC;
+    const int u = is_x[i] ? v : v - WP_X_VEC;
+    const int pix = u >> 3, cv = u & 7;
+    const int xx = is_x[i] ? x0 + pix - 1 : x0 + pix;
+    col_in[i] = v < WP_VEC && xx >= 0 && xx < w;
+    const size_t img = (size_t)b * h * w;
+    src[i] = !col_in[i] ? x
+             : is_x[i]  ? x + (img + xx) * c + c0 + cv * 8
+                        : g + (img + xx) * co + co0 + cv * 8;
+    dst[i] = is_x[i] ? (uint32_t)(WP_G_BYTES + (pix * WP_LD + cv * 8) * 2)
+                     : (uint32_t)((pix >> 4) * 2048) + mm::swizzled_piece(pix & 15, cv);
+  }
+
+  auto load_stage = [&](int s) {
+    const uint32_t st = sbase + (uint32_t)((s % WP_SLOTS) * WP_STAGE);
+    const int yx = ya - 1 + s, yg = ya + s - 2;
+    const bool x_row = yx >= 0 && yx < h;
+#pragma unroll
+    for (int i = 0; i < WP_IT; ++i) {
+      if (tid + i * WP_THREADS >= WP_VEC) continue;
+      if (is_x[i]) {
+        const bool in = x_row && col_in[i];
+        mm::cp_async16(st + dst[i], in ? src[i] + (size_t)yx * w * c : x, in);
+      } else if (s >= 2) {
+        mm::cp_async16(st + dst[i], col_in[i] ? src[i] + (size_t)yg * w * co : g, col_in[i]);
+      }
+    }
+  };
+  auto fold_own = [&](int s) {  // this thread's pieces of stage s, landed
+    const int yx = ya - 1 + s;
+    if (FOLD && yx >= 0 && yx < h) {
+      // 384 % 8 == 0: all of a thread's pieces cover the same 8 channels
+      const __nv_bfloat16* f = fs + (tid & 7) * 8;
+      const uint4 mean = *reinterpret_cast<const uint4*>(f);
+      const uint4 mul = *reinterpret_cast<const uint4*>(f + WP_TC);
+      const uint4 bias = *reinterpret_cast<const uint4*>(f + 2 * WP_TC);
+#pragma unroll
+      for (int i = 0; i < WP_IT; ++i)
+        if (is_x[i] && col_in[i])
+          mm::prologue_piece(smem + (s % WP_SLOTS) * WP_STAGE + dst[i], mean, mul, bias, slope);
+    }
+    mm::fence_async_shared();  // the g pieces this thread copied, before wgmma reads them
+  };
+
+  float acc[3][32];
+#pragma unroll
+  for (int t = 0; t < 3; ++t)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) acc[t][e] = 0.f;
+
+  // A^T (this warp's 16 channels x 16 pixels) is read with ldmatrix.trans from
+  // the pixel rows of x: matrix lane/8 covers pixels (lane/16)*8.. and channels
+  // ((lane/8)%2)*8..
+  const uint32_t a_off = (uint32_t)(
+      WP_G_BYTES + (((lane & 7) + (lane >> 4) * 8) * WP_LD + wq * 16 + ((lane >> 3) & 1) * 8) * 2);
+
+#pragma unroll
+  for (int s = 0; s < WP_AHEAD; ++s) {
+    if (s < n_stage) load_stage(s);
+    mm::cp_async_commit();
+  }
+  mm::cp_async_wait<WP_AHEAD - 1>();
+  fold_own(0);
+  for (int s = 0; s < n_stage; ++s) {
+    // stage s is whole.  Every warp past this barrier has waited for all its
+    // MMAs of output row s - 2 (at most one step stays in flight), so the slot
+    // of stage s - 3 is free and the tensor cores never drain before a barrier
+    __syncthreads();
+    if (s + WP_AHEAD < n_stage) load_stage(s + WP_AHEAD);  // into the slot of stage s - 3
+    mm::cp_async_commit();
+    if (s >= 2) {
+      const uint32_t xs = sbase + (uint32_t)(((s - 2 + dy) % WP_SLOTS) * WP_STAGE) + a_off;
+      const uint32_t gs = sbase + (uint32_t)((s % WP_SLOTS) * WP_STAGE);
+      uint32_t a[2][3][4];
+#pragma unroll
+      for (int ks = 0; ks < WP_PX / 16; ++ks) {
+#pragma unroll
+        for (int dx = 0; dx < 3; ++dx)
+          mm::ldmatrix_x4_trans(a[ks & 1][dx], xs + (uint32_t)((ks * 16 + dx) * WP_LD * 2));
+        const uint64_t desc = mm::wgmma_desc_b(gs + (uint32_t)(ks * 2048), 0);
+        mm::wgmma_fence();
+#pragma unroll
+        for (int dx = 0; dx < 3; ++dx) mm::wgmma_m64n64k16(acc[dx], a[ks & 1][dx], desc, 1);
+        mm::wgmma_commit();
+        if (ks == 1) {  // stage s + 1 has landed: prologue on it behind queued MMAs
+          mm::cp_async_wait<WP_AHEAD - 1>();
+          if (s + 1 < n_stage) fold_own(s + 1);
+        }
+        mm::wgmma_wait<1>();  // step ks - 1 is done: its A registers are free
+      }
+    } else {
+      mm::cp_async_wait<WP_AHEAD - 1>();
+      fold_own(s + 1);
+    }
+  }
+  mm::cp_async_wait<0>();
+  mm::wgmma_wait<0>();
+
+  // this lane holds channels 16*wq + gq and + 8, output channels j*8 + q*2, +1
+  const int gq = lane >> 2, q = lane & 3;
+#pragma unroll
+  for (int dx = 0; dx < 3; ++dx)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      float* row = out + ((size_t)(dy * 3 + dx) * c + c0 + wq * 16 + gq + hh * 8) * co + co0 + q * 2;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        mm::red_add_f32x2(row + j * 8, acc[dx][4 * j + hh * 2], acc[dx][4 * j + hh * 2 + 1]);
+    }
+}
+
+template <bool FOLD>
+cudaError_t launch_wgrad_wgmma(const void* x, const void* g, const float* fold, float* out, int b,
+                             int h, int w, int c, int co, cudaStream_t stream) {
+  const size_t smem = (size_t)WP_SMEM + 3ull * WP_TC * 2;
+  cudaError_t err = cudaFuncSetAttribute(wgrad_wgmma_kernel<FOLD>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  int dev = 0, sms = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return err;
+  const int strips = (w + WP_PX - 1) / WP_PX;
+  const int c_tiles = c / WP_TC;
+  const long long units = (long long)b * strips * c_tiles * (co / WP_TO);
+  if (units <= 0 || h <= 0) return cudaGetLastError();
+  // at least two blocks per SM, but no range shorter than 8 rows (each range
+  // reads two rows of x beyond its own)
+  long long want = (2LL * sms + units - 1) / units;
+  const int most = (h + 7) / 8;
+  if (want > most) want = most;
+  if (want < 1) want = 1;
+  const int rows_per = (int)((h + want - 1) / want);
+  const int row_splits = (h + rows_per - 1) / rows_per;
+  const long long blocks = units * row_splits;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  wgrad_wgmma_kernel<FOLD><<<(unsigned)blocks, WP_THREADS, smem, stream>>>(
+      (const __nv_bfloat16*)x, (const __nv_bfloat16*)g, fold, out, h, w, c, co, strips, row_splits,
+      rows_per, c_tiles);
+  return cudaGetLastError();
 }
 
 template <typename T, typename K>
@@ -369,6 +597,10 @@ extern "C" int conv_bn_wgrad(const void* x, const void* g, const void* fold, voi
   if (co % TN) return (int)cudaErrorInvalidValue;
   if (dtype == 1) {
     if (c % KC_H) return (int)cudaErrorInvalidValue;
+    if (c % WP_TC == 0) {
+      if (f) return (int)launch_wgrad_wgmma<true>(x, g, f, o, b, h, w, c, co, s);
+      return (int)launch_wgrad_wgmma<false>(x, g, f, o, b, h, w, c, co, s);
+    }
     const size_t smem = WG_A_BYTES_H + WG_G_BYTES_H + WG_P_BYTES_H + 3ull * c * 4;
     if (f)
       return (int)launch_wgrad<__nv_bfloat16>(wgrad_bf16_kernel<true>, smem, KC_H, x, g, f, o, b,
@@ -386,6 +618,17 @@ extern "C" int conv_bn_wgrad(const void* x, const void* g, const void* fold, voi
                                     co, s);
   }
   return (int)cudaErrorInvalidValue;
+}
+
+// Which kernel conv_bn_wgrad launches for this static shape and dtype: 0 =
+// the f32 FMA kernel, 1 = the bf16 wmma tile (9 taps x 32 x 64), 2 = the
+// pipelined wgmma kernel (9 taps x 64 x 64, 64-column strips); -1 = not
+// taken.
+extern "C" int conv_bn_wgrad_variant(int h, int w, int c, int co, int dtype) {
+  if (co % TN) return -1;
+  if (dtype == 0) return c % KC_F ? -1 : 0;
+  if (dtype != 1 || c % KC_H) return -1;
+  return c % WP_TC == 0 ? 2 : 1;
 }
 
 // g: (b, h, w, co) contiguous; kflip: (9co, c) contiguous, same dtype as g;

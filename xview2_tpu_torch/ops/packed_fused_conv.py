@@ -216,6 +216,32 @@ def _conv_bn_cuda(xprev: torch.Tensor, kernel: torch.Tensor, fold: Optional[Fold
     return out, s1, s2
 
 
+_VARIANTS = {
+    "conv_bn_fused": ("fused_conv", {
+        0: "f32 FMA", 1: "bf16 wmma row tile 8x128 px x 64 ch",
+        128: "bf16 wgmma pipelined, tile 2x128 px x 128 ch",
+        64: "bf16 wgmma pipelined, tile 4x64 px x 128 ch",
+        32: "bf16 wgmma pipelined, tile 8x32 px x 128 ch",
+        16: "bf16 wgmma pipelined, tile 16x16 px x 128 ch"}),
+    "conv_bn_wgrad": ("fused_conv_bwd", {
+        0: "f32 FMA", 1: "bf16 wmma tile 9 taps x 32 x 64",
+        2: "bf16 wgmma pipelined, tile 9 taps x 64 x 64, 64-column strips"}),
+}
+
+
+def kernel_variant(kernel: str, h: int, w: int, c: int, co: int, dtype: torch.dtype) -> str:
+    """Which hand-written kernel the C entry point of ``kernel``
+    (``"conv_bn_fused"`` or ``"conv_bn_wgrad"``) launches for this static
+    shape and dtype: the choice depends on nothing else.  Needs the built
+    library, so it runs only where the kernels do."""
+    source, names = _VARIANTS[kernel]
+    fn = cuda_build.function(source, f"{kernel}_variant", (_INT,) * 5)
+    code = fn(h, w, c, co, _DTYPE_CODE[dtype])
+    if code not in names:
+        raise ValueError(f"{kernel}: no kernel takes H={h}, W={w}, C={c}, Co={co}, {dtype}")
+    return names[code]
+
+
 def _conv_bn_forward(xprev: torch.Tensor, kernel: torch.Tensor, fold: Optional[Fold]):
     if xprev.is_cuda:
         return _conv_bn_cuda(xprev, kernel, fold)
