@@ -14,10 +14,12 @@ Phases, each of which fails the script (non-zero exit, no result line):
 3. hold each kernel against its plain PyTorch version on the card, at the
    shapes the eval path and the train path give it, and time the kernel, the
    plain version and one PyTorch library call computing the same function
-   (the yardstick; the port never calls it); for K2 and K4 also name the
-   kernel variant each shape takes (the dispatch inside the C entry point)
-   with its TFLOP/s, hold ragged and half-tile shapes, K2's ``out`` EQUAL
-   between two runs, and the prologue inside both EQUAL to the plain one;
+   (the yardstick; the port never calls it); for K2, K3, K4 and K5 also name
+   the kernel variant each shape takes (the dispatch inside the C entry
+   point), failing if a path shape misses the redesigned kernel, with the
+   TFLOP/s of the convolutions; hold ragged and half-tile shapes, K2's
+   ``out`` and K5's ``dx`` EQUAL between two runs, the prologue inside K2 and
+   K4 and the epilogue of K5 EQUAL to the plain ones;
 4. the eval main path: a synthetic holdout of 8 tiles of 1024^2, a ResNet-50
    UNetLoc made from a fixed seed saved as a port checkpoint, and
    ``xview2_tpu_torch.main.main([... --exec_mode eval ...])`` with 4-flip TTA
@@ -85,6 +87,27 @@ def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int, warmup: int = 2) -> float:
+    """Mean device milliseconds of the kernels ``fn`` launches, by
+    torch.profiler: the card's own time for the work, without the host's
+    share, which for a call of 0.1 ms can be as large as the kernel (the
+    host of a one-card machine is shared)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    if not kernels:
+        raise AssertionError("the profiler saw no device time")
+    return sum(e.self_device_time_total for e in kernels) / iters / 1e3
 
 
 def bound_ms(nbytes: float, flops: float, dtype: str):
@@ -330,7 +353,39 @@ def check_prologue_bit_equal():
         f"bf16 (identity centre tap; one-pixel cotangent at 4 places): bit-equal (tolerance 0)")
 
 
-def _bwd_case(b, h, w, c, co, dtype, seed):
+def check_dgrad_epilogue_bit_equal():
+    """K5's epilogue (the gate, the scale by the unrounded mul and the
+    roundings, on bf16 pairs) against the plain version, EQUAL (tolerance
+    0): a flipped kernel that is the identity at its centre tap makes da = g
+    exactly in both, so dx must agree bit for bit.  Inputs span 12 binades."""
+    import torch
+
+    from xview2_tpu_torch.ops import packed_fused_conv as pfc
+
+    b, h, w, c = 2, 70, 200, 128
+    gen = torch.Generator(device="cuda").manual_seed(142)
+
+    def wide():
+        t = torch.randn((b, h, w, c), generator=gen, device="cuda")
+        e = torch.randint(-6, 6, t.shape, generator=gen, device="cuda").float()
+        return (t * torch.exp2(e)).to(torch.bfloat16)
+
+    x, g = wide(), wide()
+    _, _, fold = _k2_case(1, 1, 1, c, c, torch.bfloat16, seed=143)
+    kf = torch.zeros((9 * c, c), device="cuda", dtype=torch.bfloat16)
+    kf[4 * c + torch.arange(c), torch.arange(c)] = 1
+    variant = pfc.kernel_variant("conv_bn_dgrad", h, w, c, c, torch.bfloat16)
+    dx, _, _ = pfc.conv_bn_dgrad(g, kf, x, fold, True)
+    want, _, _ = pfc.reference_dgrad(g, kf, x, fold)
+    if "pipelined" not in variant or not torch.equal(dx, want):
+        raise AssertionError(f"K5 [{variant}]: the epilogue is not bit-equal to the plain one")
+    log(f"K5 epilogue inside the pipelined kernel [{variant}] vs the plain version at "
+        f"{(b, h, w, c)} bf16 (identity centre tap of the flipped kernel): dx bit-equal "
+        f"(tolerance 0)")
+
+
+def bwd_case(b, h, w, c, co, dtype, seed):
+    """(x, g, kernel, fold) on the card for K4/K5 at (b, h, w, c) -> co."""
     import torch
 
     x, k, fold = _k2_case(b, h, w, c, co, dtype, seed)
@@ -385,7 +440,7 @@ def check_conv_bn_backward():
     rows = {"conv_bn_wgrad": dict.fromkeys(keys, 0.0), "conv_bn_dgrad": dict.fromkeys(keys, 0.0)}
     bound_by = {"conv_bn_wgrad": set(), "conv_bn_dgrad": set()}
     for i, (name, b, h, w, c, co) in enumerate(TRAIN_PATH):
-        x, g, k, fold = _bwd_case(b, h, w, c, co, torch.bfloat16, seed=70 + i)
+        x, g, k, fold = bwd_case(b, h, w, c, co, torch.bfloat16, seed=70 + i)
         kf = pfc.flip_kernel(k)
         has_fold = name.endswith("conv2")  # the path: conv1 takes the input as it is
         for hf in (True, False):
@@ -413,14 +468,15 @@ def check_conv_bn_backward():
                 cuda_ms(lambda: torch.nn.grad.conv2d_weight(a, kc.shape, gc, padding=1), 10),
                 bound_ms(act + 9 * c * co * 4 + 3 * c * 4, flops, "bfloat16")),
             "conv_bn_dgrad": (
-                cuda_ms(lambda: pfc.conv_bn_dgrad(g, kf, x, fold, has_fold), 3),
+                cuda_ms(lambda: pfc.conv_bn_dgrad(g, kf, x, fold, has_fold), 10),
                 cuda_ms(lambda: pfc.reference_dgrad(g, kf, x, f), 2),
-                cuda_ms(lambda: torch.nn.grad.conv2d_input(a.shape, kc, gc, padding=1), 3),
+                cuda_ms(lambda: torch.nn.grad.conv2d_input(a.shape, kc, gc, padding=1), 10),
                 bound_ms(act + (b * h * w * c + 9 * c * co) * 2 + 5 * c * 4, flops, "bfloat16")),
         }
-        variant = pfc.kernel_variant("conv_bn_wgrad", h, w, c, co, torch.bfloat16)
-        if "pipelined" not in variant:
-            raise AssertionError(f"K4 {name}: the path shape took '{variant}'")
+        variants = {kern: pfc.kernel_variant(kern, h, w, c, co, torch.bfloat16) for kern in times}
+        for kern, variant in variants.items():
+            if "pipelined" not in variant:
+                raise AssertionError(f"{kern} {name}: the path shape took '{variant}'")
         for kern, (ms, plain, lib, (bnd, by)) in times.items():
             r = rows[kern]
             r["ms"] += ms
@@ -428,29 +484,48 @@ def check_conv_bn_backward():
             r["library_ms"] += lib
             r["bound_ms"] += bnd
             bound_by[kern].add(by)
-            log(f"{'K4' if kern.endswith('wgrad') else 'K5'} {name} timing"
-                f"{f' [{variant}]' if kern.endswith('wgrad') else ''}: kernel {ms:.3f} ms "
-                f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain:.3f} ms, library (cuDNN "
-                f"{'wgrad' if kern.endswith('wgrad') else 'dgrad'}) {lib:.3f} ms, bound "
-                f"{bnd:.3f} ms ({by})")
+            log(f"{'K4' if kern.endswith('wgrad') else 'K5'} {name} fold={has_fold} timing "
+                f"[{variants[kern]}]: kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain "
+                f"{plain:.3f} ms, library (cuDNN {'wgrad' if kern.endswith('wgrad') else 'dgrad'})"
+                f" {lib:.3f} ms, bound {bnd:.3f} ms ({by})")
+        other = cuda_ms(lambda: pfc.conv_bn_dgrad(g, kf, x, fold, not has_fold), 10)
+        log(f"K5 {name} fold={not has_fold} (not on the path): kernel {other:.3f} ms "
+            f"({flops / other / 1e9:.1f} TFLOP/s)")
         del x, g, k, kf, fold, a, gc, kc
         torch.cuda.empty_cache()
-    # ragged and half-tile shapes of the pipelined weight gradient (and those
-    # the dispatch hands to the earlier tile), fold on and off
+    # ragged and half-tile shapes of the pipelined weight and input gradients
+    # (and those the dispatch hands to the earlier tiles), fold on and off;
+    # K5's dx EQUAL between two runs (no atomics touch it)
     for i, (b, h, w, c, co) in enumerate(RAGGED):
-        x, g, k, fold = _bwd_case(b, h, w, c, co, torch.bfloat16, seed=130 + i)
-        variant = pfc.kernel_variant("conv_bn_wgrad", h, w, c, co, torch.bfloat16)
+        x, g, k, fold = bwd_case(b, h, w, c, co, torch.bfloat16, seed=130 + i)
+        kf = pfc.flip_kernel(k)
+        v4 = pfc.kernel_variant("conv_bn_wgrad", h, w, c, co, torch.bfloat16)
+        v5 = pfc.kernel_variant("conv_bn_dgrad", h, w, c, co, torch.bfloat16) if c % 64 == 0 \
+            else None  # K5 tiles the channels it produces by 64 at least
         for hf in (True, False):
+            f = fold if hf else None
             e4, r4 = _compare_wgrad(pfc.conv_bn_wgrad(x, g, fold, hf),
-                                    pfc.reference_wgrad(x, g, fold if hf else None),
+                                    pfc.reference_wgrad(x, g, f),
                                     f"K4 ragged {(b, h, w, c, co)} fold={hf}")
             rows["conv_bn_wgrad"]["max_abs_err"] = max(rows["conv_bn_wgrad"]["max_abs_err"], e4)
-            log(f"K4 ragged {(b, h, w, c)}->{co} bf16 fold={hf} [{variant}]: dW max abs err "
-                f"{e4:.4g} ({r4:.3g} of max|dW|, tolerance 1e-3)")
-        del x, g, k, fold
+            msg = (f"K4 ragged {(b, h, w, c)}->{co} bf16 fold={hf} [{v4}]: dW max abs err "
+                   f"{e4:.4g} ({r4:.3g} of max|dW|, tolerance 1e-3)")
+            if v5 is not None:
+                got = pfc.conv_bn_dgrad(g, kf, x, fold, hf)
+                again = pfc.conv_bn_dgrad(g, kf, x, fold, hf)
+                e5 = _compare_dgrad(got, pfc.reference_dgrad(g, kf, x, f),
+                                    f"K5 ragged {(b, h, w, c, co)} fold={hf}")
+                if not torch.equal(got[0], again[0]):
+                    raise AssertionError(f"K5 {(b, h, w, c, co)} fold={hf}: dx differs between "
+                                         "two runs on the same input")
+                rows["conv_bn_dgrad"]["max_abs_err"] = max(rows["conv_bn_dgrad"]["max_abs_err"],
+                                                           e5)
+                msg += f"; K5 [{v5}]: dx max abs err {e5:.4g}, dx bit-equal between two runs"
+            log(msg)
+        del x, g, k, kf, fold
     # one float32 case each (--precision 32): the FMA kernels, TF32 off in the
     # plain versions (they turn it off themselves)
-    x, g, k, fold = _bwd_case(4, 128, 128, 128, 128, torch.float32, seed=90)
+    x, g, k, fold = bwd_case(4, 128, 128, 128, 128, torch.float32, seed=90)
     kf = pfc.flip_kernel(k)
     e4, r4 = _compare_wgrad(pfc.conv_bn_wgrad(x, g, fold, True), pfc.reference_wgrad(x, g, fold),
                             "K4 f32 case")
@@ -471,66 +546,102 @@ def check_conv_bn_backward():
     return rows
 
 
-def check_head_conv_fused():
+def head_case(shape, co, seed):
+    """(x, kmat, hbias, fold) on the card for K3 at ``shape`` -> co."""
     import torch
 
-    from xview2_tpu_torch.ops import packed_fused_conv as pfc
-
-    gen = torch.Generator(device="cuda").manual_seed(40)
-    b, h, w, c, co = 16, 512, 512, 128, 8
-    x = torch.randn((b, h, w, c), generator=gen, device="cuda").to(torch.bfloat16)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    c = shape[-1]
+    x = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
     kmat = torch.randn((c, co), generator=gen, device="cuda") / math.sqrt(c)
     hbias = torch.randn(co, generator=gen, device="cuda")
     fold = (torch.randn(c, generator=gen, device="cuda") * 0.5,
             torch.rand(c, generator=gen, device="cuda") + 0.5,
             torch.randn(c, generator=gen, device="cuda") * 0.5)
-    got = pfc.head_conv_fused(x, kmat, hbias, fold)
-    want = pfc.reference_head(x, kmat, hbias, fold)
-    a = pfc.prologue(x, fold)
-    kb = kmat.to(torch.bfloat16)
-    gemm = torch.matmul(a, kb).float()
+    return x, kmat, hbias, fold
+
+
+def _compare_head(x, kmat, hbias, fold, tag):
+    """Two bf16 roundings, after the GEMM (at the GEMM's magnitude, which the
+    bias may cancel) and after the bias: up to one ulp of each apart, plus
+    1e-3 of max|out|.  Returns (max abs err, max rel err of max(|gemm|,
+    |out|), the kernel variant)."""
+    import torch
+
+    from xview2_tpu_torch.ops import packed_fused_conv as pfc
+
+    b, h, w, c = x.shape
+    co = kmat.shape[1]
+    variant = pfc.kernel_variant("head_conv_fused", h, w, c, co, x.dtype)
+    got = pfc.head_conv_fused(x, kmat, hbias, fold).float()
+    want = pfc.reference_head(x, kmat, hbias, fold).float()
+    gemm = torch.matmul(pfc.prologue(x, fold), kmat.to(x.dtype)).float()
     torch.cuda.synchronize()
-    gk, gp = got.float(), want.float()
-    err = (gk - gp).abs()
-    scale = gp.abs().max().item()
-    # two bf16 roundings, after the GEMM (at the GEMM's magnitude, which the
-    # bias may cancel) and after the bias: up to one ulp of each apart
-    tol = 2 * torch.finfo(torch.bfloat16).eps * (gemm.abs() + gp.abs()) + 1e-3 * scale
+    err = (got - want).abs()
+    scale = want.abs().max().item()
+    tol = 2 * torch.finfo(x.dtype).eps * (gemm.abs() + want.abs()) + 1e-3 * scale
     if not bool((err <= tol).all()):
-        raise AssertionError(f"head_conv_fused disagrees: max abs err {err.max().item():.4g}")
-    ms = cuda_ms(lambda: pfc.head_conv_fused(x, kmat, hbias, fold), 10)
-    plain = cuda_ms(lambda: pfc.reference_head(x, kmat, hbias, fold), 10)
-    lib = cuda_ms(lambda: torch.matmul(a, kb), 10)
-    nbytes = x.numel() * 2 + b * h * w * co * 2 + (c * co + co + 3 * c) * 4
-    bnd, by = bound_ms(nbytes, 2.0 * b * h * w * c * co, "bfloat16")
-    rel = (err / torch.maximum(gemm.abs(), gp.abs()).clamp_min(1e-3 * scale)).max().item()
-    log(f"K3 head {(b, h, w, c)}->{co} bf16: max abs err {err.max().item():.4g}, max rel err "
-        f"{rel:.4g} (of max(|gemm|, |out|)), tolerance "
-        f"2*eps*(|gemm| + |out|) + 1e-3*max|out|; kernel {ms:.3f} ms, plain {plain:.3f} ms, library "
-        f"(matmul) {lib:.3f} ms, bound {bnd:.3f} ms ({by})")
-    row = dict(max_abs_err=err.max().item(), ms=ms, plain_ms=plain, library_ms=lib,
-               bound_ms=bnd, bound_by=by)
-    # the train step's launch: the packed dec_l5 map of batch 16 of 512^2
-    xt = x[:, :CROP // 2, :CROP // 2].contiguous()
-    at = pfc.prologue(xt, fold)
-    got, want = pfc.head_conv_fused(xt, kmat, hbias, fold), pfc.reference_head(xt, kmat, hbias, fold)
-    torch.cuda.synchronize()
-    gemm = torch.matmul(at, kb).float()
-    errt = (got.float() - want.float()).abs()
-    if not bool((errt <= 2 * torch.finfo(torch.bfloat16).eps * (gemm.abs() + want.float().abs())
-                 + 1e-3 * want.float().abs().max()).all()):
-        raise AssertionError(f"head_conv_fused (train shape) disagrees: {errt.max().item():.4g}")
-    row["max_abs_err"] = max(row["max_abs_err"], errt.max().item())
-    row["train_ms"] = cuda_ms(lambda: pfc.head_conv_fused(xt, kmat, hbias, fold), 10)
-    row["train_plain_ms"] = cuda_ms(lambda: pfc.reference_head(xt, kmat, hbias, fold), 10)
-    row["train_library_ms"] = cuda_ms(lambda: torch.matmul(at, kb), 10)
-    row["train_bound_ms"] = bound_ms(xt.numel() * 2 + xt.numel() // c * co * 2
-                                     + (c * co + co + 3 * c) * 4,
-                                     2.0 * xt.numel() * co, "bfloat16")[0]
-    log(f"K3 head per train step {tuple(xt.shape)}->{co} bf16: max abs err "
-        f"{errt.max().item():.4g}; kernel {row['train_ms']:.3f} ms, plain "
-        f"{row['train_plain_ms']:.3f} ms, library (matmul) {row['train_library_ms']:.3f} ms, "
-        f"bound {row['train_bound_ms']:.3f} ms (bytes)")
+        raise AssertionError(f"K3 head {tag} {(b, h, w, c)}->{co} [{variant}] disagrees: max abs "
+                             f"err {err.max().item():.4g}")
+    rel = (err / torch.maximum(gemm.abs(), want.abs()).clamp_min(1e-3 * scale)).max().item()
+    return err.max().item(), rel, variant
+
+
+def check_head_conv_fused():
+    """K3 at the eval shape (the packed dec_l5 map of 16 images of 1024^2)
+    and the train shape (batch 16 of 512^2 crops), Co = 8 (the path) and 16,
+    and at a ragged pixel count, against the plain version; the path shapes
+    must take the mma.sync kernel.  Timed at Co = 8 beside the plain version,
+    ``torch.matmul`` of the activated map and the bound by CUDA events, as
+    every kernel is; the kernel and ``matmul`` also by the device time of the
+    kernels a call launches (``device_ms``: at the train shape the wrapper's
+    host time is of the kernel's order)."""
+    import torch
+
+    from xview2_tpu_torch.ops import packed_fused_conv as pfc
+
+    c = 128
+    row = {}
+    for tag, shape in (("eval", (16, 512, 512, c)), ("train", (16, CROP // 2, CROP // 2, c))):
+        for co in (16, 8):  # the path's Co = 8 last: its tensors are timed below
+            x, kmat, hbias, fold = head_case(shape, co, seed=40)
+            err, rel, variant = _compare_head(x, kmat, hbias, fold, tag)
+            row["max_abs_err"] = max(row.get("max_abs_err", 0.0), err)
+            log(f"K3 head {tag} {shape}->{co} bf16 [{variant}]: max abs err {err:.4g}, max rel "
+                f"err {rel:.4g} (of max(|gemm|, |out|)), tolerance 2*eps*(|gemm| + |out|) + "
+                f"1e-3*max|out|")
+            if "mma.sync" not in variant:
+                raise AssertionError(f"K3 head {tag} {shape}->{co}: the path shape took "
+                                     f"'{variant}'")
+        a = pfc.prologue(x, fold)
+        kb = kmat.to(torch.bfloat16)
+        ms = cuda_ms(lambda: pfc.head_conv_fused(x, kmat, hbias, fold), 10)
+        plain = cuda_ms(lambda: pfc.reference_head(x, kmat, hbias, fold), 10)
+        lib = cuda_ms(lambda: torch.matmul(a, kb), 10)
+        dev = device_ms(lambda: pfc.head_conv_fused(x, kmat, hbias, fold), 20)
+        lib_dev = device_ms(lambda: torch.matmul(a, kb), 20)
+        npix = x.numel() // c
+        nbytes = x.numel() * 2 + npix * co * 2 + (c * co + co + 3 * c) * 4
+        bnd, by = bound_ms(nbytes, 2.0 * npix * c * co, "bfloat16")
+        log(f"K3 head {tag} {shape}->{co} timing [{variant}] by CUDA events: kernel {ms:.4f} ms "
+            f"({nbytes / ms / 1e9:.3f} TB/s), plain {plain:.3f} ms, library (matmul) {lib:.4f} "
+            f"ms, bound {bnd:.4f} ms ({by}); device time of every kernel of a call (profiler): "
+            f"kernel {dev:.4f} ms, library (matmul) {lib_dev:.4f} ms")
+        pre = "" if tag == "eval" else "train_"
+        row.update({f"{pre}ms": ms, f"{pre}plain_ms": plain, f"{pre}library_ms": lib,
+                    f"{pre}bound_ms": bnd, f"{pre}device_ms": dev,
+                    f"{pre}library_device_ms": lib_dev})
+        if tag == "eval":
+            row["bound_by"] = by
+        del x, a
+        torch.cuda.empty_cache()
+    # a ragged pixel count: the last tile holds 41 of 128 pixels
+    for co in (8, 16):
+        x, kmat, hbias, fold = head_case((1, 37, 53, c), co, seed=41)
+        err, rel, variant = _compare_head(x, kmat, hbias, fold, "ragged")
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        log(f"K3 head ragged (1, 37, 53, {c})->{co} bf16 [{variant}]: max abs err {err:.4g}, "
+            f"max rel err {rel:.4g}")
     return row
 
 
@@ -1215,9 +1326,10 @@ _CATEGORIES = (("K6 row_shift", ("row_shift_kernel",)),
                ("K7 small_conv_fwd", ("small_fwd_bf16_kernel", "small_fwd_f32_kernel")),
                ("K8 small_conv_wgrad", ("small_wgrad_bf16_kernel", "small_wgrad_f32_kernel")),
                ("K4 conv_bn_wgrad", ("wgrad_wgmma_kernel", "wgrad_bf16_kernel", "wgrad_f32_kernel")),
-               ("K5 conv_bn_dgrad", ("dgrad_bf16_kernel", "dgrad_f32_kernel")),
+               ("K5 conv_bn_dgrad", ("dgrad_wgmma_kernel", "dgrad_bf16_kernel",
+                                     "dgrad_f32_kernel")),
                ("K2 conv_bn_fused", ("conv_wgmma_kernel", "conv_bf16_kernel", "conv_f32_kernel")),
-               ("K3 head_conv_fused", ("head_kernel",)),
+               ("K3 head_conv_fused", ("head_mma_kernel", "head_kernel")),
                ("K1 relayout", ("relayout_kernel",)),
                ("library conv/GEMM", ("xmma", "cudnn", "cutlass", "gemm", "conv")),
                ("elementwise", ("elementwise", "reduce")),
@@ -1284,6 +1396,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     rows.update(check_conv_bn_backward())
     check_prologue_bit_equal()
+    check_dgrad_epilogue_bit_equal()
     torch.cuda.empty_cache()
     rows["row_shift"] = check_row_shift()
     rows.update(check_small_conv())
@@ -1327,7 +1440,9 @@ def main(argv=None) -> int:
     # --autoaugment train CLI), each counted from 0.  ms/plain_ms/library_ms/
     # bound_ms: K1-K3 per eval step (train_* keys: per train step), K4/K5 per
     # train step, K6 per --autoaugment step with one rotation and one shear
-    # group, K7/K8 per launch at (16, 512, 512, 32) -> 32 bf16.
+    # group, K7/K8 per launch at (16, 512, 512, 32) -> 32 bf16, all by CUDA
+    # events; K3 adds the profiler's device time of a call's kernels
+    # (device_ms, library_device_ms and their train_ keys).
     kernels = []
     for name, (counter, source, replaces) in meta.items():
         r = rows[name]
@@ -1342,7 +1457,8 @@ def main(argv=None) -> int:
                         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                         **{k: v for k, v in r.items()
-                           if k.startswith("train_") or k == "dx_ms"}})
+                           if k.startswith("train_") or k in ("dx_ms", "device_ms",
+                                                               "library_device_ms")}})
     if any(k["launches"] < 1 for k in kernels):
         raise AssertionError(f"a kernel was launched on no main path: {kernels}")
     print(json.dumps({"kernels": kernels}))

@@ -217,6 +217,99 @@ def test_conv_bn_dgrad_matches_plain(shape, has_fold, dtype):
         assert (got - want).abs().max().item() <= 1e-3 * max(want.abs().max().item(), 1.0)
 
 
+# (B, H, W, C, Co) that the pipelined K5 takes (C % 128 == 0), at ragged H and
+# W: a W that is no multiple of any tile width, an H that is no multiple of
+# the rows per tile, a W below the narrowest tile, C = 384 from Co = 128, and
+# Co = 32 (two chunks of g, fewer than the ring's stages)
+_DGRAD_RAGGED = [(2, 13, 70, 256, 128), (3, 37, 200, 128, 256), (1, 5, 97, 128, 128),
+                 (2, 9, 7, 384, 128), (1, 24, 136, 128, 32)]
+
+
+@pytest.mark.parametrize("has_fold", [False, True])
+@pytest.mark.parametrize("shape", _DGRAD_RAGGED)
+def test_conv_bn_dgrad_pipelined_matches_plain_and_repeats(shape, has_fold):
+    """The pipelined K5 against its plain version under the tolerance of
+    test_conv_bn_dgrad_matches_plain; dx has no atomics in its way, so two
+    runs on the same input are EQUAL."""
+    b, h, w, c, co = shape
+    assert "wgmma pipelined" in pfc.kernel_variant("conv_bn_dgrad", h, w, c, co, torch.bfloat16)
+    x, g, k, fold = _bwd_case(shape, torch.bfloat16, seed=5)
+    kf = pfc.flip_kernel(k)
+    dx, db, dm = pfc.conv_bn_dgrad(g, kf, x, fold, has_fold)
+    again = pfc.conv_bn_dgrad(g, kf, x, fold, has_fold)
+    rx, rb, rm = pfc.reference_dgrad(g, kf, x, fold if has_fold else None)
+    eps = torch.finfo(torch.bfloat16).eps
+    scale = rx.float().abs().max().item()
+    err = (dx.float() - rx.float()).abs()
+    assert bool((err <= 2 * eps * rx.float().abs() + 1e-3 * scale).all()), err.max().item()
+    for got, want in ((db, rb), (dm, rm)):
+        assert (got - want).abs().max().item() <= 1e-3 * max(want.abs().max().item(), 1.0)
+    assert torch.equal(dx, again[0])
+
+
+@pytest.mark.parametrize("shape", [(2, 37, 70, 128), (1, 9, 7, 256)])
+def test_dgrad_epilogue_is_bit_equal_through_the_kernel(shape):
+    """K5's epilogue (gate, scale, roundings on bf16 pairs) against the plain
+    version, EQUAL: a flipped kernel that is the identity at its centre tap
+    makes da = g exactly in both, so dx must agree bit for bit.  The inputs
+    span 12 binades so that every rounding is met."""
+    b, h, w, c = shape
+    gen = torch.Generator(device="cuda").manual_seed(13)
+
+    def wide():
+        t = torch.randn((b, h, w, c), generator=gen, device="cuda")
+        e = torch.randint(-6, 6, t.shape, generator=gen, device="cuda").float()
+        return (t * torch.exp2(e)).to(torch.bfloat16)
+
+    x, g = wide(), wide()
+    fold = _fold(c, gen)
+    kf = torch.zeros((9 * c, c), device="cuda", dtype=torch.bfloat16)
+    kf[4 * c + torch.arange(c), torch.arange(c)] = 1
+    dx, db, dm = pfc.conv_bn_dgrad(g, kf, x, fold, True)
+    rx, rb, rm = pfc.reference_dgrad(g, kf, x, fold)
+    assert torch.equal(dx, rx)
+    for got, want in ((db, rb), (dm, rm)):
+        assert (got - want).abs().max().item() <= 1e-4 * max(want.abs().max().item(), 1.0)
+
+
+@pytest.mark.parametrize("shape", [(1, 37, 53, 128, 8), (1, 37, 53, 128, 16), (2, 5, 7, 64, 32),
+                                   (3, 11, 13, 32, 64), (1, 1, 1, 16, 8), (1, 40, 96, 128, 8)])
+def test_head_conv_fused_mma_matches_plain(shape):
+    """The head's mma.sync kernel at ragged pixel counts (a last tile of 1 to
+    127 pixels, and a single pixel) under test_head_conv_fused_matches_plain's
+    tolerance."""
+    b, h, w, c, co = shape
+    assert "mma.sync" in pfc.kernel_variant("head_conv_fused", h, w, c, co, torch.bfloat16)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    x = torch.randn((b, h, w, c), generator=gen, device="cuda").to(torch.bfloat16)
+    kmat = torch.randn((c, co), generator=gen, device="cuda") / math.sqrt(c)
+    hbias = torch.randn(co, generator=gen, device="cuda")
+    fold = _fold(c, gen)
+    got = pfc.head_conv_fused(x, kmat, hbias, fold).float()
+    want = pfc.reference_head(x, kmat, hbias, fold).float()
+    gemm = torch.matmul(pfc.prologue(x, fold), kmat.to(torch.bfloat16)).float()
+    tol = 2 * torch.finfo(torch.bfloat16).eps * (gemm.abs() + want.abs()) + 1e-3 * want.abs().max()
+    assert bool(((got - want).abs() <= tol).all())
+
+
+def test_path_shapes_take_the_redesigned_kernels():
+    """The six train-path layers take the pipelined K5 and the eval and train
+    heads the mma.sync K3; the shapes and types these do not take keep the
+    earlier kernels."""
+    bf, f32 = torch.bfloat16, torch.float32
+    for h, w, c, co in ((64, 64, 768, 256), (64, 64, 256, 256), (128, 128, 384, 128),
+                        (128, 128, 128, 128), (256, 256, 128, 128)):
+        assert "wgmma pipelined" in pfc.kernel_variant("conv_bn_dgrad", h, w, c, co, bf)
+    assert "4x64" in pfc.kernel_variant("conv_bn_dgrad", 64, 64, 768, 256, bf)
+    assert "wmma row tile" in pfc.kernel_variant("conv_bn_dgrad", 24, 136, 192, 128, bf)
+    assert pfc.kernel_variant("conv_bn_dgrad", 64, 64, 128, 128, f32) == "f32 FMA"
+    for h, w in ((512, 512), (256, 256)):
+        assert "mma.sync" in pfc.kernel_variant("head_conv_fused", h, w, 128, 8, bf)
+    assert "FMA" in pfc.kernel_variant("head_conv_fused", 512, 512, 128, 8, f32)
+    assert "FMA" in pfc.kernel_variant("head_conv_fused", 512, 512, 128, 4, bf)
+    assert "FMA" in pfc.kernel_variant("head_conv_fused", 512, 512, 256, 8, bf)
+
+
 def test_fused_conv_backward_runs_the_kernels():
     x, g, k, fold = _bwd_case((2, 16, 16, 128, 128), torch.bfloat16)
     x.requires_grad_()

@@ -138,11 +138,20 @@ def test_identity_centre_tap_returns_the_activated_map(dtype):
 
 
 def test_kernel_variant_names_cover_both_dispatches():
-    """Every code the two C entry points' variant queries can return has a
+    """Every code the four C entry points' variant queries can return has a
     name: 0 and 1 for the earlier kernels, the four tile widths of the
-    pipelined forward, 2 for the pipelined weight gradient."""
-    assert set(port._VARIANTS) == {"conv_bn_fused", "conv_bn_wgrad"}
-    assert set(port._VARIANTS["conv_bn_fused"][1]) == {0, 1, 16, 32, 64, 128}
+    pipelined forward and input gradient (which share one main loop), 2 for
+    the pipelined weight gradient, 1 for the head's mma.sync kernel."""
+    assert set(port._VARIANTS) == {"conv_bn_fused", "conv_bn_wgrad", "conv_bn_dgrad",
+                                   "head_conv_fused"}
+    assert {v[0] for v in port._VARIANTS.values()} == {"fused_conv", "fused_conv_bwd",
+                                                       "fused_head"}
     assert set(port._VARIANTS["conv_bn_wgrad"][1]) == {0, 1, 2}
-    for tw in (16, 32, 64, 128):
-        assert f"{256 // tw}x{tw} px" in port._VARIANTS["conv_bn_fused"][1][tw]
+    assert set(port._VARIANTS["head_conv_fused"][1]) == {0, 1}
+    assert "mma.sync" in port._VARIANTS["head_conv_fused"][1][1]
+    for kernel in ("conv_bn_fused", "conv_bn_dgrad"):
+        names = port._VARIANTS[kernel][1]
+        assert set(names) == {0, 1, 16, 32, 64, 128}
+        assert names[0] == "f32 FMA" and "wmma row tile" in names[1]
+        for tw in (16, 32, 64, 128):
+            assert f"wgmma pipelined, tile {256 // tw}x{tw} px" in names[tw]

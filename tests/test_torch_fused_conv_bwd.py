@@ -169,3 +169,29 @@ def test_one_pixel_cotangent_returns_the_activated_neighbourhood(pixel, dtype):
     a = torch.nn.functional.pad(port.prologue(x, fold)[1].float(), (0, 0, 1, 1, 1, 1))
     assert dw.dtype == torch.float32
     assert torch.equal(dw, a[y0:y0 + 3, x0:x0 + 3, :, None].expand(3, 3, c, co))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_identity_flipped_kernel_gives_the_gated_cotangent(dtype):
+    """The premise of the on-card check of K5's epilogue: with a flipped
+    kernel that is the identity at its centre tap, the plain version's da IS
+    g (each sum is one product by 1 among zeros), so dx is the prologue's
+    gradient applied to g elementwise, bit for bit, and the fold sums are the
+    plain sums of that gradient."""
+    rng = np.random.default_rng(43)
+    c = 64
+    x = rng.normal(size=(2, 9, 7, c)) * np.exp2(rng.integers(-6, 6, size=(2, 9, 7, c)))
+    g = rng.normal(size=(2, 9, 7, c)) * np.exp2(rng.integers(-6, 6, size=(2, 9, 7, c)))
+    x, g = _t(x.astype(np.float32), dtype), _t(g.astype(np.float32), dtype)
+    mean, mul, bias = (_t(f) for f in _case(44, c=c)[3])
+    kf = torch.zeros((9 * c, c), dtype=x.dtype)
+    kf[4 * c + torch.arange(c), torch.arange(c)] = 1
+    dx, dbias, dmul = port.conv_bn_dgrad(g, kf, x, (mean, mul, bias), True)
+    dt = x.dtype
+    xm = x - mean.to(dt)
+    y = (xm * mul.to(dt) + bias.to(dt)).float()
+    dy = g.float() * torch.where(y >= 0, torch.tensor(1.0), torch.tensor(0.01))
+    assert torch.equal(dx, (dy * mul).to(dt))
+    np.testing.assert_allclose(_np(dbias), _np(dy.sum(dim=(0, 1, 2))), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(_np(dmul), _np((dy * xm.float()).sum(dim=(0, 1, 2))),
+                               rtol=1e-5, atol=1e-5)

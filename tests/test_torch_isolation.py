@@ -42,6 +42,7 @@ def test_every_port_module_imports_without_jax():
         for name in names:
             importlib.import_module(name)
         import chip_smoke
+        import kernel_ab
         leaked = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
         assert not leaked, leaked
         print(len(names))
@@ -51,13 +52,14 @@ def test_every_port_module_imports_without_jax():
 
 
 def test_no_port_source_names_the_jax_stack():
-    """A static read of every port source and of chip_smoke.py: no import of
-    jax, flax, optax, orbax, chex or the JAX package, lazy ones included."""
+    """A static read of every port source, chip_smoke.py and kernel_ab.py: no
+    import of jax, flax, optax, orbax, chex or the JAX package, lazy ones
+    included."""
     import re
 
     pat = re.compile(r"^\s*(?:import|from)\s+(jax|jaxlib|flax|optax|orbax|chex|xview2_tpu)\b",
                      re.M)
-    files = [os.path.join(ROOT, "chip_smoke.py")]
+    files = [os.path.join(ROOT, "chip_smoke.py"), os.path.join(ROOT, "kernel_ab.py")]
     for base, _, names in os.walk(os.path.join(ROOT, "xview2_tpu_torch")):
         files += [os.path.join(base, n) for n in names if n.endswith(".py")]
     assert len(files) >= 33

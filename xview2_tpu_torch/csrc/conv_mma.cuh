@@ -1,9 +1,11 @@
 // Pipelined bf16 implicit-GEMM tile of the 3x3 SAME convolution for Hopper:
-// the main loop of the fused conv+BN forward (fused_conv.cu), written so that
-// another epilogue can sit on the same accumulators (the input gradient is
-// the same convolution on another operand pair).  Also the PTX wrappers
-// (cp.async, ldmatrix, wgmma, red.v2) and the swizzled operand layout that
-// the weight gradient (fused_conv_bwd.cu) shares.
+// the main loop of two kernels, each with its own epilogue functor on the
+// same accumulators: the fused conv+BN forward (K2, fused_conv.cu) and the
+// input gradient (K5, fused_conv_bwd.cu), which is the same convolution on
+// the cotangent with the flipped kernel.  Also the PTX wrappers (cp.async,
+// ldmatrix, mma.sync, wgmma, red.v2), the swizzled operand layout that the
+// weight gradient (K4) shares, the quad transpose of the 16-byte epilogues,
+// and the host-side choice of the tile width and the persistent grid.
 //
 // A block of 256 threads (two warpgroups) works on one tile at a time: TP =
 // 256 output pixels, shaped R rows x TW columns (TW = 128, 64, 32 or 16; R =
@@ -41,6 +43,8 @@
 #pragma once
 
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -99,6 +103,36 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t add
                : "r"(addr));
 }
 
+// d += a * b, one warp: m16n8k16 in bf16 with f32 accumulators (a: the
+// ldmatrix_x4 fragment of 16 rows x 16 k; b: rows 2*(lane%4) + {0, 1} and
+// + 8 of column lane/4, as bf16 pairs; d[e]: row lane/4 + 8*(e/2), column
+// (lane%4)*2 + e%2)
+__device__ __forceinline__ void mma_m16n8k16_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                                  const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Transpose of a 4 x 4 matrix of 32-bit words over the four lanes of a quad
+// (q = lane % 4): afterwards lane q's v[k] is what lane k's v[q] was.  Two
+// shuffle rounds, one per bit of q; a transpose is its own inverse.  The
+// epilogues use it to turn the accumulator fragment's channel pairs of four
+// n8 tiles into one 16-byte row piece a lane, and back.
+__device__ __forceinline__ void quad_transpose(uint32_t (&v)[4], int q) {
+#pragma unroll
+  for (int bit = 1; bit <= 2; bit <<= 1)  // exchange lane bit with word bit
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      if (!(k & bit)) {
+        const bool up = q & bit;
+        const uint32_t got = __shfl_xor_sync(0xffffffffu, up ? v[k] : v[k | bit], bit);
+        if (up) v[k] = got; else v[k | bit] = got;
+      }
+}
+
 // two adjacent floats added to device memory in one reduction (8-byte aligned)
 __device__ __forceinline__ void red_add_f32x2(float* addr, float a, float b) {
   asm volatile("red.global.add.v2.f32 [%0], {%1, %2};\n" ::"l"(addr), "f"(a), "f"(b) : "memory");
@@ -147,6 +181,10 @@ __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], const uint32_t (
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+}
+// ask for the 128-byte line at p to be brought into L2; nothing waits for it
+__device__ __forceinline__ void prefetch_l2(const void* p) {
+  asm volatile("prefetch.global.L2 [%0];\n" ::"l"(p));
 }
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
@@ -211,23 +249,31 @@ __device__ __forceinline__ void tile_origin(const ConvGeom& gm, int t, int& b, i
   b = t / gm.row_groups;
 }
 
+// No work at the start of a tile (the default of conv_tiles_wgmma's hook).
+struct NoTileStart {
+  __device__ __forceinline__ void operator()(int, int, int, int) const {}
+};
+
 // The persistent main loop: this block computes tiles blockIdx.x, blockIdx.x +
 // gridDim.x, ... and hands each finished tile to epi(acc, b, y0, x0, n0), which
-// every thread of the block calls (it may use __syncthreads).  The ring runs on
-// across tiles: while a tile's epilogue runs, the first two chunks of the next
-// tile are already on their way.  The block's two warpgroups own 128 pixels
-// each, as two m64 blocks; warp w of a warpgroup holds rows 16w..16w+15 of
-// each.  acc[mb][4j + e]: pixel wg*128 + mb*64 + 16w + lane/4 + 8*(e/2) of the R
-// x TW tile at (y0, x0) of image b, channel n0 + 8j + (lane%4)*2 + e%2, summed
-// over all of cin and the nine taps.  smem_raw: Tile<TW>::SMEM bytes; fs
-// (shared memory, (3, cin) in bf16) is read only with FOLD and must be visible
-// to the block on entry.  x is (B, h, w, cin), kmat (9*cin, cout).
-template <int TW, bool FOLD, typename Epilogue>
+// every thread of the block calls (it may use __syncthreads).  start(b, y0, x0,
+// n0) is called once a tile's first chunk has gone through the tensor cores,
+// so that an epilogue can ask for its other operands early (K5 prefetches x).
+// The ring runs on across tiles: while a tile's epilogue runs, the first two
+// chunks of the next tile are already on their way.  The block's two
+// warpgroups own 128 pixels each, as two m64 blocks; warp w of a warpgroup
+// holds rows 16w..16w+15 of each.  acc[mb][4j + e]: pixel wg*128 + mb*64 +
+// 16w + lane/4 + 8*(e/2) of the R x TW tile at (y0, x0) of image b, channel
+// n0 + 8j + (lane%4)*2 + e%2, summed over all of cin and the nine taps.
+// smem_raw: Tile<TW>::SMEM bytes; fs (shared memory, (3, cin) in bf16) is read
+// only with FOLD and must be visible to the block on entry.  x is (B, h, w,
+// cin), kmat (9*cin, cout).
+template <int TW, bool FOLD, typename Epilogue, typename TileStart = NoTileStart>
 __device__ __forceinline__ void conv_tiles_wgmma(unsigned char* smem_raw,
                                                  const __nv_bfloat16* __restrict__ x,
                                                  const __nv_bfloat16* __restrict__ kmat,
                                                  const __nv_bfloat16* fs, const ConvGeom& gm,
-                                                 Epilogue epi) {
+                                                 Epilogue epi, TileStart start = TileStart()) {
   using T = Tile<TW>;
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
@@ -358,6 +404,13 @@ __device__ __forceinline__ void conv_tiles_wgmma(unsigned char* smem_raw,
       wgmma_wait<2>();  // tap t - 2 is done: its A registers are free for tap t + 1
     }
     wgmma_wait<0>();  // before the barrier that lets this slot be refilled
+    if constexpr (!std::is_same<TileStart, NoTileStart>::value) {
+      if (kc == 0) {
+        int b, y0, x0, n0;
+        tile_origin<TW>(gm, (int)blockIdx.x + tile * (int)gridDim.x, b, y0, x0, n0);
+        start(b, y0, x0, n0);
+      }
+    }
     if (++kc == nk) {
       int b, y0, x0, n0;
       tile_origin<TW>(gm, (int)blockIdx.x + tile * (int)gridDim.x, b, y0, x0, n0);
@@ -367,6 +420,43 @@ __device__ __forceinline__ void conv_tiles_wgmma(unsigned char* smem_raw,
     }
   }
   cp_async_wait<0>();
+}
+
+// ------------------------------------------------------------ host side
+// Padded area of an H x W image under R x TW tiles, in pixels.
+inline long long padded_area(int h, int w, int tw) {
+  const int r = TP / tw;
+  return (long long)((h + r - 1) / r * r) * ((w + tw - 1) / tw * tw);
+}
+
+// The tile width that wastes least of this image; the wider one on a tie.
+inline int pick_tile_width(int h, int w) {
+  int best = 128;
+  for (int tw = 64; tw >= 16; tw /= 2)
+    if (padded_area(h, w, tw) < padded_area(h, w, best)) best = tw;
+  return best;
+}
+
+// The geometry of one launch of conv_tiles_wgmma<TW> over a (b, h, w, cin)
+// input producing cout channels, and its persistent grid: one block per SM,
+// fewer when there are fewer tiles (blocks = 0: nothing to do).
+template <int TW>
+cudaError_t conv_launch_shape(int b, int h, int w, int cin, int cout, ConvGeom& gm,
+                              unsigned& blocks) {
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return err;
+  gm.h = h, gm.w = w, gm.cin = cin, gm.cout = cout;
+  gm.row_groups = (h + Tile<TW>::R - 1) / Tile<TW>::R;
+  gm.col_tiles = (w + TW - 1) / TW;
+  gm.n_co = cout / TNB;
+  const long long tiles = (long long)b * gm.row_groups * gm.col_tiles * gm.n_co;
+  if (tiles > 0x7fffffffLL / (cin / KC)) return cudaErrorInvalidValue;  // stage counter is int
+  gm.tiles = (int)tiles;
+  blocks = (unsigned)(tiles < sms ? tiles : sms);
+  return cudaSuccess;
 }
 
 }  // namespace mm

@@ -191,15 +191,7 @@ __global__ void __launch_bounds__(mm::THREADS, 1) conv_wgmma_kernel(
               p2[k][1] = fmaf(f1, f1, p2[k][1]);
             }
           }
-#pragma unroll
-          for (int bit = 1; bit <= 2; bit <<= 1)  // exchange lane bit with tile bit
-#pragma unroll
-            for (int k = 0; k < 4; ++k)
-              if (!(k & bit)) {
-                const bool up = q & bit;
-                const uint32_t got = __shfl_xor_sync(0xffffffffu, up ? v[k] : v[k | bit], bit);
-                if (up) v[k] = got; else v[k | bit] = got;
-              }
+          mm::quad_transpose(v, q);
           if (dst[mb][hh])
             *reinterpret_cast<uint4*>(dst[mb][hh] + jj * 32) = make_uint4(v[0], v[1], v[2], v[3]);
         }
@@ -238,36 +230,14 @@ cudaError_t launch_wgmma(const void* x, const void* kmat, const float* fold, voi
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  int dev = 0, sms = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
-    return err;
   mm::ConvGeom gm;
-  gm.h = h, gm.w = w, gm.cin = c, gm.cout = co;
-  gm.row_groups = (h + T::R - 1) / T::R;
-  gm.col_tiles = (w + TW - 1) / TW;
-  gm.n_co = co / mm::TNB;
-  const long long tiles = (long long)b * gm.row_groups * gm.col_tiles * gm.n_co;
-  if (tiles > 0x7fffffffLL / (c / mm::KC)) return cudaErrorInvalidValue;  // stage counter is int
-  gm.tiles = (int)tiles;
-  if (tiles > 0)  // one persistent block per SM
-    kern<<<(unsigned)(tiles < sms ? tiles : sms), mm::THREADS, smem, stream>>>(
-        (const __nv_bfloat16*)x, (const __nv_bfloat16*)kmat, fold, (__nv_bfloat16*)out, s1, s2, gm);
+  unsigned blocks = 0;
+  if ((err = mm::conv_launch_shape<TW>(b, h, w, c, co, gm, blocks)) != cudaSuccess) return err;
+  if (blocks > 0)
+    kern<<<blocks, mm::THREADS, smem, stream>>>((const __nv_bfloat16*)x,
+                                                (const __nv_bfloat16*)kmat, fold,
+                                                (__nv_bfloat16*)out, s1, s2, gm);
   return cudaGetLastError();
-}
-
-// Padded area of an H x W image under R x TW tiles, in pixels.
-long long padded_area(int h, int w, int tw) {
-  const int r = mm::TP / tw;
-  return (long long)((h + r - 1) / r * r) * ((w + tw - 1) / tw * tw);
-}
-
-// The tile width that wastes least of this image; the wider one on a tie.
-int pick_tile_width(int h, int w) {
-  int best = 128;
-  for (int tw = 64; tw >= 16; tw /= 2)
-    if (padded_area(h, w, tw) < padded_area(h, w, best)) best = tw;
-  return best;
 }
 
 template <typename T, typename K>
@@ -304,7 +274,7 @@ extern "C" int conv_bn_fused(const void* x, const void* kmat, const void* fold, 
   if (dtype == 1) {
     if (c % KC_H) return (int)cudaErrorInvalidValue;
     if (co % mm::TNB == 0) {
-      switch (pick_tile_width(h, w)) {
+      switch (mm::pick_tile_width(h, w)) {
         case 128: return (int)launch_wgmma<128>(x, kmat, f, out, a, q, b, h, w, c, co, s);
         case 64: return (int)launch_wgmma<64>(x, kmat, f, out, a, q, b, h, w, c, co, s);
         case 32: return (int)launch_wgmma<32>(x, kmat, f, out, a, q, b, h, w, c, co, s);
@@ -338,5 +308,5 @@ extern "C" int conv_bn_fused_variant(int h, int w, int c, int co, int dtype) {
   if (co % TN) return -1;
   if (dtype == 0) return c % KC_F ? -1 : 0;
   if (dtype != 1 || c % KC_H) return -1;
-  return co % mm::TNB == 0 ? pick_tile_width(h, w) : 1;
+  return co % mm::TNB == 0 ? mm::pick_tile_width(h, w) : 1;
 }

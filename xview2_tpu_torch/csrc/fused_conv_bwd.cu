@@ -19,15 +19,43 @@
 // Without a fold the kernel writes dx = T(da) and nothing else.
 //
 // Bound on the H100: operations for both (2*9*C*Co FLOP per pixel against
-// 2*(C + Co) bytes per pixel read, and for wgrad a small f32 output).
+// 2*(C + Co) bytes per pixel read, and for dgrad 2*C more of x read and dx
+// written, for wgrad a small f32 output): the six layers of a train step do
+// 1.24 TFLOP each way, 1.25 ms at the bf16 peak.
 //
 // Design:
-//  * dgrad is the forward's wmma row tile (conv_tile.cuh, no copy/compute
-//    overlap) on g with kflip and no prologue, with another epilogue;
-//    dbias/dmul are per-thread partials kept across the block's rows, one
-//    shared-memory reduction and one atomicAdd per channel per block into
-//    zeroed outputs (the TPU kernel's sequential grid added into resident
-//    vectors).
+//  * dgrad: three kernels, chosen in the C entry point by the static shape
+//    and dtype only (conv_bn_dgrad_variant reports the choice):
+//    - bf16 with C % 128 == 0 and Co % 16 == 0 (every layer of the decoder
+//      tail: C in {768, 384, 256, 128} from Co in {256, 128}): K2's pipelined
+//      wgmma main loop of conv_mma.cuh on (g, kflip), no prologue, with its
+//      own epilogue.  Persistent blocks, one per SM, over tiles of R x TW
+//      pixels (the least-waste width, as K2) x 128 channels of dx; per chunk
+//      of 16 channels of g one halo patch and the nine kflip slabs are staged
+//      once into a three-stage cp.async ring.  The epilogue works from the
+//      accumulator fragments, four n8 tiles at a time: x is read with 16-byte
+//      loads at exactly the pieces the 16-byte dx stores write (asked into L2
+//      by the loop's tile-start hook, one chunk into the tile) and brought
+//      into the fragment layout by the quad transpose that K2 uses for its
+//      stores; the gate, the scale by the unrounded mul and the roundings
+//      run on bf16 pairs (bit-equal to the per-element f32 ones, common.cuh);
+//      dbias/dmul go by lane shuffles, one shared-memory reduction over the
+//      eight warps and one atomicAdd per channel per tile.  dx has no
+//      atomics: it is bit-equal from run to run.  The fold vectors of all C
+//      channels sit in shared memory (mean, mul, bias in bf16, mul in f32).
+//    - bf16 with another C (64, 192): the forward's wmma row tile
+//      (conv_tile.cuh, no copy/compute overlap) on g with kflip, the f32
+//      result through shared memory into the same arithmetic per element;
+//      dbias/dmul are per-thread partials kept across the block's rows, one
+//      shared-memory reduction and one atomicAdd per channel per block into
+//      zeroed outputs (the TPU kernel's sequential grid added into resident
+//      vectors).
+//    - f32: the FMA loop of the forward, no TF32.
+//    With a fold the epilogue costs a layer 25-50% (the tensor cores wait
+//    for it; the x loads are a third to a half of that).  Not done yet for the
+//    pipelined kernel: an epilogue that overlaps the next tile's MMAs (two
+//    consumer warpgroups taking turns), its tile for C = 64/192 (which would
+//    let conv_row_bf16 go), a producer warp, TMA for kflip.
 //  * wgrad: the TPU kernel adds into one resident (9C, Co) output across a
 //    sequential grid.  Here the reduction dimension, the B*H*W pixels, is
 //    SPLIT over blocks that keep an output tile in registers over their pixel
@@ -567,6 +595,179 @@ __global__ void __launch_bounds__(THREADS) dgrad_f32_kernel(
   if (FOLD) reduce_sums_f32(red, p1, p2, dbias + c0, dmul + c0);
 }
 
+// The pipelined bf16 input gradient: conv_mma.cuh's persistent main loop on
+// (g, kflip) without a prologue (cin = Co, cout = C), and this epilogue on its
+// accumulators.  Shared memory behind the ring: the (2, 8, 128) partial sums,
+// then, with a fold, mul in f32 (c) and mean, mul, bias rounded to bf16 (3, c).
+template <int TW, bool FOLD>
+__global__ void __launch_bounds__(mm::THREADS, 1) dgrad_wgmma_kernel(
+    const __nv_bfloat16* __restrict__ g, const __nv_bfloat16* __restrict__ kflip,
+    const __nv_bfloat16* __restrict__ x, const float* __restrict__ fold,
+    __nv_bfloat16* __restrict__ dx, float* __restrict__ dbias, float* __restrict__ dmul,
+    const mm::ConvGeom gm) {
+  using T = mm::Tile<TW>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* red = reinterpret_cast<float*>(smem + T::SMEM);  // (2, 8, 128) partial sums
+  float* fmul = red + 2 * 8 * mm::TNB;                    // (c) mul, unrounded
+  __nv_bfloat16* fs = reinterpret_cast<__nv_bfloat16*>(fmul + gm.cout);  // (3, c) rounded
+
+  const int c = gm.cout;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  if (FOLD) {
+    for (int i = tid; i < c; i += mm::THREADS) fmul[i] = fold[c + i];
+    for (int i = tid; i < 3 * c; i += mm::THREADS) fs[i] = __float2bfloat16(fold[i]);
+    __syncthreads();
+  }
+
+  // Offsets of this lane's four rows: g and g + 8 of its warp's 16 in both m64
+  // blocks (r = 2*mb + hh), as element offsets into x and dx of the 16-byte
+  // piece at channel n0 + 8q, or -1 outside the image.
+  auto row_offsets = [&](long long (&off)[4], int b, int y0, int x0, int n0) {
+    const int gq = lane >> 2, q = lane & 3;
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int p = (warp >> 2) * 128 + (r >> 1) * 64 + (warp & 3) * 16 + gq + (r & 1) * 8;
+      const int y = y0 + p / TW, xx = x0 + p % TW;
+      off[r] = (y < gm.h && xx < gm.w) ? (((long long)b * gm.h + y) * gm.w + xx) * c + n0 + q * 8
+                                       : -1;
+    }
+  };
+  // With a fold, x of the tile's pixels is asked into L2 as soon as the tile
+  // has started, so that the epilogue's loads do not wait on device memory:
+  // lanes 0 and 1 of a quad each take one 128-byte line of a row's 128 channels.
+  auto prefetch_x = [&](int b, int y0, int x0, int n0) {
+    long long off[4];
+    row_offsets(off, b, y0, x0, n0);
+    if ((lane & 3) < 2)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        if (off[r] >= 0) mm::prefetch_l2(x + off[r] - (lane & 3) * 8 + (lane & 3) * 64);
+  };
+
+  // K2's fragment walk, four n8 tiles at a time: this lane holds rows g and
+  // g + 8 of its warp's 16 in both m64 blocks, channels 8j + 2q, +1 of tile j.
+  // x is read at the 16-byte pieces the dx stores will write (lane q: the
+  // eight channels of tile 4*jj + q), all four rows' loads issued together,
+  // and brought into the fragment layout by the quad transpose; dx pairs go
+  // back the same way.  The fold of a channel pair is read once for the four
+  // rows.
+  auto epilogue = [&](const float (&acc)[2][64], int b, int y0, int x0, int n0) {
+    const int gq = lane >> 2, q = lane & 3;
+    long long off[4];
+    row_offsets(off, b, y0, x0, n0);
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      uint32_t xv[4][4];  // [row][k]: after the transpose, the row's pair of tile 4*jj + k
+      if (FOLD) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          uint4 v = make_uint4(0u, 0u, 0u, 0u);
+          if (off[r] >= 0) v = *reinterpret_cast<const uint4*>(x + off[r] + jj * 32);
+          xv[r][0] = v.x, xv[r][1] = v.y, xv[r][2] = v.z, xv[r][3] = v.w;
+        }
+#pragma unroll
+        for (int r = 0; r < 4; ++r) mm::quad_transpose(xv[r], q);
+      }
+      float p1[4][2], p2[4][2];
+      uint32_t v[4][4];  // [row][k]: dx pairs
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int j = 4 * jj + k;
+        __nv_bfloat162 mean = {}, mul = {}, bias = {};
+        float2 mraw = {};
+        if (FOLD) {
+          const int ch = n0 + 8 * j + 2 * q;
+          mean = *reinterpret_cast<const __nv_bfloat162*>(fs + ch);
+          mul = *reinterpret_cast<const __nv_bfloat162*>(fs + c + ch);
+          bias = *reinterpret_cast<const __nv_bfloat162*>(fs + 2 * c + ch);
+          mraw = *reinterpret_cast<const float2*>(fmul + ch);
+        }
+        p1[k][0] = p1[k][1] = p2[k][0] = p2[k][1] = 0.f;
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const float d0 = acc[r >> 1][4 * j + (r & 1) * 2];
+          const float d1 = acc[r >> 1][4 * j + (r & 1) * 2 + 1];
+          __nv_bfloat162 res;
+          if (FOLD) {
+            const __nv_bfloat162 xm =
+                __hsub2_rn(*reinterpret_cast<const __nv_bfloat162*>(&xv[r][k]), mean);
+            const float2 yv = __bfloat1622float2(__hadd2_rn(__hmul2_rn(xm, mul), bias));
+            const float dy0 = yv.x >= 0.f ? d0 : __fmul_rn(d0, kLeakySlope);
+            const float dy1 = yv.y >= 0.f ? d1 : __fmul_rn(d1, kLeakySlope);
+            res = __floats2bfloat162_rn(__fmul_rn(dy0, mraw.x), __fmul_rn(dy1, mraw.y));
+            if (off[r] >= 0) {
+              const float2 xmf = __bfloat1622float2(xm);
+              p1[k][0] += dy0;
+              p1[k][1] += dy1;
+              p2[k][0] = fmaf(dy0, xmf.x, p2[k][0]);
+              p2[k][1] = fmaf(dy1, xmf.y, p2[k][1]);
+            }
+          } else {
+            res = __floats2bfloat162_rn(d0, d1);
+          }
+          v[r][k] = *reinterpret_cast<const uint32_t*>(&res);
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        mm::quad_transpose(v[r], q);
+        if (off[r] >= 0)
+          *reinterpret_cast<uint4*>(dx + off[r] + jj * 32) =
+              make_uint4(v[r][0], v[r][1], v[r][2], v[r][3]);
+      }
+      if (FOLD) {
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+#pragma unroll
+            for (int m = 4; m < 32; m <<= 1) {
+              p1[k][e] += __shfl_xor_sync(0xffffffffu, p1[k][e], m);
+              p2[k][e] += __shfl_xor_sync(0xffffffffu, p2[k][e], m);
+            }
+            if (gq == 0) {
+              red[warp * mm::TNB + (4 * jj + k) * 8 + q * 2 + e] = p1[k][e];
+              red[(8 + warp) * mm::TNB + (4 * jj + k) * 8 + q * 2 + e] = p2[k][e];
+            }
+          }
+      }
+    }
+    if (FOLD) {
+      __syncthreads();
+      const int n = tid & (mm::TNB - 1), which = tid / mm::TNB;  // 0: dbias, 1: dmul
+      const float* r = red + which * 8 * mm::TNB + n;
+      float s = 0.f;
+#pragma unroll
+      for (int k = 0; k < 8; ++k) s += r[k * mm::TNB];
+      atomicAdd((which ? dmul : dbias) + n0 + n, s);
+    }
+  };
+  if constexpr (FOLD)
+    mm::conv_tiles_wgmma<TW, false>(smem, g, kflip, nullptr, gm, epilogue, prefetch_x);
+  else
+    mm::conv_tiles_wgmma<TW, false>(smem, g, kflip, nullptr, gm, epilogue);
+}
+
+template <int TW>
+cudaError_t launch_dgrad_wgmma(const void* g, const void* kflip, const void* x, const float* fold,
+                               void* dx, float* dbias, float* dmul, int b, int h, int w, int co,
+                               int c, cudaStream_t stream) {
+  const size_t smem = (size_t)mm::Tile<TW>::SMEM + 2ull * 8 * mm::TNB * 4 + c * 4ull + 3ull * c * 2;
+  auto kern = fold ? dgrad_wgmma_kernel<TW, true> : dgrad_wgmma_kernel<TW, false>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  mm::ConvGeom gm;
+  unsigned blocks = 0;
+  if ((err = mm::conv_launch_shape<TW>(b, h, w, co, c, gm, blocks)) != cudaSuccess) return err;
+  if (blocks > 0)
+    kern<<<blocks, mm::THREADS, smem, stream>>>(
+        (const __nv_bfloat16*)g, (const __nv_bfloat16*)kflip, (const __nv_bfloat16*)x, fold,
+        (__nv_bfloat16*)dx, dbias, dmul, gm);
+  return cudaGetLastError();
+}
+
 template <typename T, typename K>
 cudaError_t launch_dgrad(K kern, size_t smem, const void* g, const void* kflip, const void* x,
                          const float* fold, void* dx, float* dbias, float* dmul, int b, int h,
@@ -635,7 +836,8 @@ extern "C" int conv_bn_wgrad_variant(int h, int w, int c, int co, int dtype) {
 // x: (b, h, w, c) the forward's raw input (read only with a fold); fold: (3,
 // c) f32 or NULL; dx: (b, h, w, c); dbias, dmul: (c,) f32, ZEROED by the
 // caller and untouched without a fold.  dtype 0 = float32 (co % 16 == 0), 1 =
-// bfloat16 (co % 32 == 0); c % 64 == 0 for both.
+// bfloat16 (co % 16 == 0 with c % 128 == 0, else co % 32 == 0); c % 64 == 0
+// for both.  Returns the cudaError_t of the launch.
 extern "C" int conv_bn_dgrad(const void* g, const void* kflip, const void* x, const void* fold,
                              void* dx, void* dbias, void* dmul, int b, int h, int w, int co,
                              int c, int dtype, void* stream) {
@@ -645,6 +847,14 @@ extern "C" int conv_bn_dgrad(const void* g, const void* kflip, const void* x, co
   float* dm = (float*)dmul;
   if (c % TN) return (int)cudaErrorInvalidValue;
   if (dtype == 1) {
+    if (c % mm::TNB == 0 && co % mm::KC == 0) {
+      const int tw = mm::pick_tile_width(h, w);
+      auto* launch = tw == 128 ? &launch_dgrad_wgmma<128>
+                     : tw == 64 ? &launch_dgrad_wgmma<64>
+                     : tw == 32 ? &launch_dgrad_wgmma<32>
+                                : &launch_dgrad_wgmma<16>;
+      return (int)launch(g, kflip, x, f, dx, db, dm, b, h, w, co, c, s);
+    }
     if (co % KC_H) return (int)cudaErrorInvalidValue;
     const size_t smem = STAGE_BYTES_H + RED_BYTES_H;
     if (f)
@@ -663,4 +873,17 @@ extern "C" int conv_bn_dgrad(const void* g, const void* kflip, const void* x, co
                                     h, w, co, c, s);
   }
   return (int)cudaErrorInvalidValue;
+}
+
+// Which kernel conv_bn_dgrad launches for this static shape and dtype (c: the
+// channels of x and dx, co: those of g): 0 = the f32 FMA kernel, 1 = the bf16
+// wmma row tile (8 rows x 128 columns x 64 channels), else the tile width TW
+// of the pipelined wgmma kernel (256 / TW rows x TW columns x 128 channels);
+// -1 = not taken.
+extern "C" int conv_bn_dgrad_variant(int h, int w, int c, int co, int dtype) {
+  if (c % TN) return -1;
+  if (dtype == 0) return co % KC_F ? -1 : 0;
+  if (dtype != 1) return -1;
+  if (c % mm::TNB == 0 && co % mm::KC == 0) return mm::pick_tile_width(h, w);
+  return co % KC_H ? -1 : 1;
 }

@@ -226,14 +226,26 @@ _VARIANTS = {
     "conv_bn_wgrad": ("fused_conv_bwd", {
         0: "f32 FMA", 1: "bf16 wmma tile 9 taps x 32 x 64",
         2: "bf16 wgmma pipelined, tile 9 taps x 64 x 64, 64-column strips"}),
+    "conv_bn_dgrad": ("fused_conv_bwd", {
+        0: "f32 FMA", 1: "bf16 wmma row tile 8x128 px x 64 ch",
+        128: "bf16 wgmma pipelined, tile 2x128 px x 128 ch",
+        64: "bf16 wgmma pipelined, tile 4x64 px x 128 ch",
+        32: "bf16 wgmma pipelined, tile 8x32 px x 128 ch",
+        16: "bf16 wgmma pipelined, tile 16x16 px x 128 ch"}),
+    "head_conv_fused": ("fused_head", {
+        0: "per-pixel FMA, 128 px a block",
+        1: "bf16 mma.sync persistent, 128 px tiles in a 4-stage cp.async ring"}),
 }
 
 
 def kernel_variant(kernel: str, h: int, w: int, c: int, co: int, dtype: torch.dtype) -> str:
-    """Which hand-written kernel the C entry point of ``kernel``
-    (``"conv_bn_fused"`` or ``"conv_bn_wgrad"``) launches for this static
-    shape and dtype: the choice depends on nothing else.  Needs the built
-    library, so it runs only where the kernels do."""
+    """Which hand-written kernel the C entry point of ``kernel`` (a key of
+    ``_VARIANTS``) launches for this static shape and dtype: the choice
+    depends on nothing else.  ``c`` is the input's channels and ``co`` the
+    output's for the forward kernels and the weight gradient; for
+    ``"conv_bn_dgrad"`` ``c`` is x's (and dx's) and ``co`` g's; the head
+    ignores ``h`` and ``w``.  Needs the built library, so it runs only where
+    the kernels do."""
     source, names = _VARIANTS[kernel]
     fn = cuda_build.function(source, f"{kernel}_variant", (_INT,) * 5)
     code = fn(h, w, c, co, _DTYPE_CODE[dtype])
