@@ -5,10 +5,17 @@ Run from the root of a checkout on a machine with the card::
 
     python3 kernel_ab.py dgrad TAG=PATH [TAG=PATH ...]
     python3 kernel_ab.py head TAG=PATH [TAG=PATH ...]
+    python3 kernel_ab.py small TAG=PATH [TAG=PATH ...]
+    python3 kernel_ab.py relayout TAG=PATH [TAG=PATH ...]
 
 ``dgrad`` times K5 ``conv_bn_dgrad`` (``csrc/fused_conv_bwd.cu``) at the six
 train-path layers, fold on and off; ``head`` times K3 ``head_conv_fused``
-(``csrc/fused_head.cu``) at the eval and train shapes.  Each PATH is a whole
+(``csrc/fused_head.cu``) at the eval and train shapes; ``small`` times K7
+``small_conv_fwd`` (``csrc/small_conv.cu``) in bf16 at the smoke's shape
+(16, 512, 512, 32) -> 32 and its odd shape (2, 70, 200, 24) -> 40;
+``relayout`` times K1's flat path ``relayout_flat`` (``csrc/relayout.cu``) on
+the eval logits (4, 1024, 1024, 2) f32 and the train labels (16, 256, 1024)
+int32.  Each PATH is a whole
 edited copy of that source file, kept outside the committed sources (in a
 directory that ``.gitignore`` lists); the committed source runs beside them
 as ``kept``.  Each version is compiled by ``nvcc`` with ``cuda_build``'s
@@ -174,10 +181,68 @@ def time_head(libs: dict) -> None:
         del x, out
 
 
+def time_small(libs: dict) -> None:
+    import torch
+
+    import chip_smoke as cs
+    from xview2_tpu_torch.ops import small_conv as sc
+
+    stream = torch.cuda.current_stream().cuda_stream
+    for tag_shape, shape in (("smoke", cs.SMALL_CONV), ("odd", (2, 70, 200, 24, 40))):
+        b, h, w, c, co = shape
+        x, _, k = cs._small_conv_case(shape, torch.bfloat16, seed=80)
+        kmat = sc.kernel_to_mat(k).contiguous()
+        out = {t: torch.empty((b, h, w, co), device="cuda", dtype=torch.bfloat16) for t in libs}
+        fns = {}
+        for tag, lib in libs.items():
+            fn = lib.small_conv_fwd
+            fn.argtypes = [P] * 3 + [I] * 6 + [P]
+            args = (x.data_ptr(), kmat.data_ptr(), out[tag].data_ptr(), b, h, w, c, co, 1, stream)
+            fns[tag] = (lambda fn=fn, args=args: fn(*args))
+        times = in_turns(fns, 20)
+        nbytes = b * h * w * (c + co) * 2 + 9 * c * co * 2
+        want = sc.reference_conv3x3(x, kmat)
+        ok = {t: cs._compare_small_fwd(o, want, f"K7 [{t}] {shape}") for t, o in out.items()}
+        log(f"K7 {tag_shape} {shape[:4]}->{co}: "
+            + "; ".join(f"{t} {v[0]:.4f}/{v[1]:.4f} ms ({2 * nbytes / sum(v) / 1e9:.3f} TB/s, "
+                        f"max abs err {ok[t]:.3g}"
+                        f"{'' if torch.equal(out[t], out['kept']) else ', out differs'})"
+                        for t, v in times.items()))
+        del x, out
+
+
+def time_relayout(libs: dict) -> None:
+    import torch
+
+    import chip_smoke as cs
+
+    stream = torch.cuda.current_stream().cuda_stream
+    for tag_shape, x in (("eval logits", torch.randn((cs.VAL_BATCH, cs.TILE, cs.TILE, 2),
+                                                      device="cuda")),
+                         ("train labels", torch.randint(0, 2, (cs.TRAIN_BATCH, cs.CROP // 2,
+                                                               2 * cs.CROP), device="cuda",
+                                                        dtype=torch.int32))):
+        out = {t: torch.empty_like(x) for t in libs}
+        fns = {}
+        for tag, lib in libs.items():
+            fn = lib.relayout_flat
+            fn.argtypes = [P, P, ctypes.c_longlong, P]
+            args = (x.data_ptr(), out[tag].data_ptr(), x.nbytes, stream)
+            fns[tag] = (lambda fn=fn, args=args: fn(*args))
+        times = in_turns(fns, 50)
+        log(f"K1 flat {tag_shape} {tuple(x.shape)} {x.dtype}: "
+            + "; ".join(f"{t} {v[0]:.4f}/{v[1]:.4f} ms ({4 * x.nbytes / sum(v) / 1e9:.3f} TB/s"
+                        f"{'' if torch.equal(out[t], x) else ', NOT EQUAL'})"
+                        for t, v in times.items()))
+        del x, out
+
+
 # what the first argument names: (source under csrc/, kernel for ptxas, timer)
 KERNELS = {
     "dgrad": ("fused_conv_bwd", "dgrad_wgmma_kernel", time_dgrad),
     "head": ("fused_head", "head_mma_kernel", time_head),
+    "small": ("small_conv", "small_fwd_mma_kernel", time_small),
+    "relayout": ("relayout", "relayout_flat_kernel", time_relayout),
 }
 
 

@@ -13,6 +13,7 @@ import math
 import pytest
 import torch
 
+from torch_relayout_views import RELAYOUT_DTYPES, RELAYOUT_SIZES, relayout_views
 from xview2_tpu_torch.ops import autoaugment as taa
 from xview2_tpu_torch.ops import layout
 from xview2_tpu_torch.ops import packed_fused_conv as pfc
@@ -51,6 +52,41 @@ def test_relayout_bit_exact(dtype):
     for view in (x, x.permute(0, 2, 3, 1), x[:, 1:4, ::2], x[0]):
         got = layout.relayout_cuda(view)
         assert got.is_contiguous() and torch.equal(got, view)
+
+
+def _bytes(t):
+    return t.contiguous().view(torch.uint8)
+
+
+@pytest.mark.parametrize("n", RELAYOUT_SIZES)
+@pytest.mark.parametrize("dtype", RELAYOUT_DTYPES)
+def test_relayout_paths_are_bit_exact(dtype, n):
+    """K1 on both of its paths, byte for byte."""
+    for kind, (view, path) in relayout_views(dtype, n, "cuda").items():
+        assert layout.relayout_plan(view.shape, view.stride())[0] == path, kind
+        got = layout.relayout_cuda(view)
+        torch.cuda.synchronize()
+        assert got.is_contiguous() and got.shape == view.shape, kind
+        assert torch.equal(_bytes(got), _bytes(view)), kind
+
+
+@pytest.mark.parametrize("dtype", RELAYOUT_DTYPES)
+def test_relayout_paths_at_many_blocks(dtype):
+    """Sizes that spread over many blocks and leave ragged tails: each path
+    byte for byte."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    x = (torch.randn((5, 3, 301, 207), generator=gen, device="cuda") * 100).to(dtype)
+    flat = x.view(-1)
+    views = {layout.FLAT: (flat, flat[3:-5]),
+             layout.STRIDED: (x[:, :, 1:-1], x.permute(0, 2, 1, 3), x.permute(0, 2, 3, 1),
+                              x[:, :2].permute(0, 2, 3, 1), x[:, :, ::2, ::3],
+                              x.permute(0, 2, 1, 3)[..., ::2])}
+    for path, vs in views.items():
+        for view in vs:
+            assert layout.relayout_plan(view.shape, view.stride())[0] == path
+            got = layout.relayout_cuda(view)
+            torch.cuda.synchronize()
+            assert torch.equal(_bytes(got), _bytes(view)), (path, tuple(view.shape))
 
 
 def test_relayout_gradient_runs_the_kernel():
@@ -383,6 +419,32 @@ def test_small_conv_fwd_matches_plain(shape, dtype):
     err = (got - want).abs()
     tol = 2 * torch.finfo(dtype).eps * want.abs() + 1e-3 * want.abs().max()
     assert bool((err <= tol).all()), err.max().item()
+
+
+# the redesigned bf16 forward: a band of rows (two 256-pixel segments), the
+# smoke's odd shape (ragged last segment, C and Co padded inside), the
+# channel extremes, and a single row
+_SMALL_BF16 = [(2, 64, 512, 32, 32), (2, 70, 200, 24, 40), (1, 33, 100, 8, 64),
+               (1, 45, 90, 64, 8), (3, 1, 300, 16, 24)]
+
+
+@pytest.mark.parametrize("shape", _SMALL_BF16)
+def test_small_conv_fwd_bf16_matches_plain_and_repeats(shape):
+    """K7 in bf16 within one rounding plus 1e-3 of the scale, and EQUAL
+    between two runs (each output element is summed by one thread in a fixed
+    order)."""
+    b, h, w, c, co = shape
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    x = torch.randn((b, h, w, c), generator=gen, device="cuda").to(torch.bfloat16)
+    kmat = (torch.randn((9 * c, co), generator=gen, device="cuda") / math.sqrt(9 * c)).to(
+        torch.bfloat16)
+    got = sc.small_conv_fwd(x, kmat)
+    again = sc.small_conv_fwd(x, kmat)
+    want = sc.reference_conv3x3(x, kmat).float()
+    err = (got.float() - want).abs()
+    tol = 2 * torch.finfo(torch.bfloat16).eps * want.abs() + 1e-3 * want.abs().max()
+    assert bool((err <= tol).all()), err.max().item()
+    assert torch.equal(got, again)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

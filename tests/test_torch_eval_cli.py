@@ -9,6 +9,7 @@ at atol 2e-4 (float32), the target PNGs are identical and the F1 is equal."""
 import glob
 import json
 import os
+import shutil
 
 import jax
 import numpy as np
@@ -69,6 +70,9 @@ def evaluated(tmp_path_factory):
     rc = main(["--exec_mode", "eval", "--type", "pre", "--data", root, "--results", res_port,
                "--ckpt", port_path, "--val_batch_size", "2", "--num_workers", "2"],
               device="cpu")
+    # the tests read the results only: the two checkpoints (150 MB each) go
+    shutil.rmtree(jax_path)
+    shutil.rmtree(port_path)
     assert rc == 0
     return res_jax, res_port
 

@@ -7,6 +7,8 @@ import numpy as np
 import pytest
 import torch
 
+from torch_relayout_views import (RELAYOUT_DTYPES, RELAYOUT_KINDS, RELAYOUT_SIZES,
+                                  relayout_views)
 from xview2_tpu.ops.layout import _pallas_identity
 from xview2_tpu_torch.ops import layout
 
@@ -46,3 +48,33 @@ def test_cpu_tensor_does_not_launch():
     assert layout.relayout_cuda.launches == before
     with pytest.raises(ValueError):
         layout.relayout_cuda(torch.ones(2, 2))
+
+
+@pytest.mark.parametrize("kind", RELAYOUT_KINDS)
+@pytest.mark.parametrize("n", RELAYOUT_SIZES)
+@pytest.mark.parametrize("dtype", RELAYOUT_DTYPES)
+def test_path_choice(dtype, n, kind):
+    """The wrapper's path choice, a pure function of the layout: the path
+    each view takes, and merged dims and strides that address exactly the
+    view's elements."""
+    view, path = relayout_views(dtype, n, "cpu")[kind]
+    got, dims, strides = layout.relayout_plan(view.shape, view.stride())
+    assert got == path
+    assert (path == layout.FLAT) == view.is_contiguous()
+    if path == layout.FLAT:
+        assert (dims, strides) == ((), ())
+        return
+    assert len(dims) == len(strides) == 4
+    again = torch.as_strided(view, dims, strides, view.storage_offset())
+    assert torch.equal(again.reshape(view.shape), view)
+
+
+def test_path_choice_of_the_paths_tensors():
+    """Every call on the main paths is handed a contiguous tensor (flat);
+    the smoke's NCHW buffer viewed NHWC is strided, merged to three dims."""
+    for t in (torch.zeros((4, 64, 64, 2)), torch.zeros((16, 8, 32), dtype=torch.int32),
+              torch.zeros((16, 8, 32, 2), dtype=torch.bfloat16)):
+        assert layout.relayout_plan(t.shape, t.stride())[0] == layout.FLAT
+    p = torch.zeros((4, 2, 64, 64)).permute(0, 2, 3, 1)
+    assert layout.relayout_plan(p.shape, p.stride()) == (
+        layout.STRIDED, (1, 4, 4096, 2), (0, 8192, 1, 4096))

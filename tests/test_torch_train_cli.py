@@ -9,6 +9,7 @@ row-shift kernel's plain version, normalize)."""
 
 import json
 import os
+import shutil
 
 import numpy as np
 import pytest
@@ -28,52 +29,102 @@ def _logs(results):
         return [json.loads(line) for line in f]
 
 
+def _drop_best(results):
+    """Remove a leg's ``best`` checkpoint, which no test reads."""
+    shutil.rmtree(os.path.join(results, "checkpoints", "best"))
+
+
+def _differing(want, got):
+    """Keys whose arrays are not equal as ``np.testing.assert_array_equal``
+    compares them."""
+    out = []
+    for key in want:
+        try:
+            np.testing.assert_array_equal(got[key], want[key], err_msg=key)
+        except AssertionError:
+            out.append(key)
+    return out
+
+
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
+    """Two unbroken epochs, one epoch that stops, one epoch resumed from it,
+    and the eval CLI on the stopped run's ``last`` checkpoint.  What the
+    tests assert is read here, and the tree is removed at once: each
+    checkpoint with optimizer state is about 470 MB."""
     root = str(tmp_path_factory.mktemp("xbd"))
     make_synthetic_dataset(root, n_train=4, n_val=2, n_test=2, size=SIZE, seed=3)
     res = {k: os.path.join(root, k) for k in ("unbroken", "first", "resumed")}
     common = BASE + ["--data", root]
-    assert main(common + ["--results", res["unbroken"]], device="cpu") == 0
+    out = {"rc": {}}
+    out["rc"]["unbroken"] = main(common + ["--results", res["unbroken"]], device="cpu")
+    _drop_best(res["unbroken"])
     # the Noam schedule depends on --epochs, so the first leg declares two
     # epochs as well; --patience 0 stops it after the first, which leaves the
     # `last` checkpoint an interrupted two-epoch run would resume from
-    assert main(common + ["--results", res["first"], "--patience", "0", "--profile"],
-                device="cpu") == 0
-    assert main(common + ["--results", res["resumed"], "--ckpt",
-                          os.path.join(res["first"], "checkpoints", "last")], device="cpu") == 0
-    return root, res
+    out["rc"]["first"] = main(common + ["--results", res["first"], "--patience", "0",
+                                        "--profile"], device="cpu")
+    out["first_logs"] = _logs(res["first"])
+    out["first_ckpts"] = {}
+    for name in ("best", "last"):
+        path = os.path.join(res["first"], "checkpoints", name)
+        entry = {"exists": ckpt_lib.checkpoint_exists(path)}
+        if entry["exists"]:
+            payload, meta = ckpt_lib.restore_raw(path)
+            bufs = payload["opt_state"]["unet.enc_l1.conv1.weight"]
+            entry.update(epoch=meta["epoch"], fused_tail=bool(meta["config"]["fused_tail"]),
+                         step=int(payload["train"]["step"]), buffers=set(bufs),
+                         exp_avg_max=float(np.abs(bufs["exp_avg"]).max()))
+        out["first_ckpts"][name] = entry
+    # --profile: a torch.profiler trace of the first steps, stopped at loop exit
+    out["trace_bytes"] = os.path.getsize(os.path.join(res["first"], "profile", "trace.json"))
+    _drop_best(res["first"])
+
+    ev = os.path.join(root, "eval_out")
+    out["eval_rc"] = main(["--exec_mode", "eval", "--type", "pre", "--data", root, "--results",
+                           ev, "--ckpt", os.path.join(res["first"], "checkpoints", "last"),
+                           "--val_batch_size", "2", "--num_workers", "2"], device="cpu")
+    out["eval_probs"] = len(os.listdir(os.path.join(ev, "probs")))
+    out["eval_logs"] = _logs(ev)
+
+    out["rc"]["resumed"] = main(common + ["--results", res["resumed"], "--ckpt",
+                                          os.path.join(res["first"], "checkpoints", "last")],
+                                device="cpu")
+    _drop_best(res["resumed"])
+    want, _ = ckpt_lib.restore_raw(os.path.join(res["unbroken"], "checkpoints", "last"))
+    got, out["meta_resumed"] = ckpt_lib.restore_raw(os.path.join(res["resumed"], "checkpoints",
+                                                                 "last"))
+    out["step_resumed"] = int(got["train"]["step"])
+    want, got = dict(_flat(want)), dict(_flat(got))
+    out["same_keys"] = set(want) == set(got)
+    out["has_opt_state"] = any(k.startswith("opt_state/") for k in got)
+    out["differing"] = _differing(want, got)
+    out["logs"] = {k: _logs(res[k]) for k in ("unbroken", "resumed")}
+    shutil.rmtree(root)
+    return out
 
 
 def test_one_epoch_writes_checkpoints_and_log(runs):
-    _, res = runs
-    logs = _logs(res["first"])
+    assert runs["rc"]["first"] == 0
+    logs = runs["first_logs"]
     assert [entry["step"] for entry in logs] == [0]
     data = logs[0]["data"]
     assert set(data) == {"f1", "val_loss", "top_f1", "imgs_per_sec"}
     assert np.isfinite(data["val_loss"]) and data["imgs_per_sec"] > 0
     for name in ("best", "last"):
-        path = os.path.join(res["first"], "checkpoints", name)
-        assert ckpt_lib.checkpoint_exists(path)
-        payload, meta = ckpt_lib.restore_raw(path)
-        assert meta["epoch"] == 0 and bool(meta["config"]["fused_tail"])
-        assert int(payload["train"]["step"]) == 2  # 4 tiles / batch 2
-        bufs = payload["opt_state"]["unet.enc_l1.conv1.weight"]
-        assert set(bufs) == {"step", "exp_avg", "exp_avg_sq"}
-        assert np.abs(bufs["exp_avg"]).max() > 0
-    # --profile: a torch.profiler trace of the first steps, stopped at loop exit
-    assert os.path.getsize(os.path.join(res["first"], "profile", "trace.json")) > 0
+        ck = runs["first_ckpts"][name]
+        assert ck["exists"]
+        assert ck["epoch"] == 0 and ck["fused_tail"]
+        assert ck["step"] == 2  # 4 tiles / batch 2
+        assert ck["buffers"] == {"step", "exp_avg", "exp_avg_sq"}
+        assert ck["exp_avg_max"] > 0
+    assert runs["trace_bytes"] > 0
 
 
 def test_checkpoint_reloads_through_the_eval_cli(runs):
-    root, res = runs
-    out = os.path.join(root, "eval_out")
-    rc = main(["--exec_mode", "eval", "--type", "pre", "--data", root, "--results", out,
-               "--ckpt", os.path.join(res["first"], "checkpoints", "last"),
-               "--val_batch_size", "2", "--num_workers", "2"], device="cpu")
-    assert rc == 0
-    assert len(os.listdir(os.path.join(out, "probs"))) == 2
-    assert np.isfinite(_logs(out)[-1]["data"]["f1"])
+    assert runs["eval_rc"] == 0
+    assert runs["eval_probs"] == 2
+    assert np.isfinite(runs["eval_logs"][-1]["data"]["f1"])
 
 
 def _flat(tree, prefix=""):
@@ -85,18 +136,14 @@ def _flat(tree, prefix=""):
 
 
 def test_resumed_run_equals_unbroken_run_bit_for_bit(runs):
-    _, res = runs
-    want, _ = ckpt_lib.restore_raw(os.path.join(res["unbroken"], "checkpoints", "last"))
-    got, meta = ckpt_lib.restore_raw(os.path.join(res["resumed"], "checkpoints", "last"))
-    assert meta["epoch"] == 1 and int(got["train"]["step"]) == 4
-    want, got = dict(_flat(want)), dict(_flat(got))
-    assert set(want) == set(got)
-    assert any(k.startswith("opt_state/") for k in got)
-    for key in want:
-        np.testing.assert_array_equal(got[key], want[key], err_msg=key)
-    assert [e["step"] for e in _logs(res["resumed"])] == [1]
-    assert {k: v for k, v in _logs(res["resumed"])[-1]["data"].items() if k != "imgs_per_sec"} \
-        == {k: v for k, v in _logs(res["unbroken"])[-1]["data"].items() if k != "imgs_per_sec"}
+    assert runs["rc"]["unbroken"] == 0 and runs["rc"]["resumed"] == 0
+    assert runs["meta_resumed"]["epoch"] == 1 and runs["step_resumed"] == 4
+    assert runs["same_keys"]
+    assert runs["has_opt_state"]
+    assert runs["differing"] == []
+    assert [e["step"] for e in runs["logs"]["resumed"]] == [1]
+    assert {k: v for k, v in runs["logs"]["resumed"][-1]["data"].items() if k != "imgs_per_sec"} \
+        == {k: v for k, v in runs["logs"]["unbroken"][-1]["data"].items() if k != "imgs_per_sec"}
 
 
 @pytest.fixture(scope="module")
@@ -104,17 +151,20 @@ def aa_runs(tmp_path_factory):
     """Two unbroken ``--autoaugment`` epochs, and one epoch resumed for a
     second, on 8 tiles (4 steps an epoch, so spatial ops are drawn).  The
     checkpoints are compared here and their trees removed at once (six
-    checkpoints with optimizer state are 2 GB); the tests read the outcome."""
-    import shutil
-
+    checkpoints with optimizer state are 2.8 GB; each leg's ``best``, which
+    no test reads, goes as soon as the leg ends); the tests read the
+    outcome."""
     root = str(tmp_path_factory.mktemp("xbd_aa"))
     make_synthetic_dataset(root, n_train=8, n_val=2, n_test=2, size=SIZE, seed=5)
     res = {k: os.path.join(root, k) for k in ("unbroken", "first", "resumed")}
     common = BASE + ["--autoaugment", "--data", root]
     assert main(common + ["--results", res["unbroken"]], device="cpu") == 0
+    _drop_best(res["unbroken"])
     assert main(common + ["--results", res["first"], "--patience", "0"], device="cpu") == 0
+    _drop_best(res["first"])
     assert main(common + ["--results", res["resumed"], "--ckpt",
                           os.path.join(res["first"], "checkpoints", "last")], device="cpu") == 0
+    _drop_best(res["resumed"])
     out = {"logs": {k: _logs(v) for k, v in res.items()}}
     first, out["meta_first"] = ckpt_lib.restore_raw(os.path.join(res["first"], "checkpoints",
                                                                  "last"))

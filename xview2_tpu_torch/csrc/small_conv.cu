@@ -15,21 +15,38 @@
 //
 // Bound on the H100: bytes for both.  Per pixel the work is 18*C*Co FLOP
 // against (C + Co) elements moved; at C = Co = 32 in bf16 that is 144 FLOP per
-// byte, below the card's 295.
+// byte, below the card's 295.  At (16, 512, 512, 32) -> 32 the forward moves
+// 537 MB (0.160 ms at 3.35 TB/s) and does 77 GFLOP (0.078 ms at the dense
+// bf16 peak), so the product fits under the copies only if it overlaps them.
 //
-// Design (simple and right first):
+// Design:
 //  * The TPU kernel builds an (8W, 9C) im2col block in VMEM from two stacked
 //    8-row views and multiplies it by the (9C, Co) matrix; its cost there is
 //    the relayout into the matmul operand.  Here nothing is relaid out: the
-//    nine taps of a staged row are the same shared-memory tile read at a
-//    one-pixel offset.
-//  * forward, bf16: a block owns 128 pixels of FWD_ROWS consecutive rows.
-//    ALL 9C x Co weights are staged once per block (at most 83 KB with the
-//    padding) and the input rows go through a ring of three row slots, so
-//    each input row is staged once per block, not three times.  Each warp
-//    owns 16 pixels x all output channels as up to four 16x16 wmma f32
-//    accumulators.  Channels are padded with zeros to multiples of 16 in
-//    shared memory only (the domain's step is 8, wmma's is 16).
+//    nine taps of a staged row are the same shared-memory row read at a
+//    one-pixel offset (a pointer offset for ldmatrix).
+//  * forward, bf16 (small_fwd_mma_kernel, every bf16 shape of the domain):
+//    persistent blocks of 256 threads, as many as fit on the SMs, walk pairs
+//    of output rows of a column segment (256 pixels at C <= 32, else 128, plus
+//    a one-pixel halo on each side), each block a contiguous range of them,
+//    so the halo rows are read once per band of pairs, not once per pass.
+//    Input rows go through a ring of eight row slots filled by cp.async (16
+//    bytes a copy; zero fill makes the SAME halo and pads C to a multiple of
+//    16): a pass's two new rows are issued two passes before it, so four rows
+//    are in flight while the tensor cores work on the four rows of the
+//    current pass, and there is one barrier per two output rows.  The pixel
+//    stride is 2*CP + 16 bytes, an odd number of 16-byte groups, so ldmatrix
+//    of eight pixels is free of bank conflicts at each of the three dx
+//    offsets.  The weights are read once per block and held for its life as
+//    mma.sync B fragments in registers (9 taps x KS k-steps x NW n8 tiles x
+//    2, at most 144 registers: a warp owns NW n8 tiles of the output
+//    channels and the block's warps split Co into groups).  Each warp multiplies 16
+//    pixels of BOTH output rows with mma.sync.m16n8k16: an A fragment of an
+//    input row serves tap row dy of the first output row and dy - 1 of the
+//    second.  The epilogue converts the f32 accumulators to bf16 pairs and
+//    hands each lane 8 whole channels by a quad transpose: one 16-byte store a
+//    lane, no round trip through shared memory.  Each output element is
+//    summed by one thread in a fixed order: bit-equal between runs.
 //  * forward, f32: plain FMA (no TF32).  A thread owns one pixel and half of
 //    the output channels; the weights are read through the read-only cache as
 //    warp-wide broadcasts (in f32 they do not fit beside the rows).
@@ -48,6 +65,8 @@
 #include <cuda_runtime.h>
 #include <mma.h>
 #include <stdint.h>
+
+#include "conv_mma.cuh"
 
 namespace {
 
@@ -68,112 +87,188 @@ __host__ __device__ constexpr size_t align128(size_t n) { return (n + 127) / 128
 inline int lda_bf16(int cp) { return (cp + 16) % 64 == 0 ? cp + 32 : cp + 16; }
 
 // ------------------------------------------------------------ forward, bf16
+//
+// Persistent blocks walk pairs of output rows.  The work is a list of units
+// (image, column segment, row pair), ordered so that the pairs of one segment
+// follow each other; block i takes the i-th of gridDim.x equal contiguous
+// ranges of it.  Inside a range, each run of pairs of one segment is a band:
+// its input rows pass once through a ring of F_SLOTS row slots filled by
+// cp.async, two rows a pass, issued two passes before the pass that first
+// reads them.
+constexpr int F_SLOTS = 8;       // input rows in the ring: 4 in use, 4 in flight
+constexpr int F_SEG_WIDE = 256;  // output pixels per row segment at C <= 32
+constexpr int F_SEG_NARROW = 128;  // ... above (a row slot of 64 channels is 2.3x larger)
+// registers per thread for the weights' B fragments: 144 lets a warp own all
+// 32 output channels at C = 32, which halves the ldmatrix of A against 72
+// (4% faster at the smoke's shape: kernel_ab.py small)
+constexpr int F_BREG = 144;
 
-// Stage input row yy (may be -1 or h: zeros), columns x0-1 .. x0+TM, into the
-// ring slot (yy + 1) % 3 as As[(slot*AW + j)*lda + k], channels >= c zero.
-__device__ __forceinline__ void stage_row_bf16(bf16* __restrict__ As, const bf16* __restrict__ x,
-                                               int b, int yy, int x0, int h, int w, int c, int cp,
-                                               int lda) {
-  const int kvn = cp / 8;
-  bf16* dst = As + ((yy + 1) % 3) * AW * lda;
-  for (int v = threadIdx.x; v < AW * kvn; v += THREADS) {
-    const int kv = v % kvn;
-    const int j = v / kvn;
-    const int xx = x0 + j - 1;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (yy >= 0 && yy < h && xx >= 0 && xx < w && kv * 8 < c)
-      val = *reinterpret_cast<const uint4*>(x + (((size_t)b * h + yy) * w + xx) * c + kv * 8);
-    *reinterpret_cast<uint4*>(dst + j * lda + kv * 8) = val;
-  }
+// bytes per staged pixel: 2 * CP + 16 is an odd multiple of 16, so the eight
+// rows of an ldmatrix (eight neighbouring pixels) fall on eight bank groups
+__host__ __device__ constexpr int f_ldp(int cp) { return 2 * cp + 16; }
+__host__ __device__ inline int f_seg(int cp, int w) {
+  const int seg_max = cp <= 32 ? F_SEG_WIDE : F_SEG_NARROW;
+  const int w16 = (w + 15) / 16 * 16;
+  return w16 < seg_max ? w16 : seg_max;
+}
+// n8 tiles of output channels a warp owns: a power of two, at most F_BREG /
+// (18 KS) (its 9 x KS x NW x 2 B registers), no more than Co needs
+__host__ __device__ constexpr int f_nw_max(int ks) {
+  return F_BREG / (18 * ks) >= 4 ? 4 : F_BREG / (18 * ks) >= 2 ? 2 : 1;
+}
+inline int f_nw(int ks, int nt8) {
+  int nw = 1;
+  while (nw < f_nw_max(ks) && nw < nt8) nw *= 2;
+  return nw;
 }
 
-template <int NT>  // 16-wide output channel tiles: Co padded to NT * 16
-__global__ void __launch_bounds__(THREADS) small_fwd_bf16_kernel(
+// KS: 16-channel k-steps (C padded to CP = 16 KS); NW: n8 tiles per warp.
+// Warp w owns channel group w % G (G = ceil(Co / 8 / NW)) and takes the
+// 16-pixel groups w / G, w / G + 8 / G, ... of each pass, both output rows.
+template <int KS, int NW>
+__global__ void __launch_bounds__(THREADS, 1) small_fwd_mma_kernel(
     const bf16* __restrict__ x, const bf16* __restrict__ kmat, bf16* __restrict__ out, int h,
-    int w, int c, int co, int cp, int lda, int row_groups) {
+    int w, int c, int co, int seg, int segs, int hp, long long units) {
   extern __shared__ __align__(128) unsigned char smem[];
-  constexpr int COP = NT * 16;
-  constexpr int LDB = COP + 8;  // halves; 16 rows stay a multiple of 32 bytes
-  constexpr int LDC = COP + 4;  // floats
-  bf16* Bs = reinterpret_cast<bf16*>(smem);  // (9*cp, LDB)
-  const size_t b_bytes = align128((size_t)9 * cp * LDB * 2);
-  bf16* As = reinterpret_cast<bf16*>(smem + b_bytes);  // ring (3, AW, lda)
-  const size_t a_bytes = align128((size_t)3 * AW * lda * 2);
-  float* Cs = reinterpret_cast<float*>(smem + b_bytes + a_bytes);  // (TM, LDC)
+  constexpr int CP = KS * 16;
+  constexpr int LDP = f_ldp(CP);
+  constexpr int PPP = CP / 8;  // 16-byte pieces per staged pixel
+  const int slot_bytes = (seg + 2) * LDP;
+  const uint32_t sbase = xv::mm::smem_u32(smem);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, q = lane & 3;
+  const int nt8 = co / 8;
+  const int groups = (nt8 + NW - 1) / NW;
+  const int nwp = (THREADS / 32) / groups;  // warps per channel group
+  const int cg = warp % groups, wi = warp / groups;
+  const int nt_mine = min(NW, nt8 - cg * NW);  // this warp's n8 tiles that hold channels
 
-  const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-  const int b = blockIdx.x / row_groups;
-  const int y0 = (blockIdx.x - b * row_groups) * FWD_ROWS;
-  const int x0 = blockIdx.y * TM;
-  const int y_end = min(y0 + FWD_ROWS, h);
+  // the weights as B fragments, for the block's life: tap tp, k-step s, n8
+  // tile t: rows 16s + 2q, +1 (word 0) and +8, +9 (word 1) of column 8(cg NW
+  // + t) + g; channels past C and Co are zero
+  uint32_t bfr[9][KS][NW][2];
+#pragma unroll
+  for (int tp = 0; tp < 9; ++tp)
+#pragma unroll
+    for (int s = 0; s < KS; ++s)
+#pragma unroll
+      for (int t = 0; t < NW; ++t)
+#pragma unroll
+        for (int hw = 0; hw < 2; ++hw) {
+          const int k = 16 * s + 2 * q + 8 * hw, n = 8 * (cg * NW + t) + g;
+          __nv_bfloat162 v = __floats2bfloat162_rn(0.f, 0.f);
+          if (k < c && n < co)  // c is a multiple of 8, so k + 1 < c too
+            v = __halves2bfloat162(kmat[((size_t)tp * c + k) * co + n],
+                                   kmat[((size_t)tp * c + k + 1) * co + n]);
+          bfr[tp][s][t][hw] = *reinterpret_cast<const uint32_t*>(&v);
+        }
 
-  // all the weights, once per block; padded rows and columns are zero
-  constexpr int NV = COP / 8;
-  for (int v = tid; v < 9 * cp * NV; v += THREADS) {
-    const int nv = v % NV;
-    const int k = (v / NV) % cp;
-    const int t = v / NV / cp;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (k < c && nv * 8 < co)
-      val = *reinterpret_cast<const uint4*>(kmat + ((size_t)t * c + k) * co + nv * 8);
-    *reinterpret_cast<uint4*>(Bs + (t * cp + k) * LDB + nv * 8) = val;
-  }
-  stage_row_bf16(As, x, b, y0 - 1, x0, h, w, c, cp, lda);
-  stage_row_bf16(As, x, b, y0, x0, h, w, c, cp, lda);
+  // ldmatrix: lane -> pixel row of the 16 and 8-channel half of a k-step
+  const int lrow = (lane & 7) + ((lane >> 3) & 1) * 8;
+  const uint32_t a_off = (uint32_t)(lrow * LDP + (lane >> 4) * 16);
+  const int per_row = (seg + 2) * PPP;
 
-  const int nvec = co / 8;
-  for (int y = y0; y < y_end; ++y) {
-    stage_row_bf16(As, x, b, y + 1, x0, h, w, c, cp, lda);  // into the slot of row y - 2
-    __syncthreads();
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[NT];
+  const long long u_end = units * (blockIdx.x + 1) / gridDim.x;
+  for (long long u = units * blockIdx.x / gridDim.x; u < u_end;) {
+    const long long band = u / hp;  // (image, segment)
+    const int p0 = (int)(u - band * hp);
+    const long long band_end = (band + 1) * hp < u_end ? (band + 1) * hp : u_end;
+    const int np = (int)(band_end - u);
+    const int bi = (int)(band / segs);
+    const int x0 = (int)(band - (long long)bi * segs) * seg;
+    const size_t img = (size_t)bi * h;
+
+    // input rows 2 p0 - 1 + j, j = j0 .. j0 + nrows - 1, into slots j % F_SLOTS;
+    // zeros outside the image and past C
+    auto load_rows = [&](int j0, int nrows) {
+      for (int v = tid; v < nrows * per_row; v += THREADS) {
+        const int rr = v / per_row;
+        const int rem = v - rr * per_row;
+        const int jx = rem / PPP, pc = rem - (rem / PPP) * PPP;
+        const int j = j0 + rr;
+        const int y = 2 * p0 - 1 + j, xx = x0 + jx - 1;
+        const bool in = y >= 0 && y < h && xx >= 0 && xx < w && pc * 8 < c;
+        const bf16* src = in ? x + ((img + y) * w + xx) * c + pc * 8 : x;
+        xv::mm::cp_async16(sbase + (uint32_t)((j % F_SLOTS) * slot_bytes + jx * LDP + pc * 16),
+                           src, in);
+      }
+    };
+    load_rows(0, 4);  // pass 0
+    xv::mm::cp_async_commit();
+    if (np > 1) load_rows(4, 2);  // pass 1
+    xv::mm::cp_async_commit();
+
+    for (int k = 0; k < np; ++k) {
+      xv::mm::cp_async_wait<1>();  // this thread's pieces of rows 2k .. 2k + 3 have landed
+      // every piece has; every warp is done with pass k - 1, whose first two
+      // rows' slots the next copies refill
+      __syncthreads();
+      if (k + 2 < np) load_rows(2 * k + 6, 2);  // pass k + 2's new rows
+      xv::mm::cp_async_commit();
+      if (wi >= nwp) continue;
+
+      uint32_t slot[4];
 #pragma unroll
-    for (int j = 0; j < NT; ++j) wmma::fill_fragment(acc[j], 0.f);
+      for (int r = 0; r < 4; ++r)
+        slot[r] = sbase + (uint32_t)(((2 * k + r) % F_SLOTS) * slot_bytes) + a_off;
+      const int y0 = 2 * (p0 + k);
+      for (int it = wi; it < seg / 16; it += nwp) {
+        // acc[r][t]: output row y0 + r, pixels 16 it + g (+8), channels of tile t
+        float acc[2][NW][4];
 #pragma unroll
-    for (int dy = 0; dy < 3; ++dy) {
-      const bf16* rowp = As + ((y + dy) % 3) * AW * lda;  // row y + dy - 1
+        for (int r = 0; r < 2; ++r)
 #pragma unroll
-      for (int dx = 0; dx < 3; ++dx) {
-        const int t = dy * 3 + dx;
-        for (int ks = 0; ks < cp / 16; ++ks) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> af;
-          wmma::load_matrix_sync(af, rowp + (warp * 16 + dx) * lda + ks * 16, lda);
+          for (int t = 0; t < NW; ++t)
 #pragma unroll
-          for (int j = 0; j < NT; ++j) {
-            wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bfr;
-            wmma::load_matrix_sync(bfr, Bs + (t * cp + ks * 16) * LDB + j * 16, LDB);
-            wmma::mma_sync(acc[j], af, bfr, acc[j]);
+            for (int e = 0; e < 4; ++e) acc[r][t][e] = 0.f;
+        // input row ir feeds tap row ir of output row y0 and ir - 1 of y0 + 1
+#pragma unroll
+        for (int ir = 0; ir < 4; ++ir) {
+          const uint32_t rbase = slot[ir] + (uint32_t)(it * 16 * LDP);
+#pragma unroll
+          for (int dx = 0; dx < 3; ++dx)
+#pragma unroll
+            for (int s = 0; s < KS; ++s) {
+              uint32_t a[4];
+              xv::mm::ldmatrix_x4(a, rbase + (uint32_t)(dx * LDP + s * 32));
+              // no run-time test in here: a branch among the MMAs keeps the
+              // compiler from running the ldmatrix of the next step ahead (a
+              // tile past Co has zero B fragments and is not stored)
+#pragma unroll
+              for (int t = 0; t < NW; ++t) {
+                if (ir < 3) xv::mm::mma_m16n8k16_bf16(acc[0][t], a, bfr[ir * 3 + dx][s][t]);
+                if (ir > 0) xv::mm::mma_m16n8k16_bf16(acc[1][t], a, bfr[(ir - 1) * 3 + dx][s][t]);
+              }
+            }
+        }
+        // straight from the accumulators: word i = (2 r + hh) NW + t holds
+        // channels 8t + 2q, +1 of pixel g + 8 hh of row r as a bf16 pair.  A
+        // quad transpose of four words hands lane q word 4 gi + q whole: one
+        // 16-byte store of 8 channels a lane.
+#pragma unroll
+        for (int gi = 0; gi < NW; ++gi) {
+          uint32_t v[4];
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            const int i = 4 * gi + kk;
+            const int r = i / (2 * NW), hh = (i / NW) % 2, t = i % NW;
+            const __nv_bfloat162 pr =
+                __floats2bfloat162_rn(acc[r][t][2 * hh], acc[r][t][2 * hh + 1]);
+            v[kk] = *reinterpret_cast<const uint32_t*>(&pr);
           }
+          xv::mm::quad_transpose(v, q);
+          const int i = 4 * gi + q;
+          const int r = i / (2 * NW), hh = (i / NW) % 2, t = i % NW;
+          const int y = y0 + r, xg = x0 + it * 16 + g + 8 * hh;
+          if (y < h && xg < w && t < nt_mine)
+            *reinterpret_cast<uint4*>(out + ((img + y) * w + xg) * co + 8 * (cg * NW + t)) =
+                make_uint4(v[0], v[1], v[2], v[3]);
         }
       }
     }
-    // each warp writes and reads only its own 16 rows of Cs
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-      wmma::store_matrix_sync(Cs + (warp * 16) * LDC + j * 16, acc[j], LDC, wmma::mem_row_major);
-    __syncwarp();
-    for (int e = lane; e < 16 * nvec; e += 32) {
-      const int r = e / nvec;
-      const int nv = e % nvec;
-      const int px = x0 + warp * 16 + r;
-      if (px < w) {
-        const float* src = Cs + (warp * 16 + r) * LDC + nv * 8;
-        const float4 lo = *reinterpret_cast<const float4*>(src);
-        const float4 hi = *reinterpret_cast<const float4*>(src + 4);
-        uint4 packed;
-        bf16* e8 = reinterpret_cast<bf16*>(&packed);
-        e8[0] = __float2bfloat16(lo.x);
-        e8[1] = __float2bfloat16(lo.y);
-        e8[2] = __float2bfloat16(lo.z);
-        e8[3] = __float2bfloat16(lo.w);
-        e8[4] = __float2bfloat16(hi.x);
-        e8[5] = __float2bfloat16(hi.y);
-        e8[6] = __float2bfloat16(hi.z);
-        e8[7] = __float2bfloat16(hi.w);
-        *reinterpret_cast<uint4*>(out + (((size_t)b * h + y) * w + px) * co + nv * 8) = packed;
-      }
-    }
-    __syncthreads();  // row y - 1's slot and Cs are free for the next row
+    xv::mm::cp_async_wait<0>();
+    __syncthreads();  // the ring is free for the next band
+    u = band_end;
   }
 }
 
@@ -436,21 +531,43 @@ cudaError_t allow_smem(K kern, size_t smem) {
   return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
-template <int NT>
-cudaError_t launch_fwd_bf16(const void* x, const void* kmat, void* out, int b, int h, int w, int c,
-                            int co, cudaStream_t stream) {
-  const int cp = (c + 15) / 16 * 16;
-  const int lda = lda_bf16(cp);
-  const size_t smem = align128((size_t)9 * cp * (NT * 16 + 8) * 2) +
-                      align128((size_t)3 * AW * lda * 2) + (size_t)TM * (NT * 16 + 4) * 4;
-  cudaError_t err = allow_smem(small_fwd_bf16_kernel<NT>, smem);
+template <int KS, int NW>
+cudaError_t launch_fwd_mma(const void* x, const void* kmat, void* out, int b, int h, int w, int c,
+                           int co, cudaStream_t stream) {
+  const int seg = f_seg(KS * 16, w);
+  const int segs = (w + seg - 1) / seg, hp = (h + 1) / 2;
+  const size_t smem = (size_t)F_SLOTS * (seg + 2) * f_ldp(KS * 16);
+  auto kern = small_fwd_mma_kernel<KS, NW>;
+  cudaError_t err = allow_smem(kern, smem);
   if (err != cudaSuccess) return err;
-  const int row_groups = (h + FWD_ROWS - 1) / FWD_ROWS;
-  const dim3 grid((unsigned)(b * row_groups), (unsigned)((w + TM - 1) / TM));
-  small_fwd_bf16_kernel<NT><<<grid, THREADS, smem, stream>>>((const bf16*)x, (const bf16*)kmat,
-                                                       (bf16*)out, h, w, c, co, cp, lda,
-                                                       row_groups);
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, THREADS, smem)) !=
+      cudaSuccess)
+    return err;
+  const long long units = (long long)b * segs * hp;
+  long long blocks = (long long)sms * (per_sm > 0 ? per_sm : 1);
+  if (blocks > units) blocks = units;
+  kern<<<(unsigned)blocks, THREADS, smem, stream>>>((const bf16*)x, (const bf16*)kmat, (bf16*)out,
+                                                    h, w, c, co, seg, segs, hp, units);
   return cudaGetLastError();
+}
+
+template <int KS>
+cudaError_t fwd_mma(const void* x, const void* kmat, void* out, int b, int h, int w, int c, int co,
+                    cudaStream_t s) {
+  constexpr int NW_MAX = f_nw_max(KS);
+  switch (f_nw(KS, co / 8)) {
+    case 1: return launch_fwd_mma<KS, 1>(x, kmat, out, b, h, w, c, co, s);
+    case 2:
+      if constexpr (NW_MAX >= 2) return launch_fwd_mma<KS, 2>(x, kmat, out, b, h, w, c, co, s);
+      return cudaErrorInvalidValue;
+    default:
+      if constexpr (NW_MAX >= 4) return launch_fwd_mma<KS, 4>(x, kmat, out, b, h, w, c, co, s);
+      return cudaErrorInvalidValue;
+  }
 }
 
 // About four blocks per SM in all, each with a contiguous range of segments.
@@ -480,11 +597,11 @@ extern "C" int small_conv_fwd(const void* x, const void* kmat, void* out, int b,
   if (c % 8 || co % 8 || c < 8 || co < 8 || c > 64 || co > 64) return (int)cudaErrorInvalidValue;
   if ((long long)b * h * w <= 0) return (int)cudaSuccess;
   if (dtype == 1) {
-    switch ((co + 15) / 16) {
-      case 1: return (int)launch_fwd_bf16<1>(x, kmat, out, b, h, w, c, co, s);
-      case 2: return (int)launch_fwd_bf16<2>(x, kmat, out, b, h, w, c, co, s);
-      case 3: return (int)launch_fwd_bf16<3>(x, kmat, out, b, h, w, c, co, s);
-      default: return (int)launch_fwd_bf16<4>(x, kmat, out, b, h, w, c, co, s);
+    switch ((c + 15) / 16) {
+      case 1: return (int)fwd_mma<1>(x, kmat, out, b, h, w, c, co, s);
+      case 2: return (int)fwd_mma<2>(x, kmat, out, b, h, w, c, co, s);
+      case 3: return (int)fwd_mma<3>(x, kmat, out, b, h, w, c, co, s);
+      default: return (int)fwd_mma<4>(x, kmat, out, b, h, w, c, co, s);
     }
   }
   if (dtype == 0) {

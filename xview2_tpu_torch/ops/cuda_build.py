@@ -18,7 +18,7 @@ import os
 import shutil
 import subprocess
 import time
-from typing import Dict
+from typing import Dict, Tuple
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(CSRC), "_build")
@@ -28,6 +28,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "
               "-Xcompiler", "-fPIC", "-lineinfo")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_FUNCS: Dict[Tuple[str, str], Tuple[ctypes._CFuncPtr, tuple]] = {}
 
 
 def nvcc() -> str:
@@ -101,10 +102,22 @@ def library(name: str) -> ctypes.CDLL:
 
 def function(name: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
     """C entry point ``symbol`` of ``csrc/{name}.cu`` with its argument
-    types declared; every entry point returns a cudaError_t as int."""
+    types declared; every entry point returns a cudaError_t as int.
+
+    The bound entry point is kept per ``(name, symbol)``: the symbol is
+    looked up and its ``argtypes`` set once, on the first call.  A later
+    call that declares other ``argtypes`` raises ``ValueError``."""
+    key = (name, symbol)
+    hit = _FUNCS.get(key)
+    if hit is not None:
+        if hit[1] is not argtypes and hit[1] != tuple(argtypes):
+            raise ValueError(f"{symbol} of csrc/{name}.cu was bound with argtypes {hit[1]}, "
+                             f"not {tuple(argtypes)}")
+        return hit[0]
     fn = getattr(library(name), symbol)
     fn.argtypes = list(argtypes)
     fn.restype = ctypes.c_int
+    _FUNCS[key] = (fn, tuple(argtypes))
     return fn
 
 

@@ -4,8 +4,10 @@ The JAX package copies the eval logits (and the train labels) into a
 standard row-major buffer with an identity Pallas kernel, because XLA:TPU
 otherwise propagates a batch-minor layout into the loss.  The port keeps the
 copy at the same place (``parallel/steps.py``) as a hand-written CUDA kernel
-(``csrc/relayout.cu``): a strided tensor of rank <= 4 in, a new contiguous
-tensor out, bit-exact.  Its gradient is the same copy of the cotangent.
+(``csrc/relayout.cu``): a contiguous tensor of any rank, or a strided one of
+rank <= 4, in; a new contiguous tensor out, bit-exact.  The kernel takes one
+of two paths, which :func:`relayout_plan` picks from the layout alone.  Its
+gradient is the same copy of the cotangent.
 
 On a CPU tensor the plain version, ``x.contiguous().clone()``, runs instead;
 a CUDA tensor always goes to the kernel.
@@ -14,10 +16,19 @@ a CUDA tensor always goes to the kernel.
 from __future__ import annotations
 
 import ctypes
+from typing import Sequence, Tuple
 
 import torch
 
 from xview2_tpu_torch.ops import cuda_build
+
+# the kernel's paths (csrc/relayout.cu): (a) a contiguous source, (b) any
+# other strides
+FLAT, STRIDED = 0, 1
+
+_PTR, _INT, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_FLAT_ARGS = (_PTR, _PTR, _LL, _PTR)
+_STRIDED_ARGS = (_PTR, _PTR, _INT) + (_LL,) * 8 + (_PTR,)
 
 
 def relayout_reference(x: torch.Tensor) -> torch.Tensor:
@@ -25,25 +36,64 @@ def relayout_reference(x: torch.Tensor) -> torch.Tensor:
     return x.contiguous().clone()
 
 
+def relayout_plan(shape: Sequence[int], strides: Sequence[int]
+                  ) -> Tuple[int, Tuple[int, ...], Tuple[int, ...]]:
+    """The kernel path that copies a view, as a pure function of its layout.
+
+    Unit dims are dropped and dims that are contiguous with each other are
+    merged; returns ``(path, dims, strides)``.  ``FLAT`` with no dims for a
+    contiguous view; otherwise ``STRIDED`` with the merged dims and strides
+    (in elements) padded in front to four."""
+    merged = []
+    for n, s in zip(shape, strides):
+        if n == 1:
+            continue
+        if merged and merged[-1][1] == s * n:
+            merged[-1] = (merged[-1][0] * n, s)
+        else:
+            merged.append((n, s))
+    if not merged or (len(merged) == 1 and merged[0][1] == 1) or 0 in shape:
+        return FLAT, (), ()
+    pad = 4 - len(merged)
+    return (STRIDED, (1,) * pad + tuple(n for n, _ in merged),
+            (0,) * pad + tuple(s for _, s in merged))
+
+
 def relayout_cuda(x: torch.Tensor) -> torch.Tensor:
-    """The relayout kernel on a CUDA tensor of rank <= 4 (any strides)."""
+    """The relayout kernel on a CUDA tensor: any strides at rank <= 4, any
+    rank when contiguous.
+
+    Every piece of host work per call is one the card's time at the train
+    size (about 10 us a tensor) can hide: the bound entry point is cached,
+    dims and strides go as scalars, the stream handle comes from
+    ``current_stream(index)`` and the output from ``empty_like``, the
+    cheapest public calls for them (PERF.md)."""
     if not x.is_cuda:
         raise ValueError("relayout_cuda needs a CUDA tensor")
-    if x.dim() > 4:
-        raise ValueError(f"relayout_cuda takes rank <= 4, got shape {tuple(x.shape)}")
-    if x.element_size() not in (1, 2, 4, 8):
-        raise ValueError(f"relayout_cuda: unsupported element size {x.element_size()}")
-    out = torch.empty(x.shape, dtype=x.dtype, device=x.device)
-    pad = 4 - x.dim()
-    dims = (ctypes.c_longlong * 4)(*([1] * pad + list(x.shape)))
-    strides = (ctypes.c_longlong * 4)(*([0] * pad + list(x.stride())))
-    fn = cuda_build.function("relayout", "relayout_copy", (
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_longlong),
-        ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p))
-    err = fn(x.data_ptr(), out.data_ptr(), x.element_size(), dims, strides,
-             torch.cuda.current_stream(x.device).cuda_stream)
+    if x.is_contiguous():
+        out = torch.empty_like(x)  # x is dense: its layout is the contiguous one
+        nbytes = out.nbytes
+        if nbytes == 0:
+            return out
+        err = cuda_build.function("relayout", "relayout_flat", _FLAT_ARGS)(
+            x.data_ptr(), out.data_ptr(), nbytes,
+            torch.cuda.current_stream(x.get_device()).cuda_stream)
+    else:
+        if x.dim() > 4:
+            raise ValueError(f"relayout_cuda takes rank <= 4, got shape {tuple(x.shape)}")
+        itemsize = x.element_size()
+        if itemsize not in (1, 2, 4, 8):
+            raise ValueError(f"relayout_cuda: unsupported element size {itemsize}")
+        out = torch.empty_like(x, memory_format=torch.contiguous_format)
+        if out.numel() == 0:
+            return out
+        _, dims, strides = relayout_plan(x.shape, x.stride())
+        err = cuda_build.function("relayout", "relayout_strided", _STRIDED_ARGS)(
+            x.data_ptr(), out.data_ptr(), itemsize, *dims, *strides,
+            torch.cuda.current_stream(x.get_device()).cuda_stream)
     relayout_cuda.launches += 1
-    cuda_build.check(err, "relayout")
+    if err:
+        cuda_build.check(err, "relayout")
     return out
 
 

@@ -66,14 +66,17 @@ def _check(what: str, x: torch.Tensor, co: int) -> None:
 
 
 def _stream(x: torch.Tensor) -> int:
-    return torch.cuda.current_stream(x.device).cuda_stream
+    return torch.cuda.current_stream(x.get_device()).cuda_stream
 
 
 # K7.  Replaces the TPU kernel xview2_tpu/ops/pallas_conv.py::_conv_kernel
 # (_conv3x3_fwd_impl).  Bound on the card: bytes (18*C*Co FLOP per pixel
 # against 2*(C + Co) bytes in bf16: at C = Co = 32 that is 144 FLOP per byte,
-# below the card's 295).  All 9C x Co weights stay in shared memory for the
-# block's rows and a ring of three staged input rows feeds the tensor cores.
+# below the card's 295).  In bf16: persistent blocks walk pairs of output
+# rows through a cp.async ring of eight input rows (four in flight while the
+# tensor cores work), the weights held as mma.sync B fragments in registers
+# for the block's life, and 16-byte stores straight from the accumulators; the
+# output is bit-equal between runs.  In float32: plain FMA, no TF32.
 def small_conv_fwd(x: torch.Tensor, kmat: torch.Tensor) -> torch.Tensor:
     """The conv kernel on a CUDA tensor: x (B, H, W, C), kmat (9C, Co)."""
     if not x.is_cuda:
