@@ -19,10 +19,11 @@ Phases, each of which fails the script (non-zero exit, no result line):
    point), failing if a path shape misses the redesigned kernel, with the
    TFLOP/s of the convolutions; hold ragged and half-tile shapes, K2's
    ``out``, K5's ``dx`` and K7's ``out`` EQUAL between two runs, the prologue
-   inside K2 and K4 and the epilogue of K5 EQUAL to the plain ones; K1 on
-   both of its paths byte for byte, with the host time of one call beside
-   ``clone``; K1, K3 and K7 also by the profiler's device time (K1 also
-   L2-cold);
+   inside K2 and K4 and the epilogue of K5 EQUAL to the plain ones, K8's dW
+   EQUAL between two runs; K1 and K6 with the host time of one call beside
+   ``clone`` (K1 on both of its paths byte for byte); K1, K3, K6, K7 and K8
+   also by the profiler's device time (K1 and K6 also L2-cold, beside
+   ``clone``);
 4. the eval main path: a synthetic holdout of 8 tiles of 1024^2, a ResNet-50
    UNetLoc made from a fixed seed saved as a port checkpoint, and
    ``xview2_tpu_torch.main.main([... --exec_mode eval ...])`` with 4-flip TTA
@@ -123,6 +124,24 @@ def bound_ms(nbytes: float, flops: float, dtype: str):
 
 # ----------------------------------------------------------------- kernels
 
+def host_us(pieces: dict, calls: int) -> dict:
+    """Host microseconds per call of each function in ``pieces``, by
+    ``time.perf_counter`` over ``calls`` calls after one warm-up call, the
+    card synchronised before and after each run."""
+    import torch
+
+    us = {}
+    for name, fn in pieces.items():
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        us[name] = (time.perf_counter() - t0) / calls * 1e6
+        torch.cuda.synchronize()
+    return us
+
+
 def relayout_host_breakdown(calls: int = 1000) -> dict:
     """Host microseconds of one ``relayout_cuda`` call beside ``clone``, and
     of its ctypes call without a launch (0 bytes) and with one, each by
@@ -137,21 +156,12 @@ def relayout_host_breakdown(calls: int = 1000) -> dict:
     out = torch.empty_like(x)
     flat = cuda_build.function("relayout", "relayout_flat", layout._FLAT_ARGS)
     stream = torch.cuda.current_stream().cuda_stream
-    pieces = {
+    us = host_us({
         "ctypes_call_no_launch": lambda: flat(x.data_ptr(), out.data_ptr(), 0, stream),
         "ctypes_call_and_launch": lambda: flat(x.data_ptr(), out.data_ptr(), 4096, stream),
         "relayout_cuda": lambda: layout.relayout_cuda(x),
         "clone": lambda: x.clone(),
-    }
-    us = {}
-    for name, fn in pieces.items():
-        fn()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(calls):
-            fn()
-        us[name] = (time.perf_counter() - t0) / calls * 1e6
-        torch.cuda.synchronize()
+    }, calls)
     us["launch"] = us["ctypes_call_and_launch"] - us["ctypes_call_no_launch"]
     log("K1 host time per call (us, perf_counter over "
         f"{calls} calls of a 4 KB tensor): " + ", ".join(f"{k} {v:.2f}" for k, v in us.items()))
@@ -520,8 +530,9 @@ def bwd_case(b, h, w, c, co, dtype, seed):
 
 def _compare_wgrad(got, want, tag):
     """dW stays float32 in the kernel and in the plain version: they differ
-    by the f32 order of the sums only (atomics across the pixel splits, whose
-    order changes from run to run): 1e-3 of max |dW|."""
+    by the f32 order of the sums only (the pixels split over blocks and
+    their partials added in another order; with atomics that order also
+    changes from run to run): 1e-3 of max |dW|."""
     err = (got - want).abs().max().item()
     scale = want.abs().max().item()
     if not err <= 1e-3 * scale:
@@ -804,18 +815,58 @@ def _row_shift_cases(n):
     ]
 
 
+def row_shift_host_breakdown(calls: int = 1000) -> dict:
+    """Host microseconds of one ``row_shift_cuda`` call beside ``clone``, and
+    of the ctypes call of the entry point without a launch (an empty map) and
+    the launch (a call with one, less that), each by ``time.perf_counter``
+    over ``calls`` calls with the card otherwise idle, on a (1, 8, 8, 4) map
+    (the host's share does not depend on the size).  The bare calls go
+    through a binding of their own: the wrapper's cached one is timed only
+    through the wrapper."""
+    import ctypes
+
+    import torch
+
+    from xview2_tpu_torch.ops import cuda_build, rowshift
+
+    x = torch.zeros((1, 8, 8, 4), device="cuda")
+    shift = torch.zeros((1, 8), device="cuda")
+    sel = torch.zeros(1, dtype=torch.int32, device="cuda")
+    out = torch.empty_like(x)
+    rowshift.row_shift_cuda(x, shift, sel)  # builds and binds the library
+    bare = ctypes.CDLL(cuda_build._lib_path("rowshift")).row_shift
+    bare.argtypes = list(rowshift._ARGS)
+    bare.restype = ctypes.c_int
+    stream = torch.cuda.current_stream().cuda_stream
+    args = (x.data_ptr(), shift.data_ptr(), sel.data_ptr(), out.data_ptr())
+    us = host_us({
+        "row_shift_cuda": lambda: rowshift.row_shift_cuda(x, shift, sel),
+        "ctypes_call": lambda: bare(*args, 0, 8, 8, 4, 2, stream),
+        "ctypes_call_and_launch": lambda: bare(*args, 1, 8, 8, 4, 2, stream),
+        "clone": lambda: x.clone(),
+    }, calls)
+    us["launch"] = us.pop("ctypes_call_and_launch") - us["ctypes_call"]
+    log("K6 host time per call (us, perf_counter over "
+        f"{calls} calls of a (1, 8, 8, 4) map): " + ", ".join(f"{k} {v:.2f}" for k, v in us.items()))
+    return us
+
+
 def check_row_shift():
     """K6 at the three shapes of the --autoaugment path against its plain
     version: EQUAL (tolerance 0).  No PyTorch call computes this function, so
     ``library_ms`` is null; ``clone`` of the same bytes is printed as the
     card's copy rate.  The row sums one step's typical launches: a rotation
-    (row, column, row pass) and a shear on a group of AA_GROUP samples."""
+    (row, column, row pass) and a shear on a group of AA_GROUP samples, by
+    CUDA events and by the profiler's device time.  At the batch of 16 each
+    launch is also timed L2-cold beside ``clone`` (``cold_device_ms``;
+    ``cold_*`` keys), and the wrapper's host time is broken down
+    (``host_us_*`` keys)."""
     import torch
 
     from xview2_tpu_torch.ops import rowshift
 
     row = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=None, bound_ms=0.0,
-               bound_by="bytes")
+               bound_by="bytes", device_ms=0.0)
     for n in (AA_GROUP, TRAIN_BATCH):
         for tag, x, shift, sel, axis in _row_shift_cases(n):
             got = rowshift.row_shift(x, shift, sel, axis=axis)
@@ -825,17 +876,33 @@ def check_row_shift():
             if not torch.equal(got, want):
                 raise AssertionError(f"K6 row_shift {tag} {tuple(x.shape)}: not bit-equal to "
                                      f"the plain version, max abs err {err:.4g}")
-            ms = cuda_ms(lambda: rowshift.row_shift(x, shift, sel, axis=axis), 20)
+            fn = lambda: rowshift.row_shift(x, shift, sel, axis=axis)  # noqa: E731
+            ms = cuda_ms(fn, 20)
+            dev = device_ms(fn, 20)
             plain = cuda_ms(lambda: rowshift.row_shift_reference(x, shift, sel, axis=axis), 5)
             copy = cuda_ms(lambda: x.clone(), 20)
             bnd, by = bound_ms(2 * x.numel() * 4 + shift.numel() * 4 + sel.numel() * 4, 0.0,
                                "float32")
+            cold = ""
+            if n == TRAIN_BATCH:
+                xs = cold_copies(x)
+                key = tag.replace(" ", "_")
+                row[f"cold_device_ms_{key}"] = cold_ms = cold_device_ms(
+                    lambda t: rowshift.row_shift(t, shift, sel, axis=axis), xs)
+                row[f"cold_library_device_ms_{key}"] = cold_copy = cold_device_ms(
+                    lambda t: t.clone(), xs)
+                row[f"cold_bound_ms_{key}"] = bnd
+                del xs
+                cold = (f"; L2-cold {cold_ms:.4f} ms ({100 * bnd / cold_ms:.0f}% of the bound), "
+                        f"clone L2-cold {cold_copy:.4f} ms ({100 * bnd / cold_copy:.0f}%)")
             log(f"K6 row_shift {tag} {tuple(x.shape)} f32 axis {axis}: bit-equal (tolerance 0), "
-                f"kernel {ms:.4f} ms ({2 * x.numel() * 4 / ms / 1e9:.3f} TB/s), plain "
-                f"{plain:.4f} ms, clone of the same bytes {copy:.4f} ms, bound {bnd:.4f} ms ({by})")
+                f"kernel {ms:.4f} ms ({2 * x.numel() * 4 / ms / 1e9:.3f} TB/s; device time "
+                f"{dev:.4f}), plain {plain:.4f} ms, clone of the same bytes {copy:.4f} ms, bound "
+                f"{bnd:.4f} ms ({by}){cold}")
             if n == AA_GROUP:
                 times = 2 if tag == "rotate row pass" else 1
                 row["ms"] += times * ms
+                row["device_ms"] += times * dev
                 row["plain_ms"] += times * plain
                 row["bound_ms"] += times * bnd
     # a 7-channel pair (pre + post + mask), lerp and nearest samples in one batch
@@ -849,8 +916,10 @@ def check_row_shift():
             raise AssertionError(f"K6 row_shift C=7 axis {axis}: not bit-equal")
     log(f"K6 row_shift (2, {CROP}, {CROP}, 7) f32, shifts past both edges, axes 2 and 1: "
         f"bit-equal; per --autoaugment step with one rotation and one shear group of "
-        f"{AA_GROUP} samples (4 launches): kernel {row['ms']:.4f} ms, plain "
-        f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms (bytes)")
+        f"{AA_GROUP} samples (4 launches): kernel {row['ms']:.4f} ms (device time "
+        f"{row['device_ms']:.4f}), plain {row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+        "(bytes)")
+    row.update({f"host_us_{k}": v for k, v in row_shift_host_breakdown().items()})
     return row
 
 
@@ -932,14 +1001,24 @@ def check_small_conv():
                                   plain_ms=plain, library_ms=lib, bound_ms=bnd, bound_by=by,
                                   device_ms=dev, dx_device_ms=dx_dev, library_device_ms=lib_dev,
                                   dx_library_ms=lib_dx, dx_library_device_ms=lib_dx_dev)
-    ms = cuda_ms(lambda: sc.small_conv_wgrad(x, g), 5)
+    lib_fn = lambda: torch.nn.grad.conv2d_weight(xc, kc.shape, gc, padding=1)  # noqa: E731
+    ms = cuda_ms(lambda: sc.small_conv_wgrad(x, g), 20)
     plain = cuda_ms(lambda: sc.reference_wgrad(x, g), 2)
-    lib = cuda_ms(lambda: torch.nn.grad.conv2d_weight(xc, kc.shape, gc, padding=1), 5)
+    lib = cuda_ms(lib_fn, 20)
+    dev = device_ms(lambda: sc.small_conv_wgrad(x, g), 20)
+    lib_dev = device_ms(lib_fn, 20)
     bnd, by = bound_ms(act + 9 * c * co * 4, flops, "bfloat16")
-    log(f"K8 small_conv_wgrad timing: kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s), "
-        f"plain {plain:.3f} ms, library (cuDNN wgrad) {lib:.3f} ms, bound {bnd:.3f} ms ({by})")
+    if not torch.equal(sc.small_conv_wgrad(x, g), sc.small_conv_wgrad(x, g)):
+        raise AssertionError("K8 small_conv_wgrad bf16: dW differs between two runs")
+    log(f"K8 small_conv_wgrad timing: kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s, "
+        f"{act / ms / 1e9:.3f} TB/s, {100 * bnd / ms:.0f}% of the bound; device time {dev:.4f}, "
+        f"{100 * bnd / dev:.0f}%), plain {plain:.3f} ms, library (cuDNN wgrad) {lib:.4f} ms "
+        f"(device time {lib_dev:.4f}): {ms / lib:.2f}x cuDNN by the events, {dev / lib_dev:.2f}x "
+        f"by device time; bound {bnd:.3f} ms ({by}); dW EQUAL between two runs")
     rows["small_conv_wgrad"] = dict(max_abs_err=e_dw, ms=ms, plain_ms=plain, library_ms=lib,
-                                    bound_ms=bnd, bound_by=by)
+                                    bound_ms=bnd, bound_by=by, device_ms=dev,
+                                    library_device_ms=lib_dev, bound_share=bnd / ms,
+                                    device_bound_share=bnd / dev)
     del x, g, xc, gc
     torch.cuda.empty_cache()
     # odd channel counts of the domain (padding to 16 inside the kernels) and
@@ -952,6 +1031,9 @@ def check_small_conv():
                                    f"K7 {shape} {dtype}")
         e_dw, r_dw = _compare_wgrad(sc.small_conv_wgrad(x, g), sc.reference_wgrad(x, g),
                                     f"K8 {shape} {dtype}")
+        if dtype == torch.bfloat16 and not torch.equal(sc.small_conv_wgrad(x, g),
+                                                       sc.small_conv_wgrad(x, g)):
+            raise AssertionError(f"K8 {shape} bf16: dW differs between two runs")
         ms7 = cuda_ms(lambda: sc.small_conv_fwd(x, kmat), 3)
         p7 = cuda_ms(lambda: sc.reference_conv3x3(x, kmat), 3)
         ms8 = cuda_ms(lambda: sc.small_conv_wgrad(x, g), 3)
@@ -1458,7 +1540,8 @@ def check_f32_against_cpu() -> None:
 # kernel-name fragments -> category of a step's breakdown
 _CATEGORIES = (("K6 row_shift", ("row_shift_kernel",)),
                ("K7 small_conv_fwd", ("small_fwd_mma_kernel", "small_fwd_f32_kernel")),
-               ("K8 small_conv_wgrad", ("small_wgrad_bf16_kernel", "small_wgrad_f32_kernel")),
+               ("K8 small_conv_wgrad", ("small_wgrad_mma_kernel", "small_wgrad_sum_kernel",
+                                        "small_wgrad_f32_kernel")),
                ("K4 conv_bn_wgrad", ("wgrad_wgmma_kernel", "wgrad_bf16_kernel", "wgrad_f32_kernel")),
                ("K5 conv_bn_dgrad", ("dgrad_wgmma_kernel", "dgrad_bf16_kernel",
                                      "dgrad_f32_kernel")),
@@ -1575,10 +1658,12 @@ def main(argv=None) -> int:
     # bound_ms: K1-K3 per eval step (train_* keys: per train step), K4/K5 per
     # train step, K6 per --autoaugment step with one rotation and one shear
     # group, K7/K8 per launch at (16, 512, 512, 32) -> 32 bf16, all by CUDA
-    # events; K1, K3 and K7 add the profiler's device time of a call's
-    # kernels (device_ms, library_device_ms, and their train_/dx_ keys), K1
-    # its NCHW-viewed-NHWC row (permuted_ keys), its L2-cold device times
-    # (cold_ keys) and the host microseconds of one call (host_us_ keys).
+    # events; K1, K3, K6, K7 and K8 add the profiler's device time of a
+    # call's kernels (device_ms, library_device_ms, and their train_/dx_
+    # keys), K8 its share of the bound (bound_share, device_bound_share), K1
+    # its NCHW-viewed-NHWC row (permuted_ keys), K1 and K6 their L2-cold
+    # device times (cold_ keys; K6 per launch at the batch of 16) and the host
+    # microseconds of one call (host_us_ keys).
     kernels = []
     for name, (counter, source, replaces) in meta.items():
         r = rows[name]

@@ -7,6 +7,8 @@ Run from the root of a checkout on a machine with the card::
     python3 kernel_ab.py head TAG=PATH [TAG=PATH ...]
     python3 kernel_ab.py small TAG=PATH [TAG=PATH ...]
     python3 kernel_ab.py relayout TAG=PATH [TAG=PATH ...]
+    python3 kernel_ab.py wgrad TAG=PATH [TAG=PATH ...]
+    python3 kernel_ab.py rowshift TAG=PATH [TAG=PATH ...]
 
 ``dgrad`` times K5 ``conv_bn_dgrad`` (``csrc/fused_conv_bwd.cu``) at the six
 train-path layers, fold on and off; ``head`` times K3 ``head_conv_fused``
@@ -15,7 +17,12 @@ train-path layers, fold on and off; ``head`` times K3 ``head_conv_fused``
 (16, 512, 512, 32) -> 32 and its odd shape (2, 70, 200, 24) -> 40;
 ``relayout`` times K1's flat path ``relayout_flat`` (``csrc/relayout.cu``) on
 the eval logits (4, 1024, 1024, 2) f32 and the train labels (16, 256, 1024)
-int32.  Each PATH is a whole
+int32; ``wgrad`` times K8 ``small_conv_wgrad`` (``csrc/small_conv.cu``) in
+bf16 at the smoke's shape and the odd shape, each version's dW held against
+the plain version and against two runs of itself; ``rowshift`` times K6
+``row_shift`` (``csrc/rowshift.cu``) at the three launches of the
+``--autoaugment`` path at a batch of 16 (the shear of 512^2 crops, the
+rotation's row and column passes at 512 x 654).  Each PATH is a whole
 edited copy of that source file, kept outside the committed sources (in a
 directory that ``.gitignore`` lists); the committed source runs beside them
 as ``kept``.  Each version is compiled by ``nvcc`` with ``cuda_build``'s
@@ -237,12 +244,77 @@ def time_relayout(libs: dict) -> None:
         del x, out
 
 
+def time_wgrad(libs: dict) -> None:
+    import torch
+
+    import chip_smoke as cs
+    from xview2_tpu_torch.ops import small_conv as sc
+
+    stream = torch.cuda.current_stream().cuda_stream
+    slots = sc._sm_count(torch.cuda.current_device())
+    for tag_shape, shape in (("smoke", cs.SMALL_CONV), ("odd", (2, 70, 200, 24, 40))):
+        b, h, w, c, co = shape
+        x, g, _ = cs._small_conv_case(shape, torch.bfloat16, seed=80)
+        out = {t: torch.empty((9 * c, co), device="cuda") for t in libs}
+        ws = torch.empty((slots, 9 * c, co), device="cuda")
+        fns = {}
+        for tag, lib in libs.items():
+            fn = lib.small_conv_wgrad
+            fn.argtypes = list(sc._WGRAD_ARGS)
+            args = (x.data_ptr(), g.data_ptr(), out[tag].data_ptr(), ws.data_ptr(), b, h, w, c,
+                    co, 1, slots, stream)
+            fns[tag] = (lambda fn=fn, args=args: fn(*args))
+        first = {}
+        for t, fn in fns.items():  # one run each, kept to hold the timed runs against
+            fn()
+            first[t] = out[t].clone()
+        times = in_turns(fns, 20)
+        nbytes = b * h * w * (c + co) * 2 + 9 * c * co * 4
+        want = sc.reference_wgrad(x, g)
+        rel = {t: cs._compare_wgrad(o, want, f"K8 [{t}] {shape}")[1] for t, o in out.items()}
+        log(f"K8 {tag_shape} {shape[:4]}->{co}: "
+            + "; ".join(f"{t} {v[0]:.4f}/{v[1]:.4f} ms ({2 * nbytes / sum(v) / 1e9:.3f} TB/s, "
+                        f"{rel[t]:.3g} of max|dW| from the plain version"
+                        f"{'' if torch.equal(out[t], first[t]) else ', NOT EQUAL between runs'}"
+                        f"{'' if torch.equal(out[t], out['kept']) else ', dW differs from kept'})"
+                        for t, v in times.items()))
+        del x, g, out, ws
+
+
+def time_rowshift(libs: dict) -> None:
+    import torch
+
+    import chip_smoke as cs
+    from xview2_tpu_torch.ops import rowshift
+
+    stream = torch.cuda.current_stream().cuda_stream
+    for tag_case, x, shift, sel, axis in cs._row_shift_cases(cs.TRAIN_BATCH):
+        b, h, w, c = x.shape
+        out = {t: torch.empty_like(x) for t in libs}
+        fns = {}
+        for tag, lib in libs.items():
+            fn = lib.row_shift
+            fn.argtypes = list(rowshift._ARGS)
+            args = (x.data_ptr(), shift.data_ptr(), sel.data_ptr(), out[tag].data_ptr(), b, h, w,
+                    c, axis, stream)
+            fns[tag] = (lambda fn=fn, args=args: fn(*args))
+        times = in_turns(fns, 20)
+        want = rowshift.row_shift_reference(x, shift, sel, axis=axis)
+        log(f"K6 {tag_case} {tuple(x.shape)} axis {axis}: "
+            + "; ".join(f"{t} {v[0]:.4f}/{v[1]:.4f} ms ({4 * x.nbytes / sum(v) / 1e9:.3f} TB/s"
+                        f"{'' if torch.equal(out[t], want) else ', NOT EQUAL to the plain version'})"
+                        for t, v in times.items()))
+        del x, out
+
+
 # what the first argument names: (source under csrc/, kernel for ptxas, timer)
 KERNELS = {
     "dgrad": ("fused_conv_bwd", "dgrad_wgmma_kernel", time_dgrad),
     "head": ("fused_head", "head_mma_kernel", time_head),
     "small": ("small_conv", "small_fwd_mma_kernel", time_small),
     "relayout": ("relayout", "relayout_flat_kernel", time_relayout),
+    "wgrad": ("small_conv", "small_wgrad_mma_kernel", time_wgrad),
+    "rowshift": ("rowshift", "row_shift_kernel", time_rowshift),
 }
 
 

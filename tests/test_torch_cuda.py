@@ -362,11 +362,12 @@ def test_fused_conv_backward_runs_the_kernels():
 
 @pytest.mark.parametrize("axis", [2, 1])
 @pytest.mark.parametrize("c", [4, 7, 1])
-@pytest.mark.parametrize("shape", [(3, 38, 54), (2, 64, 86), (1, 5, 3)])
+@pytest.mark.parametrize("shape", [(3, 38, 54), (2, 64, 86), (1, 5, 3), (16, 512, 654)])
 def test_row_shift_bit_exact(shape, c, axis):
     """K6 against its plain version on the card: EQUAL (the kernel forbids
     the FMA contraction of the lerp), for lerp and nearest samples in one
-    batch, shifts past both edges included."""
+    batch, shifts past both edges included; the last shape is the rotation
+    passes' at a batch of 16, where C = 4 takes the 16-byte pixel path."""
     b, h, w = shape
     gen = torch.Generator(device="cuda").manual_seed(4)
     x = torch.randn((b, h, w, c), generator=gen, device="cuda") * 50 + 100
@@ -451,7 +452,8 @@ def test_small_conv_fwd_bf16_matches_plain_and_repeats(shape):
 @pytest.mark.parametrize("shape", _SMALL)
 def test_small_conv_wgrad_matches_plain(shape, dtype):
     """K8: dW stays f32 in the kernel and in the plain version; they differ
-    by the order of the f32 sums (atomics): 1e-3 of max |dW|."""
+    by the order of the f32 sums (pixels split over blocks, partials added
+    in another order than the plain version's): 1e-3 of max |dW|."""
     b, h, w, c, co = shape
     gen = torch.Generator(device="cuda").manual_seed(8)
     x = torch.randn((b, h, w, c), generator=gen, device="cuda").to(dtype)
@@ -460,6 +462,41 @@ def test_small_conv_wgrad_matches_plain(shape, dtype):
     want = sc.reference_wgrad(x, g)
     assert got.dtype == torch.float32 and got.shape == (9 * c, co)
     assert (got - want).abs().max().item() <= 1e-3 * want.abs().max().item()
+
+
+_WGRAD_CHANNELS = [8, 24, 32, 40, 64]
+
+
+@pytest.mark.parametrize("co", _WGRAD_CHANNELS)
+@pytest.mark.parametrize("c", _WGRAD_CHANNELS)
+@pytest.mark.parametrize("hw", [(1, 17), (70, 200)])
+def test_small_conv_wgrad_bf16_channels_and_ragged_maps(hw, c, co):
+    """The redesigned bf16 K8 over the channel domain (one or two output
+    tiles a warp, copies of the roles over the pixel steps, C and Co padded
+    to 16 inside) on a single row of a ragged width and on ragged bands:
+    within 1e-3 of max |dW| of the plain version (sums in another order)."""
+    h, w = hw
+    gen = torch.Generator(device="cuda").manual_seed(c * 100 + co)
+    x = torch.randn((2, h, w, c), generator=gen, device="cuda").to(torch.bfloat16)
+    g = torch.randn((2, h, w, co), generator=gen, device="cuda").to(torch.bfloat16)
+    got = sc.small_conv_wgrad(x, g)
+    want = sc.reference_wgrad(x, g)
+    assert got.dtype == torch.float32 and got.shape == (9 * c, co)
+    assert (got - want).abs().max().item() <= 1e-3 * want.abs().max().item()
+
+
+@pytest.mark.parametrize("shape", [(16, 64, 512, 32, 32), (2, 70, 200, 24, 40),
+                                   (3, 33, 90, 64, 64), (1, 5, 300, 8, 16)])
+def test_small_conv_wgrad_bf16_is_bit_equal_between_runs(shape):
+    """No atomics: every block writes its partial to its own slot and the
+    slots are added in a fixed order, so two runs give EQUAL dW."""
+    b, h, w, c, co = shape
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    x = torch.randn((b, h, w, c), generator=gen, device="cuda").to(torch.bfloat16)
+    g = torch.randn((b, h, w, co), generator=gen, device="cuda").to(torch.bfloat16)
+    first = sc.small_conv_wgrad(x, g)
+    assert torch.equal(first, sc.small_conv_wgrad(x, g))
+    assert torch.equal(first, sc.small_conv_wgrad(x.clone(), g.clone()))
 
 
 def test_conv3x3_small_backward_runs_the_kernels():

@@ -33,7 +33,7 @@ def test_parse_variants_refuses_a_bad_version(tmp_path, arg):
         kernel_ab.parse_variants(args)
 
 
-@pytest.mark.parametrize("name", sorted(v[0] for v in kernel_ab.KERNELS.values()))
+@pytest.mark.parametrize("name", sorted({v[0] for v in kernel_ab.KERNELS.values()}))
 def test_stage_variant_replaces_only_the_named_source(tmp_path, name):
     edited = tmp_path / "edited.cu"
     edited.write_text("// an edited version\n")

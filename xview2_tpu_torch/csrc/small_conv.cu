@@ -51,26 +51,37 @@
 //    the output channels; the weights are read through the read-only cache as
 //    warp-wide broadcasts (in f32 they do not fit beside the rows).
 //  * wgrad: the TPU kernel adds into one resident output over a sequential
-//    grid.  Here the B*H*W pixels are SPLIT over blocks (about four per SM).
-//    bf16: the (9C, Co) output is cut into (9 taps x 16 x 16) warp tiles, at
-//    most 16 of them; a block's 8 warps take the tiles, and where there are
-//    fewer tiles than warps the spare warps take other 16-pixel steps of the
-//    same staged segment.  A^T comes from the staged rows as a col-major
-//    fragment at the tap's pixel offset.  f32: 9 x 4 FMA accumulators per
-//    thread.  Each block adds its part into the ZEROED output with f32
-//    atomicAdd, whose order changes from run to run: dW is reproducible to
-//    f32 sum-order noise (the callers compare at 1e-3 of max |dW|).
+//    grid.  bf16 (small_wgrad_mma_kernel): the forward's persistent walk over
+//    bands of row pairs of one column segment (128 pixels where eight slots
+//    fit, else 64), but each ring slot holds an input row AND the cotangent
+//    row of the same index, both by 16-byte cp.async with zero fill; a pass's
+//    two new rows are issued two passes ahead, so each x and g row crosses
+//    from L2 once per band (plus the band's two x halo rows).  The pixels are
+//    the reduction dimension of mma.sync.m16n8k16: A = x^T (16 channels x 16
+//    pixels) by ldmatrix.trans at the tap's one-pixel offset, B = g (16
+//    pixels x 8 output channels) by ldmatrix.trans, both at the forward's
+//    conflict-free pixel stride.  One A fragment of input row r at offset dx
+//    feeds taps (dy, dx) of the two output rows of the pass that read it.  A
+//    warp owns one 16-channel input tile x WN 16-channel output tiles over all
+//    nine taps (72 WN f32 registers, held for the block's life); copies of
+//    those roles split the pixel steps where Co * C is small.  No atomics:
+//    each block adds its warps' copies in a fixed order and writes its partial
+//    (9C, Co) to its own workspace slot, and small_wgrad_sum_kernel adds the
+//    slots in a fixed order.  For a given card (the grid is its SM count) dW is
+//    bit-equal between runs; against the plain version it differs by the f32
+//    order of the sums (the callers compare at 1e-3 of max |dW|).
+//    f32 (small_wgrad_f32_kernel): 9 x 4 FMA accumulators per thread over
+//    pixels split about four blocks per SM, added with f32 atomicAdd into the
+//    output that the entry point zeroes first: reproducible only to f32
+//    sum-order noise.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include "conv_mma.cuh"
 
 namespace {
-
-using namespace nvcuda;
 
 typedef __nv_bfloat16 bf16;
 
@@ -80,11 +91,6 @@ constexpr int AW = TM + 2;    // staged input columns (with halo)
 constexpr int FWD_ROWS = 16;  // output rows per forward block
 
 __host__ __device__ constexpr size_t align128(size_t n) { return (n + 127) / 128 * 128; }
-
-// Row stride (in bf16 elements) of a staged pixel with cp channels: a multiple
-// of 16 (every wmma fragment pointer stays 32-byte aligned) that is not a
-// multiple of 64 (128 bytes would put every pixel on the same banks).
-inline int lda_bf16(int cp) { return (cp + 16) % 64 == 0 ? cp + 32 : cp + 16; }
 
 // ------------------------------------------------------------ forward, bf16
 //
@@ -355,97 +361,239 @@ __global__ void __launch_bounds__(THREADS) small_fwd_f32_kernel(
 }
 
 // -------------------------------------------------------------- wgrad, bf16
+//
+// The forward's units and walk: block i takes the i-th of gridDim.x equal
+// contiguous ranges of (image, column segment, row pair), and each run of
+// pairs of one segment is a band.  Ring row j of a band starting at pair p0
+// holds input row 2 p0 - 1 + j and cotangent row 2 p0 - 1 + j side by side in
+// slot j % W_SLOTS; pass k reads the input rows of j = 2k .. 2k + 3 and the
+// cotangent rows of j = 2k + 1, 2k + 2 (output rows 2 (p0 + k), + 1).  The
+// cotangent rows of the band's two halo rows (j = 0 and 2 np + 1) are not
+// staged.
+constexpr int W_SLOTS = 8;             // ring rows: 4 in use, 4 in flight
+constexpr int W_SEG = 128;             // pixels per row segment where 8 slots fit, else 64
+constexpr int SMEM_OPTIN = 232448;     // dynamic shared memory a block may opt in to (sm_90)
 
-__global__ void __launch_bounds__(THREADS) small_wgrad_bf16_kernel(
-    const bf16* __restrict__ x, const bf16* __restrict__ g, float* __restrict__ out, int bsz,
-    int h, int w, int c, int co, int cp, int cop, int lda, int tiles_per_block, int segs,
-    int tasks_per_block) {
+// bytes of a ring slot: the input row with its halo, then the cotangent row
+__host__ __device__ inline int w_slot_bytes(int seg, int cp, int cop) {
+  return (seg + 2) * f_ldp(cp) + seg * f_ldp(cop);
+}
+inline int w_seg(int cp, int cop, int w) {
+  const int seg_max = W_SLOTS * w_slot_bytes(W_SEG, cp, cop) <= SMEM_OPTIN ? W_SEG : W_SEG / 2;
+  const int w16 = (w + 15) / 16 * 16;
+  return w16 < seg_max ? w16 : seg_max;
+}
+// warp roles: one 16-channel tile of the input channels x WN 16-channel tiles
+// of the output channels, all nine taps; the block's 8 warps form `groups`
+// copies of the roles, which split the 16-pixel steps of each pass
+__host__ __device__ inline int w_roles(int cp, int cop, int wn) {
+  return (cp / 16) * ((cop / 16 + wn - 1) / wn);
+}
+
+// WN: 16-channel output tiles per warp (2 wherever Co > 16, which halves the
+// ldmatrix of A: one A fragment then feeds 4 n8 tiles x 2 output rows).
+// Accumulators: 9 taps x WN x 2 n8 tiles x 4 = 72 WN registers, the warp's
+// part of dW for the block's life.
+template <int WN>
+__global__ void __launch_bounds__(THREADS, 1) small_wgrad_mma_kernel(
+    const bf16* __restrict__ x, const bf16* __restrict__ g, float* __restrict__ ws, int h, int w,
+    int c, int co, int seg, int segs, int hp, long long units) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const int ldg = cop + 8;
-  bf16* As = reinterpret_cast<bf16*>(smem);  // (3, AW, lda)
-  const size_t a_bytes = align128((size_t)3 * AW * lda * 2);
-  bf16* Gs = reinterpret_cast<bf16*>(smem + a_bytes);  // (TM, ldg)
-  const size_t g_bytes = align128((size_t)TM * ldg * 2);
-  float* patch = reinterpret_cast<float*>(smem + a_bytes + g_bytes);  // one 16x16 per warp
+  constexpr int NACC = 9 * WN * 2 * 4;
+  const int cp = (c + 15) / 16 * 16, cop = (co + 15) / 16 * 16;
+  const int ldx = f_ldp(cp), ldg = f_ldp(cop);  // odd multiples of 16 bytes
+  const int xppp = cp / 8, gppp = cop / 8;      // 16-byte pieces per staged pixel
+  const int x_bytes = (seg + 2) * ldx;
+  const int slot_bytes = x_bytes + seg * ldg;
+  const uint32_t sbase = xv::mm::smem_u32(smem);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int no16 = cop / 16, nco = (no16 + WN - 1) / WN;
+  const int roles = w_roles(cp, cop, WN);
+  const int groups = (THREADS / 32) / roles;
+  const int role = warp % roles, grp = warp / roles;
+  const int ci = role / nco, cg = role % nco;
 
-  const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-  const int n_co = cop / 16;
-  const int n_tiles = (cp / 16) * n_co;
-  const int groups = (THREADS / 32) / tiles_per_block;  // warps sharing one tile
-  const int group = warp / tiles_per_block;
-  const int tile = blockIdx.y * tiles_per_block + warp % tiles_per_block;
-  const bool active = group < groups && tile < n_tiles;  // uniform within a warp
-  const int ci = tile / n_co;   // which 16 input channels
-  const int coj = tile % n_co;  // which 16 output channels
+  // A = x^T (16 channels x 16 pixels) by ldmatrix.trans of the staged pixel
+  // rows: matrices (pixels 0-7 | 8-15) x (channels 0-7 | 8-15), channels
+  // fastest; B = g (16 pixels x 8 channels, two n8 tiles per x4): (pixels
+  // 0-7 | 8-15) fastest.  A tile past Co reads tile no16 - 1 and is not
+  // stored.
+  const uint32_t a_off =
+      (uint32_t)(((lane & 7) + (lane >> 4) * 8) * ldx + ((lane >> 3) & 1) * 16 + ci * 32);
+  uint32_t b_off[WN];
+#pragma unroll
+  for (int t = 0; t < WN; ++t)
+    b_off[t] = (uint32_t)(((lane & 7) + ((lane >> 3) & 1) * 8) * ldg + (lane >> 4) * 16 +
+                          min(cg * WN + t, no16 - 1) * 32);
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[9];
+  // acc[tap][t][n8][e]: channel ci*16 + lane/4 + 8(e/2), output channel
+  // 16 (cg WN + t) + 8 n8 + 2 (lane%4) + e%2 of tap row dy*3 + dx
+  float acc[9][WN][2][4];
 #pragma unroll
-  for (int t = 0; t < 9; ++t) wmma::fill_fragment(acc[t], 0.f);
+  for (int tp = 0; tp < 9; ++tp)
+#pragma unroll
+    for (int t = 0; t < WN; ++t)
+#pragma unroll
+      for (int n8 = 0; n8 < 2; ++n8)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[tp][t][n8][e] = 0.f;
 
-  const int kvn = cp / 8, gvn = cop / 8;
-  const int total = bsz * h * segs;
-  const int first = blockIdx.x * tasks_per_block;
-  const int last = min(first + tasks_per_block, total);
-  for (int task = first; task < last; ++task) {
-    const int b = task / (h * segs);
-    const int rem = task - b * h * segs;
-    const int y = rem / segs;
-    const int x0 = (rem - y * segs) * TM;
-    __syncthreads();  // the previous segment's reads are done
-    for (int v = tid; v < 3 * AW * kvn; v += THREADS) {
-      const int kv = v % kvn;
-      const int j = (v / kvn) % AW;
-      const int dy = v / kvn / AW;
-      const int yy = y + dy - 1, xx = x0 + j - 1;
-      uint4 val = make_uint4(0, 0, 0, 0);
-      if (yy >= 0 && yy < h && xx >= 0 && xx < w && kv * 8 < c)
-        val = *reinterpret_cast<const uint4*>(x + (((size_t)b * h + yy) * w + xx) * c + kv * 8);
-      *reinterpret_cast<uint4*>(As + (dy * AW + j) * lda + kv * 8) = val;
-    }
-    for (int v = tid; v < TM * gvn; v += THREADS) {
-      const int nv = v % gvn;
-      const int p = v / gvn;
-      uint4 val = make_uint4(0, 0, 0, 0);
-      if (x0 + p < w && nv * 8 < co)
-        val = *reinterpret_cast<const uint4*>(g + (((size_t)b * h + y) * w + x0 + p) * co + nv * 8);
-      *reinterpret_cast<uint4*>(Gs + p * ldg + nv * 8) = val;
-    }
-    __syncthreads();
-    if (active) {
-      for (int ks = group; ks < TM / 16; ks += groups) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> gf;
-        wmma::load_matrix_sync(gf, Gs + (ks * 16) * ldg + coj * 16, ldg);
-#pragma unroll
-        for (int dy = 0; dy < 3; ++dy) {
-#pragma unroll
-          for (int dx = 0; dx < 3; ++dx) {
-            // A^T: element (channel i, pixel k) at As[(row + k) * lda + i]
-            wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> af;
-            wmma::load_matrix_sync(af, As + (dy * AW + ks * 16 + dx) * lda + ci * 16, lda);
-            wmma::mma_sync(acc[dy * 3 + dx], af, gf, acc[dy * 3 + dx]);
-          }
+  // the copy threads' pieces: piece xpc of pixels xjx, xjx + xstep, ... of
+  // each staged x row (gpc, gjx, gstep: g); threads past xstep * xppp copy none
+  const int xstep = THREADS / xppp, gstep = THREADS / gppp;
+  const int xpc = tid % xppp, xjx = tid < xstep * xppp ? tid / xppp : seg + 2;
+  const int gpc = tid % gppp, gjx = tid < gstep * gppp ? tid / gppp : seg;
+  const long long u_end = units * (blockIdx.x + 1) / gridDim.x;
+  for (long long u = units * blockIdx.x / gridDim.x; u < u_end;) {
+    const long long band = u / hp;  // (image, segment)
+    const int p0 = (int)(u - band * hp);
+    const long long band_end = (band + 1) * hp < u_end ? (band + 1) * hp : u_end;
+    const int np = (int)(band_end - u);
+    const int bi = (int)(band / segs);
+    const int x0 = (int)(band - (long long)bi * segs) * seg;
+    const size_t img = (size_t)bi * h;
+
+    // ring rows j0 .. j0 + nrows - 1; zeros outside the image and past C, Co
+    auto load_rows = [&](int j0, int nrows) {
+      for (int j = j0; j < j0 + nrows; ++j) {
+        const int y = 2 * p0 - 1 + j;
+        const uint32_t sl = sbase + (uint32_t)((j % W_SLOTS) * slot_bytes);
+        const bool row_in = y >= 0 && y < h;
+        const bf16* xrow = x + (img + (row_in ? y : 0)) * w * c + xpc * 8;
+        for (int jx = xjx; jx < seg + 2; jx += xstep) {
+          const int xx = x0 + jx - 1;
+          const bool in = row_in && xx >= 0 && xx < w && xpc * 8 < c;
+          xv::mm::cp_async16(sl + (uint32_t)(jx * ldx + xpc * 16), in ? xrow + xx * c : x, in);
+        }
+        if (j == 0 || j > 2 * np) continue;  // a halo row: its cotangent is not read
+        const bf16* grow = g + (img + (row_in ? y : 0)) * w * co + gpc * 8;
+        for (int jx = gjx; jx < seg; jx += gstep) {
+          const int xx = x0 + jx;
+          const bool in = row_in && xx < w && gpc * 8 < co;
+          xv::mm::cp_async16(sl + (uint32_t)(x_bytes + jx * ldg + gpc * 16),
+                             in ? grow + xx * co : g, in);
         }
       }
+    };
+    load_rows(0, 4);  // pass 0
+    xv::mm::cp_async_commit();
+    if (np > 1) load_rows(4, 2);  // pass 1
+    xv::mm::cp_async_commit();
+
+    for (int k = 0; k < np; ++k) {
+      xv::mm::cp_async_wait<1>();  // this thread's pieces of pass k's rows have landed
+      // every piece has; every warp is done with pass k - 1, whose first two
+      // rows' slots the next copies refill
+      __syncthreads();
+      if (k + 2 < np) load_rows(2 * k + 6, 2);  // pass k + 2's new rows
+      xv::mm::cp_async_commit();
+      if (grp >= groups) continue;
+
+      uint32_t xs[4], gs[2];
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        xs[r] = sbase + (uint32_t)(((2 * k + r) % W_SLOTS) * slot_bytes) + a_off;
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        gs[r] = sbase + (uint32_t)(((2 * k + 1 + r) % W_SLOTS) * slot_bytes + x_bytes);
+      for (int it = grp; it < seg / 16; it += groups) {
+        // B fragments of output rows 2 (p0 + k) + r, pixels 16 it ..
+        uint32_t bq[2][WN][2][2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+#pragma unroll
+          for (int t = 0; t < WN; ++t) {
+            uint32_t v[4];
+            xv::mm::ldmatrix_x4_trans(v, gs[r] + (uint32_t)(it * 16 * ldg) + b_off[t]);
+            bq[r][t][0][0] = v[0];
+            bq[r][t][0][1] = v[1];
+            bq[r][t][1][0] = v[2];
+            bq[r][t][1][1] = v[3];
+          }
+        // input row ir (2 (p0 + k) - 1 + ir) at the tap's pixel offset dx
+        // feeds tap row ir of output row 0 and ir - 1 of output row 1
+#pragma unroll
+        for (int ir = 0; ir < 4; ++ir)
+#pragma unroll
+          for (int dx = 0; dx < 3; ++dx) {
+            uint32_t a[4];
+            xv::mm::ldmatrix_x4_trans(a, xs[ir] + (uint32_t)((it * 16 + dx) * ldx));
+#pragma unroll
+            for (int t = 0; t < WN; ++t)
+#pragma unroll
+              for (int n8 = 0; n8 < 2; ++n8) {
+                if (ir < 3) xv::mm::mma_m16n8k16_bf16(acc[ir * 3 + dx][t][n8], a, bq[0][t][n8]);
+                if (ir > 0)
+                  xv::mm::mma_m16n8k16_bf16(acc[(ir - 1) * 3 + dx][t][n8], a, bq[1][t][n8]);
+              }
+          }
+      }
     }
+    xv::mm::cp_async_wait<0>();
+    __syncthreads();  // the ring is free for the next band
+    u = band_end;
   }
 
-  if (active) {
-    float* mine = patch + warp * 256;
+  // the groups' copies of each role, added in group order through the idle
+  // ring, then the block's partial dW into its workspace slot
+  if (groups > 1) {
+    float* red = reinterpret_cast<float*>(smem);
+    if (grp >= 1 && grp < groups) {
 #pragma unroll
-    for (int t = 0; t < 9; ++t) {
-      wmma::store_matrix_sync(mine, acc[t], 16, wmma::mem_row_major);
-      __syncwarp();
+      for (int i = 0; i < NACC; ++i)
+        red[(warp * NACC + i) * 32 + lane] = (&acc[0][0][0][0])[i];
+    }
+    __syncthreads();
+    if (grp == 0) {
+      for (int gi = 1; gi < groups; ++gi)
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int idx = lane + 32 * i;
-        const int cc = ci * 16 + idx / 16;
-        const int oo = coj * 16 + idx % 16;
-        if (cc < c && oo < co) atomicAdd(out + ((size_t)t * c + cc) * co + oo, mine[idx]);
-      }
-      __syncwarp();
+        for (int i = 0; i < NACC; ++i)
+          (&acc[0][0][0][0])[i] += red[((role + gi * roles) * NACC + i) * 32 + lane];
     }
   }
+  if (grp != 0) return;
+  float* slot = ws + (size_t)blockIdx.x * 9 * c * co;
+  const int qd = lane & 3, gr = lane >> 2;
+#pragma unroll
+  for (int tp = 0; tp < 9; ++tp)
+#pragma unroll
+    for (int t = 0; t < WN; ++t)
+#pragma unroll
+      for (int n8 = 0; n8 < 2; ++n8)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const int ch = ci * 16 + gr + 8 * hf;
+          const int tile = cg * WN + t;
+          const int o = tile * 16 + n8 * 8 + 2 * qd;
+          if (tile < no16 && ch < c && o < co)
+            *reinterpret_cast<float2*>(slot + ((size_t)tp * c + ch) * co + o) =
+                make_float2(acc[tp][t][n8][2 * hf], acc[tp][t][n8][2 * hf + 1]);
+        }
+}
+
+// dW = the slots' partials added in a fixed order: a block takes 32
+// elements; warp p adds slots p, p + 8, p + 16, ... of its lane's element in
+// slot order (32 consecutive floats a load), and thread p = 0 adds the eight
+// warps' sums in warp order
+constexpr int SUM_PARTS = THREADS / 32;
+__global__ void __launch_bounds__(THREADS) small_wgrad_sum_kernel(const float* __restrict__ ws,
+                                                                  float* __restrict__ out, int n,
+                                                                  int slots) {
+  __shared__ float part[SUM_PARTS][32];
+  const int lane = threadIdx.x & 31, p = threadIdx.x >> 5;
+  const int i = blockIdx.x * 32 + lane;
+  float s = 0.f;
+  if (i < n) {
+#pragma unroll 4
+    for (int k = p; k < slots; k += SUM_PARTS) s += ws[(size_t)k * n + i];
+  }
+  part[p][lane] = s;
+  __syncthreads();
+  if (p != 0 || i >= n) return;
+  float t = part[0][lane];
+#pragma unroll
+  for (int q = 1; q < SUM_PARTS; ++q) t += part[q][lane];
+  out[i] = t;
 }
 
 // --------------------------------------------------------------- wgrad, f32
@@ -618,44 +766,57 @@ extern "C" int small_conv_fwd(const void* x, const void* kmat, void* out, int b,
 }
 
 // x: (b, h, w, c) and g: (b, h, w, co), contiguous, same dtype; out: (9c, co)
-// f32, ZEROED by the caller.  c and co in 8..64, multiples of 8.  dtype 0 =
-// float32, 1 = bfloat16.
-extern "C" int small_conv_wgrad(const void* x, const void* g, void* out, int b, int h, int w,
-                                int c, int co, int dtype, void* stream) {
+// f32, written whole.  c and co in 8..64, multiples of 8.  dtype 0 = float32,
+// 1 = bfloat16.  bfloat16 needs ws: `slots` x 9c x co f32 of scratch (one
+// slot per block, at most `slots` blocks; the caller's SM count fills the
+// card); float32 ignores ws and slots.  Returns the cudaError_t of the launch.
+extern "C" int small_conv_wgrad(const void* x, const void* g, void* out, void* ws, int b, int h,
+                                int w, int c, int co, int dtype, int slots, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (c % 8 || co % 8 || c < 8 || co < 8 || c > 64 || co > 64) return (int)cudaErrorInvalidValue;
-  if ((long long)b * h * w <= 0) return (int)cudaSuccess;
-  int per = 0;
-  unsigned blocks_x = 0;
+  const int n = 9 * c * co;
+  if ((long long)b * h * w <= 0) return (int)cudaMemsetAsync(out, 0, (size_t)n * 4, s);
   if (dtype == 1) {
+    if (ws == nullptr || slots < 1) return (int)cudaErrorInvalidValue;
     const int cp = (c + 15) / 16 * 16, cop = (co + 15) / 16 * 16;
-    const int lda = lda_bf16(cp);
-    const int n_tiles = (cp / 16) * (cop / 16);
-    const int tiles_y = (n_tiles + 7) / 8;
-    const int tiles_per_block = (n_tiles + tiles_y - 1) / tiles_y;
-    const int segs = (w + TM - 1) / TM;
-    const size_t smem = align128((size_t)3 * AW * lda * 2) +
-                        align128((size_t)TM * (cop + 8) * 2) + (size_t)8 * 256 * 4;
-    cudaError_t err = allow_smem(small_wgrad_bf16_kernel, smem);
-    if (err != cudaSuccess) return (int)err;
-    err = split_tasks((long long)b * h * segs, tiles_y, &per, &blocks_x);
-    if (err != cudaSuccess) return (int)err;
-    small_wgrad_bf16_kernel<<<dim3(blocks_x, (unsigned)tiles_y), THREADS, smem, s>>>(
-        (const bf16*)x, (const bf16*)g, (float*)out, b, h, w, c, co, cp, cop, lda, tiles_per_block,
-        segs, per);
+    const int seg = w_seg(cp, cop, w);
+    const int segs = (w + seg - 1) / seg, hp = (h + 1) / 2;
+    const long long units = (long long)b * segs * hp;
+    const int blocks = units < slots ? (int)units : slots;
+    const int wn = cop > 16 ? 2 : 1;
+    const size_t ring = (size_t)W_SLOTS * w_slot_bytes(seg, cp, cop);
+    const size_t red = (THREADS / 32) / w_roles(cp, cop, wn) > 1
+                           ? (size_t)(THREADS / 32) * 9 * wn * 8 * 32 * 4 : 0;
+    const size_t smem = ring > red ? ring : red;
+    cudaError_t err;
+    if (wn == 2) {
+      if ((err = allow_smem(small_wgrad_mma_kernel<2>, smem)) != cudaSuccess) return (int)err;
+      small_wgrad_mma_kernel<2><<<blocks, THREADS, smem, s>>>(
+          (const bf16*)x, (const bf16*)g, (float*)ws, h, w, c, co, seg, segs, hp, units);
+    } else {
+      if ((err = allow_smem(small_wgrad_mma_kernel<1>, smem)) != cudaSuccess) return (int)err;
+      small_wgrad_mma_kernel<1><<<blocks, THREADS, smem, s>>>(
+          (const bf16*)x, (const bf16*)g, (float*)ws, h, w, c, co, seg, segs, hp, units);
+    }
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    small_wgrad_sum_kernel<<<(n + 31) / 32, THREADS, 0, s>>>((const float*)ws, (float*)out, n,
+                                                              blocks);
     return (int)cudaGetLastError();
   }
   if (dtype == 0) {
+    cudaError_t err = cudaMemsetAsync(out, 0, (size_t)n * 4, s);  // the atomics add into it
+    if (err != cudaSuccess) return (int)err;
     const int qn = co / 4;
     int chb = (THREADS / qn) & ~3;  // input channels per block, a multiple of 4
     if (chb > c) chb = c;
     const int tiles_y = (c + chb - 1) / chb;
     const int segs = (w + WF_TM - 1) / WF_TM;
     const size_t smem = align128((size_t)3 * WF_AW * (chb + 1) * 4) + (size_t)WF_TM * co * 4;
-    cudaError_t err = allow_smem(small_wgrad_f32_kernel, smem);
-    if (err != cudaSuccess) return (int)err;
-    err = split_tasks((long long)b * h * segs, tiles_y, &per, &blocks_x);
-    if (err != cudaSuccess) return (int)err;
+    if ((err = allow_smem(small_wgrad_f32_kernel, smem)) != cudaSuccess) return (int)err;
+    int per = 0;
+    unsigned blocks_x = 0;
+    if ((err = split_tasks((long long)b * h * segs, tiles_y, &per, &blocks_x)) != cudaSuccess)
+      return (int)err;
     small_wgrad_f32_kernel<<<dim3(blocks_x, (unsigned)tiles_y), THREADS, smem, s>>>(
         (const float*)x, (const float*)g, (float*)out, b, h, w, c, co, chb, segs, per);
     return (int)cudaGetLastError();

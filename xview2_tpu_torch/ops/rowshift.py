@@ -78,29 +78,46 @@ def row_shift_reference(x: torch.Tensor, shift: torch.Tensor, sel: torch.Tensor,
 
 # K6.  Replaces the TPU kernel xview2_tpu/ops/rowshift.py::_kernel
 # (row_shift_pallas).  Bound on the card: bytes (one read and one write of the
-# map; a launch on a few 512^2 samples is shorter than its own launch
-# overhead).  One thread per output element reads its two taps directly.
+# map).  One thread per output pixel for all its channels, 16-byte loads and
+# stores at C = 4.  A launch on a few 512^2 samples takes the card about as
+# long as the host takes to enqueue it, so the wrapper does only what it must
+# per call (as K1's): one cached entry point, scalar arguments, the stream by
+# device index, ``empty_like``, and no copy or cast of an input that is
+# already right.
+_ARGS = (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 5 + (ctypes.c_void_p,)
+
+
 def row_shift_cuda(x: torch.Tensor, shift: torch.Tensor, sel: torch.Tensor,
                    axis: int = 2) -> torch.Tensor:
     """The row-shift kernel on CUDA tensors (``x`` contiguous)."""
-    _check(x, shift, sel, axis)
-    if not (x.is_cuda and shift.device == x.device and sel.device == x.device):
+    index = x.get_device()  # -1 on the CPU
+    if index < 0 or shift.get_device() != index or sel.get_device() != index:
         raise ValueError("row_shift_cuda needs x, shift and sel on one CUDA device")
-    if not x.is_contiguous():
-        raise ValueError("row_shift_cuda: x must be contiguous (B, H, W, C)")
+    if x.dtype is not torch.float32 or x.dim() != 4 or not x.is_contiguous():
+        raise ValueError(f"row_shift_cuda: x must be contiguous (B, H, W, C) float32, got "
+                         f"{tuple(x.shape)} {x.dtype}")
+    b, h, w, c = x.shape
+    if axis == 2:
+        lines = h
+    elif axis == 1:
+        lines = w
+    else:
+        raise ValueError(f"row_shift: axis must be 1 (along H) or 2 (along W), got {axis}")
+    if shift.dtype is not torch.float32 or shift.shape != (b, lines) or sel.shape != (b,):
+        _check(x, shift, sel, axis)  # raises with the reason
     if x.numel() >= 2 ** 31:
         raise ValueError(f"row_shift_cuda: at most 2^31 - 1 elements, got {x.numel()}")
-    b, h, w, c = x.shape
-    shift = shift.contiguous()
-    sel32 = sel.to(torch.int32).contiguous()
+    if not shift.is_contiguous():
+        shift = shift.contiguous()
+    if sel.dtype is not torch.int32 or not sel.is_contiguous():
+        sel = sel.to(torch.int32).contiguous()
     out = torch.empty_like(x)
-    fn = cuda_build.function("rowshift", "row_shift", (
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p))
-    err = fn(x.data_ptr(), shift.data_ptr(), sel32.data_ptr(), out.data_ptr(), b, h, w, c, axis,
-             torch.cuda.current_stream(x.device).cuda_stream)
+    err = cuda_build.function("rowshift", "row_shift", _ARGS)(
+        x.data_ptr(), shift.data_ptr(), sel.data_ptr(), out.data_ptr(), b, h, w, c, axis,
+        torch.cuda.current_stream(index).cuda_stream)
     row_shift_cuda.launches += 1
-    cuda_build.check(err, "row_shift")
+    if err:
+        cuda_build.check(err, "row_shift")
     return out
 
 
@@ -113,5 +130,5 @@ def row_shift(x: torch.Tensor, shift: torch.Tensor, sel: torch.Tensor,
     amount: ``shift`` is ``(B, H)`` for ``axis=2`` (along W) or ``(B, W)`` for
     ``axis=1`` (along H); ``sel`` ``(B,)`` picks lerp (non-zero) or nearest."""
     if x.is_cuda:
-        return row_shift_cuda(x.contiguous(), shift, sel, axis)
+        return row_shift_cuda(x if x.is_contiguous() else x.contiguous(), shift, sel, axis)
     return row_shift_reference(x, shift, sel, axis)

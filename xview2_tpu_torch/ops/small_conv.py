@@ -103,10 +103,25 @@ small_conv_fwd.launches = 0
 
 # K8.  Replaces the TPU kernel xview2_tpu/ops/pallas_conv.py::_wgrad_kernel
 # (_conv3x3_wgrad_impl), which adds into one resident (9C, Co) output over a
-# sequential grid.  Bound on the card: bytes (x and g read once).  Here the
-# pixels are split over blocks that keep their part of dW in registers and
-# add it into the zeroed output with float32 atomics, so dW is reproducible
-# only up to the float32 order of those sums (held at 1e-3 of max |dW|).
+# sequential grid.  Bound on the card: bytes (x and g read once).  In bf16
+# persistent blocks, one per SM, walk bands of row pairs with x and g rows
+# staged once per band through a cp.async ring, keep their part of dW in
+# mma.sync accumulators, and each write a partial to its own slot of a
+# workspace; a second kernel adds the slots in a fixed order.  No atomics: for a
+# given card dW is bit-equal between runs (it differs from the plain version
+# by the f32 order of the sums, held at 1e-3 of max |dW|).  In float32: FMA
+# accumulators added into the zeroed output with atomics (sum-order noise).
+_WGRAD_ARGS = (_PTR,) * 4 + (_INT,) * 7 + (_PTR,)
+_SMS = {}
+
+
+def _sm_count(index: int) -> int:
+    n = _SMS.get(index)
+    if n is None:
+        n = _SMS[index] = torch.cuda.get_device_properties(index).multi_processor_count
+    return n
+
+
 def small_conv_wgrad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """The dW kernel on CUDA tensors: x (B, H, W, C), g (B, H, W, Co) ->
     float32 (9C, Co)."""
@@ -119,11 +134,14 @@ def small_conv_wgrad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     _check("small_conv_wgrad", x, co)
     _check("small_conv_wgrad (g)", g, x.shape[3])
     b, h, w, c = x.shape
-    out = torch.zeros((9 * c, co), dtype=torch.float32, device=x.device)
-    fn = cuda_build.function("small_conv", "small_conv_wgrad", (
-        _PTR, _PTR, _PTR, _INT, _INT, _INT, _INT, _INT, _INT, _PTR))
-    err = fn(x.data_ptr(), g.data_ptr(), out.data_ptr(), b, h, w, c, co, _DTYPE_CODE[x.dtype],
-             _stream(x))
+    out = torch.empty((9 * c, co), dtype=torch.float32, device=x.device)
+    ws, slots = None, 0
+    if x.dtype == torch.bfloat16:  # one partial dW per block, at most one block per SM
+        slots = _sm_count(x.get_device())
+        ws = torch.empty((slots, 9 * c, co), dtype=torch.float32, device=x.device)
+    err = cuda_build.function("small_conv", "small_conv_wgrad", _WGRAD_ARGS)(
+        x.data_ptr(), g.data_ptr(), out.data_ptr(), None if ws is None else ws.data_ptr(), b, h,
+        w, c, co, _DTYPE_CODE[x.dtype], slots, _stream(x))
     small_conv_wgrad.launches += 1
     cuda_build.check(err, "small_conv_wgrad")
     return out
