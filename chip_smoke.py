@@ -45,7 +45,20 @@ Phases, each of which fails the script (non-zero exit, no result line):
    just before and read just after (K6 and K1-K5); the AutoAugment chain on
    the card against the CPU on the same draws at full size; then the
    AutoAugment train step's steady state beside the plain-augmentation step;
-8. one JSON line listing every kernel, then the ``nvidia-smi`` line, then
+8. the damage path, the README's pipeline at the CLI's defaults (ResNeSt-200
+   at full width and depth, torch's initializers): A, ``main([--exec_mode
+   train --type pre --fused_tail 1 ...])`` at batch 16; B, ``main([...
+   --type post --dmg_model siamese --ckpt_pre <A's best> --loss_str
+   ohem+dice ...])`` at batch 8 (K2, K4 and K5 twice per step, once per
+   branch), its transplant watched (every ``unet.enc_l*`` tensor equal to
+   A's); B's eval CLI with TTA and its (4, 1024, 1024) float32 damage dumps
+   (classes summing to 1 within 1e-3); each with the counters from 0.  Then
+   A's and B's train and eval steps by CUDA events with peak memory (A with
+   the fused and the stock tail), and B's float32 eval and train steps on
+   the card against the CPU (ResNeSt-50 Siamese, small).  Phase 3 also holds
+   K1 at n = 4 and K3 at the Siamese head's C = 256, Co = 16 against their
+   plain versions;
+9. one JSON line listing every kernel, then the ``nvidia-smi`` line, then
    ``{"ok": true, "device": {...}}`` as the last line.
 """
 
@@ -69,6 +82,8 @@ TRAIN_TILES = 32   # two steps at batch 16
 TRAIN_BATCH = 16
 TRAIN_VAL_TILES = 4
 CROP = 512
+DMG_A_BATCH = 16   # configuration A: ResNeSt-200 UNetLoc, the CLI's defaults
+DMG_BATCH = 8      # configuration B: ResNeSt-200 Siamese, BASELINE's batch for the pair
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # dense tensor core bf16; f32 without TF32
 
@@ -697,10 +712,9 @@ def head_case(shape, co, seed):
 
 
 def _compare_head(x, kmat, hbias, fold, tag):
-    """Two bf16 roundings, after the GEMM (at the GEMM's magnitude, which the
-    bias may cancel) and after the bias: up to one ulp of each apart, plus
-    1e-3 of max|out|.  Returns (max abs err, max rel err of max(|gemm|,
-    |out|), the kernel variant)."""
+    """K3 against its plain version, which rounds to bf16 where the kernel
+    does (after the GEMM, then after the bias): the two must be EQUAL.
+    Returns (max abs err, the kernel variant)."""
     import torch
 
     from xview2_tpu_torch.ops import packed_fused_conv as pfc
@@ -708,46 +722,49 @@ def _compare_head(x, kmat, hbias, fold, tag):
     b, h, w, c = x.shape
     co = kmat.shape[1]
     variant = pfc.kernel_variant("head_conv_fused", h, w, c, co, x.dtype)
-    got = pfc.head_conv_fused(x, kmat, hbias, fold).float()
-    want = pfc.reference_head(x, kmat, hbias, fold).float()
-    gemm = torch.matmul(pfc.prologue(x, fold), kmat.to(x.dtype)).float()
+    got = pfc.head_conv_fused(x, kmat, hbias, fold)
+    want = pfc.reference_head(x, kmat, hbias, fold)
     torch.cuda.synchronize()
-    err = (got - want).abs()
-    scale = want.abs().max().item()
-    tol = 2 * torch.finfo(x.dtype).eps * (gemm.abs() + want.abs()) + 1e-3 * scale
-    if not bool((err <= tol).all()):
-        raise AssertionError(f"K3 head {tag} {(b, h, w, c)}->{co} [{variant}] disagrees: max abs "
-                             f"err {err.max().item():.4g}")
-    rel = (err / torch.maximum(gemm.abs(), want.abs()).clamp_min(1e-3 * scale)).max().item()
-    return err.max().item(), rel, variant
+    err = (got.float() - want.float()).abs().max().item()
+    if not torch.equal(got, want):
+        raise AssertionError(f"K3 head {tag} {(b, h, w, c)}->{co} [{variant}] is not bit-equal to "
+                             f"the plain version: max abs err {err:.4g}")
+    return err, variant
 
 
-def check_head_conv_fused():
+def check_head_conv_fused(c: int = 128, cos=(16, 8), train_batch: int = TRAIN_BATCH,
+                          pre: str = ""):
     """K3 at the eval shape (the packed dec_l5 map of 16 images of 1024^2)
-    and the train shape (batch 16 of 512^2 crops), Co = 8 (the path) and 16,
-    and at a ragged pixel count, against the plain version; the path shapes
-    must take the mma.sync kernel.  Timed at Co = 8 beside the plain version,
-    ``torch.matmul`` of the activated map and the bound by CUDA events, as
-    every kernel is; the kernel and ``matmul`` also by the device time of the
-    kernels a call launches (``device_ms``: at the train shape the wrapper's
-    host time is of the kernel's order)."""
+    and the train shape (``train_batch`` 512^2 crops), at each Co of
+    ``cos`` (the path's last), and at a ragged pixel count, bit-equal to the
+    plain version; the path shapes must take the mma.sync kernel.  Timed at
+    the path's Co beside the plain version, ``torch.matmul`` of the
+    activated map and the bound by CUDA events, as every kernel is; the
+    kernel and ``matmul`` also by the device time of the kernels a call
+    launches (``device_ms``: at the train shape the wrapper's host time is
+    of the kernel's order).  C = 128, Co = 8:
+    the localization head; C = 256, Co = 16 (``pre="dmg_"``): the Siamese
+    head, two packed branches of 128.  Returns the row, keys prefixed with
+    ``pre`` (and ``train_`` at the train shape)."""
     import torch
 
     from xview2_tpu_torch.ops import packed_fused_conv as pfc
 
-    c = 128
-    row = {}
-    for tag, shape in (("eval", (16, 512, 512, c)), ("train", (16, CROP // 2, CROP // 2, c))):
-        for co in (16, 8):  # the path's Co = 8 last: its tensors are timed below
-            x, kmat, hbias, fold = head_case(shape, co, seed=40)
-            err, rel, variant = _compare_head(x, kmat, hbias, fold, tag)
-            row["max_abs_err"] = max(row.get("max_abs_err", 0.0), err)
-            log(f"K3 head {tag} {shape}->{co} bf16 [{variant}]: max abs err {err:.4g}, max rel "
-                f"err {rel:.4g} (of max(|gemm|, |out|)), tolerance 2*eps*(|gemm| + |out|) + "
-                f"1e-3*max|out|")
+    row = {f"{pre}max_abs_err": 0.0}
+    for tag, shape in (("eval", (16, 512, 512, c)),
+                       ("train", (train_batch, CROP // 2, CROP // 2, c)),
+                       ("ragged", (1, 37, 53, c))):
+        for co in cos:  # the path's Co last: its tensors are timed below
+            x, kmat, hbias, fold = head_case(shape, co, seed=40 if tag != "ragged" else 41)
+            err, variant = _compare_head(x, kmat, hbias, fold, tag)
+            row[f"{pre}max_abs_err"] = max(row[f"{pre}max_abs_err"], err)
+            log(f"K3 head {tag} {shape}->{co} bf16 [{variant}]: bit-equal to the plain version")
             if "mma.sync" not in variant:
                 raise AssertionError(f"K3 head {tag} {shape}->{co}: the path shape took "
                                      f"'{variant}'")
+        row[f"{pre}variant"] = variant
+        if tag == "ragged":
+            continue
         a = pfc.prologue(x, fold)
         kb = kmat.to(torch.bfloat16)
         ms = cuda_ms(lambda: pfc.head_conv_fused(x, kmat, hbias, fold), 10)
@@ -762,22 +779,57 @@ def check_head_conv_fused():
             f"({nbytes / ms / 1e9:.3f} TB/s), plain {plain:.3f} ms, library (matmul) {lib:.4f} "
             f"ms, bound {bnd:.4f} ms ({by}); device time of every kernel of a call (profiler): "
             f"kernel {dev:.4f} ms, library (matmul) {lib_dev:.4f} ms")
-        pre = "" if tag == "eval" else "train_"
-        row.update({f"{pre}ms": ms, f"{pre}plain_ms": plain, f"{pre}library_ms": lib,
-                    f"{pre}bound_ms": bnd, f"{pre}device_ms": dev,
-                    f"{pre}library_device_ms": lib_dev})
+        key = pre if tag == "eval" else f"{pre}train_"
+        row.update({f"{key}ms": ms, f"{key}plain_ms": plain, f"{key}library_ms": lib,
+                    f"{key}bound_ms": bnd, f"{key}device_ms": dev,
+                    f"{key}library_device_ms": lib_dev})
         if tag == "eval":
-            row["bound_by"] = by
+            row[f"{pre}bound_by"] = by
         del x, a
         torch.cuda.empty_cache()
-    # a ragged pixel count: the last tile holds 41 of 128 pixels
-    for co in (8, 16):
-        x, kmat, hbias, fold = head_case((1, 37, 53, c), co, seed=41)
-        err, rel, variant = _compare_head(x, kmat, hbias, fold, "ragged")
-        row["max_abs_err"] = max(row["max_abs_err"], err)
-        log(f"K3 head ragged (1, 37, 53, {c})->{co} bf16 [{variant}]: max abs err {err:.4g}, "
-            f"max rel err {rel:.4g}")
     return row
+
+
+def check_relayout_damage():
+    """K1 at the damage task's n = 4: the eval step's logits (VAL_BATCH,
+    1024, 1024, 4) f32, and the train step's three launches (labels
+    (DMG_BATCH, 256, 1024) int32, logits and cotangent (DMG_BATCH, 256,
+    1024, 4) bf16), bit-exact on the contiguous tensor and a transposed view,
+    timed by CUDA events beside the plain version, ``clone`` and the bound.
+    Returns the row with ``dmg_`` keys (``dmg_train_`` per train step)."""
+    import torch
+
+    from xview2_tpu_torch.ops import layout
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    k1 = {"dmg_max_abs_err": 0.0}
+    logits = torch.randn((VAL_BATCH, TILE, TILE, 4), generator=gen, device="cuda")
+    lab = torch.randint(0, 5, (DMG_BATCH, CROP // 2, 2 * CROP), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    tlog = torch.randn((DMG_BATCH, CROP // 2, 2 * CROP, 4), generator=gen,
+                       device="cuda").to(torch.bfloat16)
+    for tag, tensors in (("eval", ((logits, 1),)), ("train", ((lab, 1), (tlog, 2)))):
+        row = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
+        for x, count in tensors:
+            for v in (x, x.transpose(1, 2)):
+                got = layout.relayout_cuda(v)
+                torch.cuda.synchronize()
+                if not (got.is_contiguous() and torch.equal(got, v)):
+                    raise AssertionError(f"K1 at n = 4 {tuple(v.shape)} {v.dtype}: not a "
+                                         "bit-exact contiguous copy")
+            row["ms"] += count * cuda_ms(lambda: layout.relayout_cuda(x), 20)
+            row["plain_ms"] += count * cuda_ms(lambda: layout.relayout_reference(x), 20)
+            row["library_ms"] += count * cuda_ms(lambda: x.clone(), 20)
+            row["bound_ms"] += count * bound_ms(2 * x.numel() * x.element_size(), 0.0,
+                                                "float32")[0]
+        shapes = ", ".join(f"{tuple(x.shape)} {str(x.dtype).split('.')[-1]}" for x, _ in tensors)
+        log(f"K1 relayout damage {tag} ({shapes}; {sum(c for _, c in tensors)} launches): "
+            f"bit-exact on the contiguous tensor and a transposed view; kernel {row['ms']:.4f} "
+            f"ms, plain {row['plain_ms']:.4f} ms, library (clone) {row['library_ms']:.4f} ms, "
+            f"bound {row['bound_ms']:.4f} ms (bytes)")
+        key = "dmg_" if tag == "eval" else "dmg_train_"
+        k1.update({key + k: v for k, v in row.items()})
+    return k1
 
 
 # K6 shapes of the --autoaugment train path: a shear of 512^2 crops, and the
@@ -1047,10 +1099,11 @@ def check_small_conv():
 
 # --------------------------------------------------------------- main path
 
-def seeded_model(cfg, seed: int):
+def seeded_model(cfg, seed: int, kernel_scale: float = 2.2):
     """The port's model with random weights from ``seed``: torch's default
-    conv init scaled so activations stay O(1), and BN statistics and affines
-    drawn away from the identity so the folds do real work."""
+    conv init scaled by ``kernel_scale`` so activations stay O(1) (1.9 for
+    the 66 blocks of ResNeSt-200), and BN statistics and affines drawn away
+    from the identity so the folds do real work."""
     import torch
 
     from xview2_tpu_torch.models.unet import build_model
@@ -1067,7 +1120,7 @@ def seeded_model(cfg, seed: int):
             elif name.endswith("weight") and t.dim() == 1:
                 t.copy_(torch.rand(t.shape, generator=gen) + 0.5)
             elif name.endswith("weight"):
-                t.mul_(2.2)
+                t.mul_(kernel_scale)
     return model
 
 
@@ -1096,15 +1149,55 @@ def _need_launches(launches: dict, need: dict, path: str) -> None:
                                  f"expected >= {n}")
 
 
+def _time_eval_step(cfg, model, channels: int, profile: bool, tag: str) -> dict:
+    """Steady state of the eval step of ``cfg`` (4-flip TTA) on a
+    device-resident batch of VAL_BATCH raw tiles: CUDA events over 3 steps
+    after 1 warm-up, and peak memory.  Returns the numbers and the logits."""
+    import numpy as np
+    import torch
+
+    from xview2_tpu_torch.ops.metrics import init_f1_state
+    from xview2_tpu_torch.parallel.steps import make_eval_step
+
+    rng = np.random.default_rng(3)
+    images = torch.from_numpy(rng.integers(0, 256, (VAL_BATCH, TILE, TILE, channels),
+                                           np.uint8)).cuda()
+    masks = torch.from_numpy(((rng.random((VAL_BATCH, TILE, TILE)) > 0.9)
+                              * rng.integers(1, 5 if channels == 6 else 2,
+                                             (VAL_BATCH, TILE, TILE))).astype(np.uint8)).cuda()
+    valid = torch.ones(VAL_BATCH, device="cuda")
+    step = make_eval_step(cfg, model, device="cuda")
+    f1 = init_f1_state(cfg.n_metric_class, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = cuda_ms(lambda: step(f1, images, masks, valid), 3)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    logits = step(f1, images, masks, valid)[2].float()
+    log(f"eval step ({tag}, batch {VAL_BATCH} x 4 TTA of {TILE}^2, bf16): {ms:.2f} ms = "
+        f"{VAL_BATCH / ms * 1e3:.3f} tiles/s, peak memory {peak:.2f} GiB")
+    if profile:
+        profile_step(lambda: step(f1, images, masks, valid), f"eval step, {tag}")
+    return {"ms": ms, "tiles_per_s": VAL_BATCH / ms * 1e3, "peak_gib": peak}, logits
+
+
+def _check_fused_vs_stock(outs: dict, tag: str) -> None:
+    ref, got = outs[False], outs[True]
+    diff = (got - ref).abs().max().item()
+    scale = ref.abs().max().item()
+    agree = (got.argmax(-1) == ref.argmax(-1)).float().mean().item()
+    log(f"{tag} fused vs stock logits: max abs diff {diff:.4g}, max |logit| {scale:.4g}, "
+        f"argmax agreement {agree:.5f} (tolerance: diff <= 0.05*max|logit|, agreement >= 0.99)")
+    if not (math.isfinite(diff) and diff <= 0.05 * scale and agree >= 0.99):
+        raise AssertionError(f"{tag}: fused and stock eval paths disagree")
+
+
 def run_eval_path(work: str, profile: bool):
     import torch
 
     from xview2_tpu_torch.config import Config
     from xview2_tpu_torch.data.synthetic import make_synthetic_split
     from xview2_tpu_torch.main import main as port_main
-    from xview2_tpu_torch.ops.metrics import init_f1_state
     from xview2_tpu_torch.parallel import checkpoint as ckpt_lib
-    from xview2_tpu_torch.parallel.steps import make_eval_step
     from xview2_tpu_torch.weights import to_flax
 
     t0 = time.perf_counter()
@@ -1158,45 +1251,23 @@ def run_eval_path(work: str, profile: bool):
 
     # steady state of the eval step on a device-resident batch, and the fused
     # path against the stock (cuDNN) path on the same batch
-    rng = np.random.default_rng(3)
-    images = torch.from_numpy(rng.integers(0, 256, (VAL_BATCH, TILE, TILE, 3), np.uint8)).cuda()
-    masks = torch.from_numpy((rng.random((VAL_BATCH, TILE, TILE)) > 0.9).astype(np.uint8)).cuda()
-    valid = torch.ones(VAL_BATCH, device="cuda")
     model = model.cuda()
     outs = {}
     for fused in (False, True):
-        step = make_eval_step(cfg.replace(fused_tail=fused), model, device="cuda")
-        f1 = init_f1_state(2, device="cuda")
-        torch.cuda.reset_peak_memory_stats()
-        ms = cuda_ms(lambda: step(f1, images, masks, valid), 3)
-        peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        outs[fused] = step(f1, images, masks, valid)[2].float()
-        log(f"eval step ({'fused tail' if fused else 'stock tail'}, batch {VAL_BATCH} x 4 TTA "
-            f"of {TILE}^2, bf16): {ms:.2f} ms = {VAL_BATCH / ms * 1e3:.3f} tiles/s, peak "
-            f"memory {peak:.2f} GiB")
-    ref, got = outs[False], outs[True]
-    diff = (got - ref).abs().max().item()
-    scale = ref.abs().max().item()
-    agree = (got.argmax(-1) == ref.argmax(-1)).float().mean().item()
-    log(f"fused vs stock logits: max abs diff {diff:.4g}, max |logit| {scale:.4g}, argmax "
-        f"agreement {agree:.5f} (tolerance: diff <= 0.05*max|logit|, agreement >= 0.99)")
-    if not (math.isfinite(diff) and diff <= 0.05 * scale and agree >= 0.99):
-        raise AssertionError("fused and stock eval paths disagree")
+        _, outs[fused] = _time_eval_step(cfg.replace(fused_tail=fused), model, 3, profile,
+                                         "fused tail" if fused else "stock tail")
+    _check_fused_vs_stock(outs, "eval step")
     check_f32_against_cpu()
-
-    if profile:
-        for fused in (False, True):
-            step = make_eval_step(cfg.replace(fused_tail=fused), model, device="cuda")
-            f1 = init_f1_state(2, device="cuda")
-            profile_step(lambda: step(f1, images, masks, valid),
-                         f"eval step, {'fused' if fused else 'stock'} tail")
     return launches
 
 
-def _drive_train_cli(work: str, results_name: str, extra_argv, need_total: dict, tag: str):
+def _drive_train_cli(work: str, results_name: str, extra_argv, need_total: dict, tag: str,
+                     batch: int = TRAIN_BATCH, need_per_step: dict = None):
     """``main([--exec_mode train ...])`` on the synthetic train split with the
     launch counters set to 0 just before and read just after; then its log
-    and both checkpoints are checked.  Returns the launch counts."""
+    and both checkpoints are checked.  ``extra_argv`` follows the common
+    flags (``--type pre``, the CLI's default encoder unless it names one).
+    Returns the launch counts."""
     import torch
 
     from xview2_tpu_torch.main import main as port_main
@@ -1205,12 +1276,13 @@ def _drive_train_cli(work: str, results_name: str, extra_argv, need_total: dict,
     from xview2_tpu_torch.weights import from_flax
 
     results = os.path.join(work, results_name)
-    argv = ["--exec_mode", "train", "--type", "pre", "--encoder", "resnet50", "--fused_tail",
-            "1", "--batch_size", str(TRAIN_BATCH), "--epochs", "1", "--val_batch_size",
+    argv = ["--exec_mode", "train", "--type", "pre", "--fused_tail",
+            "1", "--batch_size", str(batch), "--epochs", "1", "--val_batch_size",
             str(VAL_BATCH), "--num_workers", "8", "--data", work, "--results", results]
     argv += list(extra_argv)
     _zero_counters()
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     rc = port_main(argv, device="cuda")
     torch.cuda.synchronize()
@@ -1218,12 +1290,14 @@ def _drive_train_cli(work: str, results_name: str, extra_argv, need_total: dict,
     launches = _read_counters()
     if rc != 0:
         raise AssertionError(f"main returned {rc}")
-    steps = TRAIN_TILES // TRAIN_BATCH
+    steps = TRAIN_TILES // batch
     log(f"{tag} main path: main(--exec_mode train {' '.join(extra_argv)}, {TRAIN_TILES} tiles = "
-        f"{steps} steps at batch {TRAIN_BATCH} of {CROP}^2 crops, validation on "
+        f"{steps} steps at batch {batch} of {CROP}^2 crops, validation on "
         f"{TRAIN_VAL_TILES} tiles, best and last checkpoints) {wall:.2f} s end to end (index "
-        f"build, model build and PNG decode included); launches {launches}")
-    _need_launches(launches, dict({k: n * steps for k, n in TRAIN_NEED.items()}, **need_total),
+        f"build, model build and PNG decode included); peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; launches {launches}")
+    per_step = TRAIN_NEED if need_per_step is None else need_per_step
+    _need_launches(launches, dict({k: n * steps for k, n in per_step.items()}, **need_total),
                    tag)
     with open(os.path.join(results, "logs.json")) as f:
         metrics = json.loads(f.readlines()[-1])["data"]
@@ -1258,20 +1332,23 @@ TRAIN_NEED = {"relayout_cuda": 3, "conv_bn_fused": 6, "head_conv_fused": 1, "con
               "conv_bn_dgrad": 6}   # launches per train step
 
 
-def _raw_train_batch():
-    """A device-resident batch of raw tiles for the steady-state timings."""
+def _raw_train_batch(batch: int = TRAIN_BATCH, channels: int = 3):
+    """A device-resident batch of raw tiles (pre/post pairs with damage
+    labels 1..4 on 10% of the pixels for 6 channels) for the steady-state
+    timings."""
     import numpy as np
     import torch
 
     rng = np.random.default_rng(13)
-    images = torch.from_numpy(
-        rng.integers(0, 256, (TRAIN_BATCH, TILE, TILE, 3), np.uint8)).cuda()
-    masks = torch.from_numpy((rng.random((TRAIN_BATCH, TILE, TILE)) > 0.9)
-                             .astype(np.uint8)).cuda()
-    return images, masks
+    images = torch.from_numpy(rng.integers(0, 256, (batch, TILE, TILE, channels), np.uint8))
+    fg = rng.random((batch, TILE, TILE)) > 0.9
+    labels = rng.integers(1, 5, fg.shape) if channels == 6 else 1
+    masks = torch.from_numpy((fg * labels).astype(np.uint8))
+    return images.cuda(), masks.cuda()
 
 
-def _time_train_step(cfg, images, masks, profile: bool, tag: str) -> None:
+def _time_train_step(cfg, images, masks, profile: bool, tag: str,
+                     kernel_scale: float = 2.2) -> dict:
     """Steady state of the train step of ``cfg`` on a device-resident batch:
     CUDA events over 3 steps after 1 warm-up, peak memory, launch counts."""
     import torch
@@ -1280,7 +1357,7 @@ def _time_train_step(cfg, images, masks, profile: bool, tag: str) -> None:
                                                  step_generator)
     from xview2_tpu_torch.train.optimizers import build_optimizer
 
-    model = seeded_model(cfg, seed=0)
+    model = seeded_model(cfg, seed=0, kernel_scale=kernel_scale)
     opt = build_optimizer(cfg, model.parameters(), cfg.lr)
     state = init_train_state(model, opt, device="cuda")
     step = make_train_step(cfg, model, opt, crop=CROP, device="cuda")
@@ -1296,14 +1373,16 @@ def _time_train_step(cfg, images, masks, profile: bool, tag: str) -> None:
     vals = [float(v) for v in losses]
     if not all(math.isfinite(v) for v in vals):
         raise AssertionError(f"train step losses are not finite: {vals}")
-    log(f"train step ({tag}, batch {TRAIN_BATCH} raw {TILE}^2 tiles -> {CROP}^2 crops, bf16, "
-        f"AdamW): {ms:.2f} ms = {TRAIN_BATCH / ms * 1e3:.3f} tiles/s, peak memory {peak:.2f} "
+    b = images.shape[0]
+    log(f"train step ({tag}, batch {b} raw {TILE}^2 tiles -> {CROP}^2 crops, bf16, "
+        f"AdamW): {ms:.2f} ms = {b / ms * 1e3:.3f} tiles/s, peak memory {peak:.2f} "
         f"GiB, losses {[round(v, 4) for v in vals]}, launches over 4 steps "
         f"{ {k: v for k, v in _read_counters().items() if v} }")
     if profile:
         profile_step(one_step, f"train step, {tag}")
     del model, opt, state, step
     torch.cuda.empty_cache()
+    return {"ms": ms, "tiles_per_s": b / ms * 1e3, "peak_gib": peak}
 
 
 def run_train_path(work: str, profile: bool):
@@ -1317,7 +1396,7 @@ def run_train_path(work: str, profile: bool):
     make_synthetic_split(work, "test", TRAIN_VAL_TILES, size=TILE, seed=12)
     log(f"train path setup (train split of {TRAIN_TILES} tiles and validation split of "
         f"{TRAIN_VAL_TILES} tiles of {TILE}^2): {time.perf_counter() - t0:.1f} s")
-    launches = _drive_train_cli(work, "train_results", [], {}, "train")
+    launches = _drive_train_cli(work, "train_results", ["--encoder", "resnet50"], {}, "train")
 
     images, masks = _raw_train_batch()
     base = Config(type="pre", encoder="resnet50", precision=16, loss_str="focal+dice",
@@ -1375,6 +1454,159 @@ def run_small_conv_path():
     return launches
 
 
+DMG_NEED = {"relayout_cuda": 3, "conv_bn_fused": 12, "head_conv_fused": 1, "conv_bn_wgrad": 12,
+            "conv_bn_dgrad": 12}   # launches per Siamese train step: the tail runs per branch
+
+
+def run_damage_path(work: str, profile: bool):
+    """The README's pipeline at the CLI's defaults (ResNeSt-200, full width
+    and depth, torch's initializers from --seed): A, ``main([--exec_mode
+    train --type pre --fused_tail 1])`` at batch DMG_A_BATCH; B, ``main([...
+    --type post --dmg_model siamese --ckpt_pre <A's best> --loss_str
+    ohem+dice --fused_tail 1])`` at batch DMG_BATCH; then ``main([--exec_mode
+    eval --type post --ckpt <B's best> --eval_tta on])``, each with the
+    counters set to 0 just before and read just after, on the splits of the
+    earlier paths.  B's transplant is watched: every ``unet.enc_l*`` tensor it
+    wrote must equal A's checkpoint.  The damage dumps must be (4, 1024,
+    1024) float32 class probabilities.  Then the steady state of A's and B's
+    train and eval steps (A with the fused and the stock tail), and B's
+    float32 eval and train steps on the card against the CPU (ResNeSt-50
+    Siamese, small).  Returns {path: launch counts}."""
+    import numpy as np
+    import torch
+
+    from xview2_tpu_torch.config import Config
+    from xview2_tpu_torch.main import main as port_main
+    from xview2_tpu_torch.parallel import checkpoint as ckpt_lib
+    from xview2_tpu_torch.train import trainer
+    from xview2_tpu_torch.weights import from_flax
+
+    from xview2_tpu_torch.data.synthetic import make_synthetic_split
+
+    # the splits of the eval and train paths (written here when they did not run)
+    for split, n, seed in (("holdout", N_TILES, 7), ("train", TRAIN_TILES, 11),
+                           ("test", TRAIN_VAL_TILES, 12)):
+        if not os.path.isdir(os.path.join(work, split)):
+            make_synthetic_split(work, split, n, size=TILE, seed=seed)
+    launches = {}
+    res_a, res_b = os.path.join(work, "dmg_a"), os.path.join(work, "dmg_b")
+    launches["A train"] = _drive_train_cli(work, "dmg_a", [], {}, "A (ResNeSt-200 UNetLoc) train",
+                                           batch=DMG_A_BATCH)
+    torch.cuda.empty_cache()
+    a_best = os.path.join(res_a, "checkpoints", "best")
+    payload, _ = ckpt_lib.restore_raw(a_best)
+    loc = from_flax(payload["params"], payload["batch_stats"])
+    shutil.rmtree(os.path.join(res_a, "checkpoints", "last"))
+
+    seen = {}
+    real_transplant = trainer.transplant_encoder
+
+    def watched(dmg_model, model, loc_state):
+        copied = real_transplant(dmg_model, model, loc_state)
+        seen["copied"] = copied
+        seen["state"] = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()
+                         if k.startswith("unet.enc_l")}
+        return copied
+
+    trainer.transplant_encoder = watched
+    try:
+        launches["B train"] = _drive_train_cli(
+            work, "dmg_b", ["--type", "post", "--dmg_model", "siamese", "--ckpt_pre", a_best,
+                            "--loss_str", "ohem+dice"],
+            {}, "B (ResNeSt-200 Siamese, --ckpt_pre A) train", batch=DMG_BATCH,
+            need_per_step=DMG_NEED)
+    finally:
+        trainer.transplant_encoder = real_transplant
+    torch.cuda.empty_cache()
+    enc = sorted(seen.get("state", {}))
+    differ = [k for k in enc if not torch.equal(seen["state"][k], loc[k])]
+    log(f"B's --ckpt_pre transplant: {len(seen.get('copied', []))} tensors copied of "
+        f"{len(enc)} unet.enc_l* tensors; {len(differ)} differ from A's best checkpoint")
+    if not enc or sorted(seen["copied"]) != enc or differ:
+        raise AssertionError("the --ckpt_pre transplant did not copy A's encoder whole")
+    del loc, payload, seen
+
+    b_best = os.path.join(res_b, "checkpoints", "best")
+    argv = ["--exec_mode", "eval", "--type", "post", "--data", work, "--results", res_b,
+            "--ckpt", b_best, "--val_batch_size", str(VAL_BATCH), "--num_workers", "8",
+            "--eval_tta", "on"]
+    _zero_counters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rc = port_main(argv, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches["B eval"] = _read_counters()
+    if rc != 0:
+        raise AssertionError(f"main returned {rc}")
+    log(f"B eval main path: main(--exec_mode eval --type post --eval_tta on, {N_TILES} tiles) "
+        f"{wall:.2f} s end to end, peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} "
+        f"GiB; launches {launches['B eval']}")
+    steps = N_TILES // VAL_BATCH
+    _need_launches(launches["B eval"], {"relayout_cuda": steps, "conv_bn_fused": 12 * steps,
+                                        "head_conv_fused": steps}, "B eval")
+    probs = sorted(glob.glob(os.path.join(res_b, "probs", "test_damage_*.npy")))
+    targets = sorted(glob.glob(os.path.join(res_b, "targets", "test_damage_*.png")))
+    if len(probs) != N_TILES or len(targets) != N_TILES:
+        raise AssertionError(f"expected {N_TILES} damage dumps, got {len(probs)} probs and "
+                             f"{len(targets)} targets")
+    worst = 0.0
+    for p in probs:
+        prob = np.load(p)
+        if prob.shape != (4, TILE, TILE) or prob.dtype != np.float32 or \
+                not np.isfinite(prob).all() or prob.min() < 0:
+            raise AssertionError(f"{p}: bad damage probabilities {prob.shape} {prob.dtype}")
+        worst = max(worst, float(np.abs(prob.sum(axis=0) - 1.0).max()))
+    with open(os.path.join(res_b, "logs.json")) as f:
+        metrics = json.loads(f.readlines()[-1])["data"]
+    log(f"B eval outputs: {len(probs)} channel-first (4, {TILE}, {TILE}) float32 dumps, class "
+        f"sums within {worst:.3g} of 1 (tolerance 1e-3), {len(targets)} targets, metrics "
+        f"{metrics}")
+    if worst > 1e-3 or "f1" not in metrics:
+        raise AssertionError("the damage dumps are not class probabilities")
+    shutil.rmtree(os.path.join(res_b, "checkpoints"))
+
+    # steady state of the steps on device-resident batches
+    a_cfg = Config(type="pre", encoder="resnest200", precision=16, loss_str="focal+dice",
+                   batch_size=DMG_A_BATCH, optimizer="adamw")
+    b_cfg = Config(type="post", dmg_model="siamese", encoder="resnest200", precision=16,
+                   loss_str="ohem+dice", batch_size=DMG_BATCH, optimizer="adamw",
+                   fused_tail=True)
+    rows = {}
+    images, masks = _raw_train_batch(DMG_A_BATCH, 3)
+    for fused in (True, False):
+        rows[f"A train {'fused' if fused else 'stock'}"] = _time_train_step(
+            a_cfg.replace(fused_tail=fused), images, masks, profile,
+            f"A ResNeSt-200 UNetLoc, {'fused' if fused else 'stock'} tail", kernel_scale=1.9)
+    del images, masks
+    images, masks = _raw_train_batch(DMG_BATCH, 6)
+    rows["B train fused"] = _time_train_step(b_cfg, images, masks, profile,
+                                             "B ResNeSt-200 Siamese, fused tail",
+                                             kernel_scale=1.9)
+    del images, masks
+    torch.cuda.empty_cache()
+    for tag, cfg in (("A", a_cfg.replace(tta=True)), ("B", b_cfg.replace(tta=True))):
+        model = seeded_model(cfg, seed=0, kernel_scale=1.9).cuda()
+        outs = {}
+        for fused in ((True, False) if tag == "A" else (True,)):
+            rows[f"{tag} eval {'fused' if fused else 'stock'}"], outs[fused] = _time_eval_step(
+                cfg.replace(fused_tail=fused), model, cfg.in_channels, profile,
+                f"{tag} ResNeSt-200 {'Siamese' if tag == 'B' else 'UNetLoc'}, "
+                f"{'fused' if fused else 'stock'} tail")
+        if tag == "A":
+            _check_fused_vs_stock(outs, "A eval step")
+        if not bool(torch.isfinite(outs[True]).all()):
+            raise AssertionError(f"{tag} eval step logits are not finite")
+        del model, outs
+        torch.cuda.empty_cache()
+    small = Config(type="post", dmg_model="siamese", encoder="resnest50", loss_str="ohem+dice")
+    check_f32_against_cpu(small, " (B: ResNeSt-50 Siamese)")
+    check_f32_train_step_against_cpu(small.replace(precision=32), b=4, size=128,
+                                     tag=" (B: ResNeSt-50 Siamese)", spread=True)
+    return launches, rows
+
+
 def check_autoaugment_against_cpu() -> None:
     """The --autoaugment chain (crop, AutoAugment, normalize) on the card,
     through K6, against the same chain on the CPU, through the plain
@@ -1421,7 +1653,8 @@ def run_autoaugment_path(work: str, profile: bool):
     step's steady state beside the plain-augmentation step, in turns."""
     from xview2_tpu_torch.config import Config
 
-    launches = _drive_train_cli(work, "autoaugment_results", ["--autoaugment"],
+    launches = _drive_train_cli(work, "autoaugment_results", ["--encoder", "resnet50",
+                                                               "--autoaugment"],
                                 {"row_shift_cuda": 1}, "--autoaugment train")
     check_autoaugment_against_cpu()
     images, masks = _raw_train_batch()
@@ -1433,7 +1666,8 @@ def run_autoaugment_path(work: str, profile: bool):
     return launches
 
 
-def check_f32_train_step_against_cpu() -> None:
+def check_f32_train_step_against_cpu(base=None, b: int = 4, size: int = 256,
+                                     tag: str = "", spread: bool = False) -> None:
     """One small float32 train-mode forward, loss and backward (TF32 off) on
     the card with the fused tail, through the f32 kernels, against the same
     on the CPU through the plain versions, from the same weights and the same
@@ -1446,7 +1680,18 @@ def check_f32_train_step_against_cpu() -> None:
     decoder blocks the kernels run (dec_l2, dec_l3, dec_l5) on its own,
     within 5e-2 in relative L2 norm of the CPU's, and within the same of the
     card's own stock tail; running statistics within 1e-3 of each tensor's
-    scale."""
+    scale.  ``base``: the configuration (default the ResNet-50 UNetLoc), at
+    ``b`` crops of ``size``^2.  ``spread``: each crop (and channel) gets its
+    own contrast and brightness, as real tiles do; the ResNeSt split
+    attention needs it in a float32 train step, where its ``bn1``
+    normalizes the batch's few pooled values: with crops of one
+    distribution those differ by little more than float32 rounding, and
+    the gradients with them.  ``spread`` also logs what separates that
+    conditioning from a fault of the card, on the spread crops and on
+    crops of one distribution: the CPU's own float32 step against itself
+    with the batch reversed (the same sums in another order) and against
+    the float64 step, and the card's float32 step against both CPU
+    steps."""
     import numpy as np
     import torch
 
@@ -1455,19 +1700,25 @@ def check_f32_train_step_against_cpu() -> None:
     from xview2_tpu_torch.ops.losses import make_loss_fn, packed_loss_view_labels
     from xview2_tpu_torch.parallel.steps import forward_loss
 
-    base = Config(type="pre", encoder="resnet50", precision=32)
+    base = Config(type="pre", encoder="resnet50", precision=32) if base is None else base
     apply_precision(base)
     rng = np.random.default_rng(17)
-    x = torch.from_numpy(rng.normal(size=(4, 256, 256, 3)).astype(np.float32))
-    y = packed_loss_view_labels(torch.from_numpy((rng.random((4, 256, 256)) > 0.7)
-                                                 .astype(np.int32)))
+    x = x0 = rng.normal(size=(b, size, size, base.in_channels))
+    if spread:
+        x = x * rng.uniform(0.3, 2.0, (b, 1, 1, base.in_channels)) \
+            + rng.normal(0.0, 1.0, (b, 1, 1, base.in_channels))
+    x, unspread = torch.from_numpy(x.astype(np.float32)), torch.from_numpy(x0.astype(np.float32))
+    hi = 5 if base.type == "post" else 2
+    y = packed_loss_view_labels(torch.from_numpy(
+        (rng.random((b, size, size)) > 0.7) * rng.integers(1, hi, (b, size, size)))
+        .to(torch.int32))
     loss_fn = make_loss_fn(base.loss_str, base.type)
 
-    def run(dev, fused):
-        cfg = base.replace(fused_tail=fused)
-        model = seeded_model(cfg, seed=2).to(dev)
+    def run(dev, fused, x=x, dtype=torch.float32, order=slice(None)):
+        cfg = base.replace(fused_tail=fused, precision=64 if dtype == torch.float64 else 32)
+        model = seeded_model(cfg, seed=2).to(dev, dtype)
         before = pfc.conv_bn_wgrad.launches + pfc.conv_bn_dgrad.launches
-        loss = forward_loss(cfg, model, loss_fn, x.to(dev), y.to(dev))
+        loss = forward_loss(cfg, model, loss_fn, x[order].to(dev, dtype), y[order].to(dev))
         names, params = zip(*model.named_parameters())
         grads = dict(zip(names, (g.cpu() for g in torch.autograd.grad(loss, params))))
         stats = {k: v.cpu() for k, v in model.state_dict().items() if "running" in k}
@@ -1488,7 +1739,8 @@ def check_f32_train_step_against_cpu() -> None:
     card_all = rel_l2(gg, gs, list(gs))
     card_tail = max(rel_l2(gg, gs, [k]) for k in tail)
     stat_err = max(float((sg[k] - sc[k]).abs().max() / sc[k].abs().max()) for k in sc)
-    log(f"f32 train step (4 x 256^2, fused tail), card vs CPU plain path: loss {lg:.6f} vs "
+    log(f"f32 train step{tag} ({b} x {size}^2, fused tail), card vs CPU plain path: loss "
+        f"{lg:.6f} vs "
         f"{lc:.6f}; gradients relative L2 error {err_all:.3g} over all {len(gc)} leaves, worst "
         f"of the {len(tail)} fused-tail leaves {err_tail:.3g} (tolerance 5e-2; the card's stock "
         f"tail, no kernel of the port, is {floor_all:.3g} and {floor_tail:.3g} from the CPU, "
@@ -1497,14 +1749,28 @@ def check_f32_train_step_against_cpu() -> None:
         f"1e-3); {ng} K4+K5 launches on the card, {nc} on the CPU")
     if not (ng > 0 and nc == 0 and abs(lg - lc) <= 1e-4 * abs(lc) and stat_err <= 1e-3
             and max(err_all, err_tail, card_all, card_tail) <= 5e-2):
-        raise AssertionError("float32 train step on the card disagrees with the CPU path")
+        raise AssertionError(f"float32 train step{tag} on the card disagrees with the CPU path")
+    if spread:
+        reverse = torch.arange(b - 1, -1, -1)
+        for name, data, cpu, card in (("spread", x, gc, gg), ("one distribution", unspread,
+                                                             None, None)):
+            cpu = run("cpu", True, data)[1] if cpu is None else cpu
+            card = run("cuda", True, data)[1] if card is None else card
+            cpu_rev = run("cpu", True, data, order=reverse)[1]
+            cpu64 = run("cpu", True, data, torch.float64)[1]
+            log(f"f32 train step{tag}, crops of {name}: gradients relative L2, CPU float32 "
+                f"batch reversed vs CPU float32 {rel_l2(cpu_rev, cpu, list(cpu)):.3g}, CPU "
+                f"float32 vs CPU float64 {rel_l2(cpu, cpu64, list(cpu)):.3g}, card float32 vs "
+                f"CPU float32 {rel_l2(card, cpu, list(cpu)):.3g}, card float32 vs CPU float64 "
+                f"{rel_l2(card, cpu64, list(cpu)):.3g}")
 
 
-def check_f32_against_cpu() -> None:
+def check_f32_against_cpu(cfg=None, tag: str = "") -> None:
     """The whole eval step in float32 on a small input: on the card (fused
     tail through the f32 kernels, TF32 off) against the port's plain path on
     the CPU, at rtol = atol = 2e-4 of the logits' scale (float32 sums in
-    another order through ResNet-50's depth)."""
+    another order through the encoder's depth).  ``cfg``: the configuration
+    (default the ResNet-50 UNetLoc), with TTA and the fused tail on."""
     import numpy as np
     import torch
 
@@ -1513,28 +1779,32 @@ def check_f32_against_cpu() -> None:
     from xview2_tpu_torch.ops.metrics import init_f1_state
     from xview2_tpu_torch.parallel.steps import make_eval_step
 
-    cfg = Config(type="pre", encoder="resnet50", precision=32, tta=True, fused_tail=True)
+    cfg = Config(type="pre", encoder="resnet50") if cfg is None else cfg
+    cfg = cfg.replace(precision=32, tta=True, fused_tail=True)
     apply_precision(cfg)
     model = seeded_model(cfg, seed=1)
     rng = np.random.default_rng(5)
-    data = (rng.integers(0, 256, (2, 64, 64, 3), np.uint8),
-            (rng.random((2, 64, 64)) > 0.8).astype(np.uint8), np.ones(2, np.float32))
-    _, loss_c, logits_c = make_eval_step(cfg, model, device="cpu")(init_f1_state(2), *data)
+    hi = 5 if cfg.type == "post" else 2
+    data = (rng.integers(0, 256, (2, 64, 64, cfg.in_channels), np.uint8),
+            ((rng.random((2, 64, 64)) > 0.8) * rng.integers(1, hi, (2, 64, 64))).astype(np.uint8),
+            np.ones(2, np.float32))
+    nm = cfg.n_metric_class
+    _, loss_c, logits_c = make_eval_step(cfg, model, device="cpu")(init_f1_state(nm), *data)
     before = pfc.conv_bn_fused.launches + pfc.head_conv_fused.launches
     _, loss_g, logits_g = make_eval_step(cfg, model.cuda(), device="cuda")(
-        init_f1_state(2, device="cuda"), *data)
+        init_f1_state(nm, device="cuda"), *data)
     launched = pfc.conv_bn_fused.launches + pfc.head_conv_fused.launches - before
     logits_g = logits_g.cpu()
     scale = max(1.0, logits_c.abs().max().item())
     diff = (logits_g - logits_c).abs().max().item()
     agree = (logits_g.argmax(-1) == logits_c.argmax(-1)).float().mean().item()
-    log(f"f32 eval step (2 x 64^2, TTA, fused tail), card vs CPU plain path: max abs diff "
+    log(f"f32 eval step{tag} (2 x 64^2, TTA, fused tail), card vs CPU plain path: max abs diff "
         f"{diff:.4g}, max |logit| {scale:.4g}, loss {loss_g.item():.6f} vs {loss_c.item():.6f}, "
         f"argmax agreement {agree:.5f}, {launched} fused-kernel launches (tolerance 2e-4 "
         f"* max(1, max|logit|))")
     if not (launched > 0 and diff <= 2e-4 * scale
             and abs(loss_g.item() - loss_c.item()) <= 1e-4 * abs(loss_c.item())):
-        raise AssertionError("float32 eval step on the card disagrees with the CPU path")
+        raise AssertionError(f"float32 eval step{tag} on the card disagrees with the CPU path")
 
 
 # kernel-name fragments -> category of a step's breakdown
@@ -1611,6 +1881,9 @@ def main(argv=None) -> int:
     rows = {"relayout": check_relayout(), "conv_bn_fused": check_conv_bn_fused(),
             "head_conv_fused": check_head_conv_fused()}
     torch.cuda.empty_cache()
+    rows["relayout"].update(check_relayout_damage())
+    rows["head_conv_fused"].update(check_head_conv_fused(256, (8, 16), DMG_BATCH, "dmg_"))
+    torch.cuda.empty_cache()
     rows.update(check_conv_bn_backward())
     check_prologue_bit_equal()
     check_dgrad_epilogue_bit_equal()
@@ -1622,17 +1895,24 @@ def main(argv=None) -> int:
 
     work = os.path.join(ROOT, ".smoke")
     shutil.rmtree(work, ignore_errors=True)
+    launches = {}
     try:
-        eval_launches = run_eval_path(work, args.profile)
+        launches["eval"] = run_eval_path(work, args.profile)
         torch.cuda.empty_cache()
         log(f"eval path done at {time.perf_counter() - t_start:.0f} s")
-        train_launches = run_train_path(work, args.profile)
+        launches["train"] = run_train_path(work, args.profile)
         torch.cuda.empty_cache()
         log(f"train path done at {time.perf_counter() - t_start:.0f} s")
-        small_launches = run_small_conv_path()
+        launches["small"] = run_small_conv_path()
         torch.cuda.empty_cache()
-        aa_launches = run_autoaugment_path(work, args.profile)
+        launches["autoaugment"] = run_autoaugment_path(work, args.profile)
+        torch.cuda.empty_cache()
         log(f"--autoaugment path done at {time.perf_counter() - t_start:.0f} s")
+        dmg_launches, dmg_rows = run_damage_path(work, args.profile)
+        launches["damage"] = {k: sum(d[k] for d in dmg_launches.values())
+                              for k in launches["eval"]}
+        log(f"damage path done at {time.perf_counter() - t_start:.0f} s; steady state "
+            f"{json.dumps(dmg_rows)}")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -1653,9 +1933,11 @@ def main(argv=None) -> int:
         "small_conv_wgrad": ("small_conv_wgrad", src + "small_conv.cu",
                              "xview2_tpu/ops/pallas_conv.py:121"),
     }
-    # launches: the four main paths' runs (eval CLI, train CLI, conv3x3_small,
-    # --autoaugment train CLI), each counted from 0.  ms/plain_ms/library_ms/
-    # bound_ms: K1-K3 per eval step (train_* keys: per train step), K4/K5 per
+    # launches: the five main paths' runs (eval CLI, train CLI, conv3x3_small,
+    # --autoaugment train CLI, and the damage path's A train, B train and B
+    # eval CLIs), each counted from 0; dmg_ keys of K1 and K3: the damage
+    # shapes (K1 at n = 4, K3 at C = 256, Co = 16; dmg_train_: per train
+    # step).  ms/plain_ms/library_ms/bound_ms: K1-K3 per eval step (train_* keys: per train step), K4/K5 per
     # train step, K6 per --autoaugment step with one rotation and one shear
     # group, K7/K8 per launch at (16, 512, 512, 32) -> 32 bf16, all by CUDA
     # events; K1, K3, K6, K7 and K8 add the profiler's device time of a
@@ -1668,12 +1950,12 @@ def main(argv=None) -> int:
     for name, (counter, source, replaces) in meta.items():
         r = rows[name]
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                        "launches": eval_launches[counter] + train_launches[counter]
-                        + small_launches[counter] + aa_launches[counter],
-                        "eval_path_launches": eval_launches[counter],
-                        "train_path_launches": train_launches[counter],
-                        "small_conv_path_launches": small_launches[counter],
-                        "autoaugment_path_launches": aa_launches[counter],
+                        "launches": sum(n[counter] for n in launches.values()),
+                        "eval_path_launches": launches["eval"][counter],
+                        "train_path_launches": launches["train"][counter],
+                        "small_conv_path_launches": launches["small"][counter],
+                        "autoaugment_path_launches": launches["autoaugment"][counter],
+                        "damage_path_launches": launches["damage"][counter],
                         "max_abs_err": r["max_abs_err"],
                         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"],

@@ -12,7 +12,8 @@ Run from the root of a checkout on a machine with the card::
 
 ``dgrad`` times K5 ``conv_bn_dgrad`` (``csrc/fused_conv_bwd.cu``) at the six
 train-path layers, fold on and off; ``head`` times K3 ``head_conv_fused``
-(``csrc/fused_head.cu``) at the eval and train shapes; ``small`` times K7
+(``csrc/fused_head.cu``) at the eval and train shapes, localization (C =
+128, Co = 8) and Siamese (C = 256, Co = 16); ``small`` times K7
 ``small_conv_fwd`` (``csrc/small_conv.cu``) in bf16 at the smoke's shape
 (16, 512, 512, 32) -> 32 and its odd shape (2, 70, 200, 24) -> 40;
 ``relayout`` times K1's flat path ``relayout_flat`` (``csrc/relayout.cu``) on
@@ -167,21 +168,25 @@ def time_head(libs: dict) -> None:
     import chip_smoke as cs
 
     stream = torch.cuda.current_stream().cuda_stream
-    for tag_shape, shape in (("eval", (16, 512, 512, 128)), ("train", (16, 256, 256, 128))):
-        x, kmat, hbias, fold = cs.head_case(shape, 8, seed=40)
+    for tag_shape, shape, co in (("eval", (16, 512, 512, 128), 8),
+                                 ("train", (16, 256, 256, 128), 8),
+                                 ("Siamese eval", (16, 512, 512, 256), 16),
+                                 ("Siamese train", (8, 256, 256, 256), 16)):
+        x, kmat, hbias, fold = cs.head_case(shape, co, seed=40)
         k32 = kmat.to(torch.bfloat16).float().contiguous()
         fmat = torch.stack(fold).float().contiguous()
-        out = {t: torch.empty(shape[:3] + (8,), device="cuda", dtype=torch.bfloat16) for t in libs}
+        out = {t: torch.empty(shape[:3] + (co,), device="cuda", dtype=torch.bfloat16)
+               for t in libs}
         fns = {}
         for tag, lib in libs.items():
             fn = lib.head_conv_fused
             fn.argtypes = [P] * 5 + [ctypes.c_longlong, I, I, I, P]
             args = (x.data_ptr(), k32.data_ptr(), fmat.data_ptr(), hbias.data_ptr(),
-                    out[tag].data_ptr(), x.numel() // shape[3], shape[3], 8, 1, stream)
+                    out[tag].data_ptr(), x.numel() // shape[3], shape[3], co, 1, stream)
             fns[tag] = (lambda fn=fn, args=args: fn(*args))
         times = in_turns(fns, 20)
-        nbytes = x.numel() * 2 + x.numel() // shape[3] * 16
-        log(f"K3 {tag_shape} {shape}->8: "
+        nbytes = x.numel() * 2 + x.numel() // shape[3] * co * 2
+        log(f"K3 {tag_shape} {shape}->{co}: "
             + "; ".join(f"{t} {v[0]:.4f}/{v[1]:.4f} ms ({2 * nbytes / sum(v) / 1e9:.3f} TB/s"
                         f"{'' if torch.equal(out[t], out['kept']) else ', out differs'})"
                         for t, v in times.items()))

@@ -13,6 +13,7 @@ one-hot copies) and 5e-3 with it (the sample position is computed in float32
 in both packages and may differ by an ulp of a coordinate near 100, which
 the cubic weights turn into up to 1e-3 of 255)."""
 
+import dataclasses
 import functools
 
 import jax
@@ -50,12 +51,22 @@ def jax_draws(key, mask, crop):
         beta=jax.random.uniform(kb_b, (), minval=-0.2, maxval=0.2))
 
 
-def _stack(draws):
+def _arrays(draws):
     fields = {}
     for name in draws[0]:
         arr = np.stack([np.asarray(d[name]) for d in draws])
         fields[name] = torch.from_numpy(arr.astype(np.int64) if arr.dtype.kind == "i" else arr)
-    return taug.AugmentDraws(**fields)
+    return fields
+
+
+def _stack(draws, post=None):
+    """``AugmentDraws`` from per-sample ``jax_draws`` and, for a 6-channel
+    pair, the post half's per-sample intensity draws."""
+    fields = _arrays(draws)
+    pre = taug.IntensityDraws(**{f.name: fields.pop(f.name)
+                                 for f in dataclasses.fields(taug.IntensityDraws)})
+    return taug.AugmentDraws(**fields, pre=pre,
+                             post=None if post is None else taug.IntensityDraws(**_arrays(post)))
 
 
 def _tile(rng, mask_kind):
@@ -126,7 +137,7 @@ def test_apply_matches_jax_augment_sample(batch, i):
 def test_cases_cover_what_they_claim(batch):
     d, (_, y), _ = batch
     assert d.do_zoom.any() and (~d.do_zoom).any() and d.flip_h.any() and d.flip_v.any()
-    assert d.noise_do.any() and d.bc_do.any()
+    assert d.pre.noise_do.any() and d.pre.bc_do.any()
     assert int(d.pix_y[5]) == 1 and int(d.pix_x[5]) == 2       # window clipped at 0
     assert int(d.pix_y[6]) == SIZE - 1                         # clipped at the far edge
     assert y[5].sum() > 0 and y[6].sum() > 0                   # the pixel is inside the crop
@@ -157,13 +168,14 @@ def test_draws_come_from_the_generator_alone():
     a = taug.draw_augment(torch.Generator().manual_seed(5), masks, CROP)
     b = taug.draw_augment(torch.Generator().manual_seed(5), masks, CROP)
     c = taug.draw_augment(torch.Generator().manual_seed(6), masks, CROP)
-    for name in ("zoom_u", "pix_y", "off_x", "noise", "alpha"):
+    for name in ("zoom_u", "pix_y", "off_x"):
         assert torch.equal(getattr(a, name), getattr(b, name))
-    assert not torch.equal(a.noise, c.noise)
+    assert torch.equal(a.pre.noise, b.pre.noise) and torch.equal(a.pre.alpha, b.pre.alpha)
+    assert not torch.equal(a.pre.noise, c.pre.noise)
     assert 10 <= int(a.pix_y[0]) < 20 and 30 <= int(a.pix_x[0]) < 40   # a non-zero pixel
     assert (int(a.pix_y[1]), int(a.pix_x[1])) == (5, 7)
-    assert a.noise.shape == (3, CROP, CROP, 3) and a.off_y.max() < CROP
-    assert bool(((a.alpha >= 0.8) & (a.alpha < 1.2)).all())
+    assert a.pre.noise.shape == (3, CROP, CROP, 3) and a.off_y.max() < CROP
+    assert a.post is None and bool(((a.pre.alpha >= 0.8) & (a.pre.alpha < 1.2)).all())
     x, y = taug.augment_batch(torch.Generator().manual_seed(5), torch.zeros(
         (3, SIZE, SIZE, 3), dtype=torch.uint8), masks, CROP)
     assert x.shape == (3, CROP, CROP, 3) and y.shape == (3, CROP, CROP)

@@ -8,12 +8,14 @@ On the card (no JAX needed)::
 Small shapes; ``chip_smoke.py`` holds the kernels at the main paths' shapes.
 """
 
+import copy
 import math
 
 import pytest
 import torch
 
 from torch_relayout_views import RELAYOUT_DTYPES, RELAYOUT_SIZES, relayout_views
+from xview2_tpu_torch.models import resnest
 from xview2_tpu_torch.ops import autoaugment as taa
 from xview2_tpu_torch.ops import layout
 from xview2_tpu_torch.ops import packed_fused_conv as pfc
@@ -87,6 +89,99 @@ def test_relayout_paths_at_many_blocks(dtype):
             got = layout.relayout_cuda(view)
             torch.cuda.synchronize()
             assert torch.equal(_bytes(got), _bytes(view)), (path, tuple(view.shape))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int32])
+def test_relayout_damage_logits_bit_exact(dtype):
+    """K1 at the damage task's 4 classes: the eval logits and the train
+    loss view (and its labels, 3-D), contiguous and NCHW viewed NHWC."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    x = (torch.randn((2, 4, 24, 40), generator=gen, device="cuda") * 100).to(dtype)
+    for view in (x.permute(0, 2, 3, 1).contiguous(), x.permute(0, 2, 3, 1), x[:, 0]):
+        got = layout.relayout_cuda(view)
+        torch.cuda.synchronize()
+        assert got.is_contiguous() and torch.equal(_bytes(got), _bytes(view))
+
+
+@pytest.mark.parametrize("mode", [(3, 2, 1, False, True), (3, 1, 1, False, True),
+                                  (2, 2, 0, True, False)], ids=["avd", "avd-s1", "avg-down"])
+def test_resnest_pools_forward_and_backward_equal_the_cpu(mode):
+    """The ResNeSt pools (a library call, no kernel of the port) on the card
+    against the CPU, forward and backward, on channels-last maps of even and
+    odd size.  (torch's CUDA backward of ``avg_pool2d`` on a channels-last
+    map with padding disagrees with its CPU backward by the gradient's whole
+    size, so the port pools an NCHW copy.)"""
+    from xview2_tpu_torch.models.resnest import avg_pool_torch
+
+    gen = torch.Generator().manual_seed(6)
+    for hw in ((32, 32), (33, 31)):
+        x = torch.randn((4,) + hw + (16,), generator=gen)
+        w = None
+        res = {}
+        for dev in ("cpu", "cuda"):
+            xd = x.clone().to(dev).requires_grad_()
+            y = avg_pool_torch(xd, *mode)
+            w = torch.randn(y.shape, generator=gen) if w is None else w
+            (y * w.to(dev)).sum().backward()
+            res[dev] = (y.detach().cpu(), xd.grad.cpu())
+        for got, want in zip(res["cuda"], res["cpu"]):
+            torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+
+
+_RESNEST_MODULES = {
+    # radix 2, cardinality 1: the 3x3 conv is one grouped conv (groups = 2)
+    "splat-s2": lambda: resnest.SplAtConv2d(32, 32, stride=2),
+    # the general path: radix 2 x cardinality 2 (groups = 4), dilated
+    "splat-card2-d2": lambda: resnest.SplAtConv2d(32, 32, dilation=2, cardinality=2),
+    # avd at stride 2 and the avg-down shortcut (odd map: ceil mode)
+    "bottleneck-s2": lambda: resnest.ResNeStBottleneck(32, 16, stride=2, downsample=True,
+                                                        downsample_pool_stride=2, is_first=True),
+    "bottleneck-d2": lambda: resnest.ResNeStBottleneck(64, 16, dilation=2),
+}
+
+
+@pytest.mark.parametrize("train", [False, True], ids=["eval", "train"])
+@pytest.mark.parametrize("name", list(_RESNEST_MODULES))
+def test_resnest_modules_forward_and_backward_equal_the_cpu(name, train, monkeypatch):
+    """The split-attention conv and the bottleneck (library calls, no kernel
+    of the port) on channels-last maps on the card, float32 with TF32 off,
+    against the CPU: the output, the gradient of every parameter and of the
+    input, and the running statistics within 1e-4 of each tensor's scale
+    (at least 1e-4 of the largest gradient: fc1's bias feeds train-mode
+    ``bn1``, so its true gradient is zero and what remains is rounding).
+    Each sample has its own contrast and brightness, so that ``bn1``'s
+    statistics over the batch's pooled values are well conditioned."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    torch.manual_seed(0)
+    mod = _RESNEST_MODULES[name]()
+    gen = torch.Generator().manual_seed(9)
+    with torch.no_grad():
+        for k, t in mod.state_dict().items():
+            if k.endswith("running_mean"):
+                t.copy_(torch.randn(t.shape, generator=gen) * 0.1)
+            elif k.endswith("running_var"):
+                t.copy_(torch.rand(t.shape, generator=gen) + 0.5)
+    cin = mod.conv.in_channels if hasattr(mod, "conv") else mod.conv1.in_channels
+    x = (torch.randn((8, 17, 19, cin), generator=gen) * (torch.rand((8, 1, 1, cin), generator=gen)
+                                                          * 1.7 + 0.3)
+         + torch.randn((8, 1, 1, cin), generator=gen))
+    w, res = None, {}
+    for dev in ("cpu", "cuda"):
+        m = copy.deepcopy(mod).to(dev, torch.float32)
+        xd = x.detach().to(dev).requires_grad_()
+        y = m(xd, train)
+        w = torch.randn(y.shape, generator=gen) if w is None else w
+        names, params = zip(*m.named_parameters())
+        grads = torch.autograd.grad((y * w.to(dev)).sum(), params + (xd,))
+        stats = {k: v for k, v in m.state_dict().items() if "running" in k}
+        res[dev] = (y.detach().cpu(), dict(zip(names + ("x",), (g.cpu() for g in grads))),
+                    {k: v.cpu() for k, v in stats.items()})
+    (yg, gg, sg), (yc, gc, sc) = res["cuda"], res["cpu"]
+    gmax = max(g.abs().max().item() for g in gc.values())
+    for got, want, floor in [(yg, yc, 0.0)] + [(gg[k], gc[k], gmax) for k in gc] \
+            + [(sg[k], sc[k], 0.0) for k in sc]:
+        tol = 1e-4 * max(want.abs().max().item(), floor, 1e-6)
+        torch.testing.assert_close(got, want, rtol=0, atol=tol)
 
 
 def test_relayout_gradient_runs_the_kernel():
@@ -309,11 +404,13 @@ def test_dgrad_epilogue_is_bit_equal_through_the_kernel(shape):
 
 
 @pytest.mark.parametrize("shape", [(1, 37, 53, 128, 8), (1, 37, 53, 128, 16), (2, 5, 7, 64, 32),
-                                   (3, 11, 13, 32, 64), (1, 1, 1, 16, 8), (1, 40, 96, 128, 8)])
+                                   (3, 11, 13, 32, 64), (1, 1, 1, 16, 8), (1, 40, 96, 128, 8),
+                                   (1, 37, 53, 256, 16), (2, 16, 20, 256, 8), (1, 1, 1, 256, 16)])
 def test_head_conv_fused_mma_matches_plain(shape):
     """The head's mma.sync kernel at ragged pixel counts (a last tile of 1 to
     127 pixels, and a single pixel) under test_head_conv_fused_matches_plain's
-    tolerance."""
+    tolerance; C = 256 is the Siamese head (two packed branches), on the
+    3-stage ring."""
     b, h, w, c, co = shape
     assert "mma.sync" in pfc.kernel_variant("head_conv_fused", h, w, c, co, torch.bfloat16)
     gen = torch.Generator(device="cuda").manual_seed(4)
@@ -343,7 +440,10 @@ def test_path_shapes_take_the_redesigned_kernels():
         assert "mma.sync" in pfc.kernel_variant("head_conv_fused", h, w, 128, 8, bf)
     assert "FMA" in pfc.kernel_variant("head_conv_fused", 512, 512, 128, 8, f32)
     assert "FMA" in pfc.kernel_variant("head_conv_fused", 512, 512, 128, 4, bf)
-    assert "FMA" in pfc.kernel_variant("head_conv_fused", 512, 512, 256, 8, bf)
+    for co in (8, 16):  # the Siamese head: C = 256 on the 3-stage ring
+        assert "3-stage" in pfc.kernel_variant("head_conv_fused", 512, 512, 256, co, bf)
+    assert "FMA" in pfc.kernel_variant("head_conv_fused", 512, 512, 256, 32, bf)
+    assert "FMA" in pfc.kernel_variant("head_conv_fused", 512, 512, 192, 8, bf)
 
 
 def test_fused_conv_backward_runs_the_kernels():

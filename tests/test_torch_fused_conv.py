@@ -141,14 +141,17 @@ def test_kernel_variant_names_cover_both_dispatches():
     """Every code the four C entry points' variant queries can return has a
     name: 0 and 1 for the earlier kernels, the four tile widths of the
     pipelined forward and input gradient (which share one main loop), 2 for
-    the pipelined weight gradient, 1 for the head's mma.sync kernel."""
+    the pipelined weight gradient, 1 and 2 for the head's mma.sync kernel
+    with its 4-stage and (at C = 256) 3-stage ring."""
     assert set(port._VARIANTS) == {"conv_bn_fused", "conv_bn_wgrad", "conv_bn_dgrad",
                                    "head_conv_fused"}
     assert {v[0] for v in port._VARIANTS.values()} == {"fused_conv", "fused_conv_bwd",
                                                        "fused_head"}
     assert set(port._VARIANTS["conv_bn_wgrad"][1]) == {0, 1, 2}
-    assert set(port._VARIANTS["head_conv_fused"][1]) == {0, 1}
+    assert set(port._VARIANTS["head_conv_fused"][1]) == {0, 1, 2}
     assert "mma.sync" in port._VARIANTS["head_conv_fused"][1][1]
+    assert "mma.sync" in port._VARIANTS["head_conv_fused"][1][2]
+    assert "3-stage" in port._VARIANTS["head_conv_fused"][1][2]
     for kernel in ("conv_bn_fused", "conv_bn_dgrad"):
         names = port._VARIANTS[kernel][1]
         assert set(names) == {0, 1, 16, 32, 64, 128}

@@ -95,21 +95,23 @@ def test_options_left_out_raise_naming_a_roadmap_item():
 
         train = ["--exec_mode", "train", "--type", "pre", "--encoder", "resnet50",
                  "--results", "/nonexistent"]
-        cli = [["--type", "post"], ["--encoder", "resnest50"], ["--encoder", "resnest200"],
+        post = ["--type", "post"]
+        cli = [post + ["--dmg_model", "fused"], post + ["--dmg_model", "parallel"],
+               post + ["--dmg_model", "cat"],
                ["--ppm"], ["--aspp"], ["--attention"], ["--deep_supervision"],
                ["--dec_interp"], ["--interpolate"],
-               ["--loss_str", "ce"], ["--loss_str", "focal+ohem"], ["--loss_str", "mse"],
-               ["--loss_str", "coral"], ["--pretrained_enc", "enc.npz"],
-               ["--ckpt_pre", "loc"], ["--gpus", "2"], ["--gpus", "2", "--spatial_shards", "2"],
+               post + ["--loss_str", "mse"], post + ["--loss_str", "coral"],
+               ["--loss_str", "mse"], ["--loss_str", "coral"], ["--pretrained_enc", "enc.npz"],
+               post + ["--autoaugment"], ["--gpus", "2"], ["--gpus", "2", "--spatial_shards", "2"],
                ["--remat", "tail"], ["--remat", "dots"], ["--remat", "full"],
                ["--fold_eval_bn", "0"]]
         cli += [["--optimizer", o] for o in ("radam", "adabelief", "adabound", "adamp",
                                              "novograd")]
         for extra in cli:
             raises(lambda: main(train + extra, device="cpu"), extra)
-        for kw in (dict(type="post"), dict(ppm=True), dict(aspp=True), dict(attention=True),
-                   dict(deep_supervision=True), dict(dec_interp=True), dict(interpolate=True),
-                   dict(encoder="resnest101")):
+        for kw in (dict(type="post", dmg_model="fused"), dict(ppm=True), dict(aspp=True),
+                   dict(attention=True), dict(deep_supervision=True), dict(dec_interp=True),
+                   dict(interpolate=True), dict(type="post", loss_str="coral")):
             raises(lambda: build_model(Config(**{"encoder": "resnet50", **kw})), kw)
         raises(lambda: steps.make_train_multistep(None, None, None, 2), "make_train_multistep")
         # --autoaugment is ported: the step's own check lets it through

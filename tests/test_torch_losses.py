@@ -1,7 +1,9 @@
-"""The port's eval-path losses, F1 state and input normalization against the
-JAX package on the same numpy inputs: focal, dice and ``make_loss_fn``
-(pre and post, label-255 masking, ``sample_valid``) at rtol 1e-5; F1 counts
-equal; ``normalize`` (RGB and ``--bgr``, 3 and 6 channels) at rtol 1e-6."""
+"""The port's losses, F1 state and input normalization against the JAX
+package on the same numpy inputs: focal, dice and ``make_loss_fn`` (pre and
+post, label-255 masking, ``sample_valid``) at rtol 1e-5; ce and ohem (with
+and without a mask, ties at OHEM's hard-negative budget, an image without
+positives) at rtol 1e-6; F1 counts equal; ``normalize`` (RGB and ``--bgr``,
+3 and 6 channels) at rtol 1e-6."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -49,7 +51,50 @@ def test_make_loss_fn_matches_jax(task, n_class):
                                                   sample_valid=torch.from_numpy(valid))
     np.testing.assert_allclose(float(got), float(want), rtol=1e-5)
     with pytest.raises(NotImplementedError):
-        losses.make_loss_fn("ohem+dice", task)
+        losses.make_loss_fn("mse+dice", task)
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["no-mask", "mask"])
+@pytest.mark.parametrize("n_class", [2, 4])
+@pytest.mark.parametrize("name", ["ce", "ohem"])
+def test_ce_and_ohem_match_jax(name, n_class, masked):
+    logits, labels = _logits(n_class, seed=8), _labels(n_class, seed=9)
+    labels[1] = 0  # an image without positives: OHEM keeps its budget of negatives only
+    mask = (np.random.default_rng(10).random(labels.shape) > 0.3).astype(np.float32)
+    m = mask if masked else None
+    want = getattr(jlosses, f"{name}_loss")(jnp.asarray(logits), jnp.asarray(labels),
+                                            None if m is None else jnp.asarray(m))
+    got = getattr(losses, f"{name}_loss")(torch.from_numpy(logits),
+                                          torch.from_numpy(labels).long(),
+                                          None if m is None else torch.from_numpy(m))
+    np.testing.assert_allclose(float(got), float(want), rtol=1e-6)
+
+
+@pytest.mark.parametrize("levels", [3, 1], ids=["three-values", "all-equal"])
+def test_ohem_ties_at_the_budget_match_jax(levels):
+    """Negatives whose CE ties across the hard-negative budget's edge (logits
+    on a few levels, or all the same): both rank stably, and the sum over
+    the kept pixels does not depend on which of the tied ones are kept."""
+    rng = np.random.default_rng(12)
+    logits = rng.integers(0, levels, (2, 12, 12, 2)).astype(np.float32)
+    labels = (rng.random((2, 12, 12)) > 0.9).astype(np.int32)
+    want = jlosses.ohem_loss(jnp.asarray(logits), jnp.asarray(labels))
+    got = losses.ohem_loss(torch.from_numpy(logits), torch.from_numpy(labels).long())
+    np.testing.assert_allclose(float(got), float(want), rtol=1e-6)
+
+
+@pytest.mark.parametrize("loss_str", ["ohem+dice", "ce", "focal+ohem"])
+@pytest.mark.parametrize("task,n_class", [("pre", 2), ("post", 4)])
+def test_make_loss_fn_ce_ohem_matches_jax(loss_str, task, n_class):
+    logits, labels = _logits(n_class, seed=13), _labels(5 if task == "post" else 2, seed=14)
+    for valid in (None, np.array([1.0, 0.0, 1.0], np.float32)):
+        kw_j = {} if valid is None else dict(sample_valid=jnp.asarray(valid))
+        kw_t = {} if valid is None else dict(sample_valid=torch.from_numpy(valid))
+        want = jlosses.make_loss_fn(loss_str, task)(jnp.asarray(logits), jnp.asarray(labels),
+                                                    **kw_j)
+        got = losses.make_loss_fn(loss_str, task)(torch.from_numpy(logits),
+                                                  torch.from_numpy(labels), **kw_t)
+        np.testing.assert_allclose(float(got), float(want), rtol=1e-5)
 
 
 @pytest.mark.parametrize("n_class,loss_str,n_logit", [(2, "focal+dice", 2),

@@ -14,18 +14,22 @@
 //
 // Design.  Two kernels, chosen in the C entry point by the static shape and
 // dtype only (head_conv_fused_variant reports the choice):
-//  * bf16 with C in {16, 32, 64, 128} and Co in {8, 16, 32, 64} (the main
-//    path: C = 128, Co = 8): head_mma_kernel.  Persistent blocks of 256
-//    threads, one per SM, walk tiles of 128 pixels.  A ring of four stages
-//    filled by cp.async (16 bytes a copy, zero fill past the last pixel)
-//    keeps three tiles, 104 KB at C = 128, in flight per SM.  The pixel stride
+//  * bf16 with C in {16, 32, 64, 128} and Co in {8, 16, 32, 64} (the
+//    localization path: C = 128, Co = 8), or C = 256 with Co in {8, 16} (the
+//    Siamese head: two packed branches of 128, Co = 16): head_mma_kernel.
+//    Persistent blocks of 256 threads, one per SM, walk tiles of 128
+//    pixels.  A ring filled by cp.async (16 bytes a copy, zero fill past the
+//    last pixel) keeps tiles in flight per SM: four stages (three tiles,
+//    104 KB at C = 128) up to C = 128, three stages (two tiles, 135 KB) at
+//    C = 256, where four would need 270 KB of the 227 KB a block may use.  The pixel stride
 //    is padded by 16 bytes, so the eight rows of an ldmatrix fall on eight
 //    bank groups.  Each thread applies the prologue in place to the pieces it
 //    copied itself, in the packed bf16 arithmetic of prologue_piece
 //    (bit-equal to the per-op rounding); one barrier per tile.  Each warp
 //    then multiplies its 16 pixels with mma.sync.m16n8k16 in bf16, A from
 //    the tile by ldmatrix, B (kmat rounded to bf16) held in registers for the
-//    block's life (C/16 k-steps x Co/8 n8 tiles), f32 accumulators.  The
+//    block's life (C/16 k-steps x Co/8 n8 tiles: 64 registers at C = 256,
+//    Co = 16, hence Co <= 16 there), f32 accumulators.  The
 //    epilogue rounds twice on bf16 pairs and gathers each pixel's eight
 //    channels of an n8 tile into one lane by quad shuffles: one 16-byte store.
 //    kmat, the fold and hbias are read once per block.
@@ -36,7 +40,7 @@
 // On the H100 the mma kernel reads x at about 2.8 TB/s at eval size, 84% of
 // the bound; six stages, or three with two blocks per SM, measured the same,
 // so the bytes in flight no longer limit it.  Not done yet: TMA bulk copies
-// of the tile (one instruction per tile), a C above 128 for the mma kernel.
+// of the tile (one instruction per tile).
 
 #include <stdint.h>
 
@@ -120,12 +124,12 @@ cudaError_t launch(const void* x, const float* kmat, const float* fold, const fl
 // ------------------------------------------------ bf16, mma.sync, cp.async ring
 constexpr int H_THREADS = 256;  // 8 warps, 16 pixels each per tile
 constexpr int H_TP = 128;       // pixels per tile
-constexpr int H_STAGES = 4;     // tiles in the ring: three in flight while one is used
-constexpr int H_KMAX = 8;       // C <= 128: at most 8 k-steps of 16 channels
 
 __host__ __device__ inline int head_ldx(int c) { return 2 * c + 16; }  // bytes per staged pixel
 
-template <int CO>
+// H_KMAX: k-steps of 16 channels the instantiation unrolls (8 for C <= 128,
+// 16 for C = 256); H_STAGES: tiles in the ring, all but one in flight
+template <int CO, int H_KMAX, int H_STAGES>
 __global__ void __launch_bounds__(H_THREADS, 1) head_mma_kernel(
     const __nv_bfloat16* __restrict__ x, const float* __restrict__ kmat,
     const float* __restrict__ fold, const float* __restrict__ hbias,
@@ -254,11 +258,11 @@ __global__ void __launch_bounds__(H_THREADS, 1) head_mma_kernel(
   mm::cp_async_wait<0>();
 }
 
-template <int CO>
+template <int CO, int H_KMAX, int H_STAGES>
 cudaError_t launch_mma(const void* x, const float* kmat, const float* fold, const float* hbias,
                        void* out, long long npix, int c, cudaStream_t stream) {
   const size_t smem = (size_t)H_STAGES * H_TP * head_ldx(c) + 3ull * c * 2;
-  auto kern = head_mma_kernel<CO>;
+  auto kern = head_mma_kernel<CO, H_KMAX, H_STAGES>;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -275,6 +279,7 @@ cudaError_t launch_mma(const void* x, const float* kmat, const float* fold, cons
 
 // C and Co that head_mma_kernel takes
 bool mma_takes(int c, int co) {
+  if (c == 256) return co == 8 || co == 16;
   return (c == 16 || c == 32 || c == 64 || c == 128) &&
          (co == 8 || co == 16 || co == 32 || co == 64);
 }
@@ -307,12 +312,15 @@ extern "C" int head_conv_fused(const void* x, const void* kmat, const void* fold
   const float* hb = (const float*)hbias;
   if (dtype == 0) return (int)dispatch<float>(x, k, f, hb, out, npix, c, co, s);
   if (dtype != 1) return (int)cudaErrorInvalidValue;
+  if (mma_takes(c, co) && c == 256)
+    return (int)(co == 8 ? launch_mma<8, 16, 3>(x, k, f, hb, out, npix, c, s)
+                         : launch_mma<16, 16, 3>(x, k, f, hb, out, npix, c, s));
   if (mma_takes(c, co)) {
     switch (co) {
-      case 8: return (int)launch_mma<8>(x, k, f, hb, out, npix, c, s);
-      case 16: return (int)launch_mma<16>(x, k, f, hb, out, npix, c, s);
-      case 32: return (int)launch_mma<32>(x, k, f, hb, out, npix, c, s);
-      default: return (int)launch_mma<64>(x, k, f, hb, out, npix, c, s);
+      case 8: return (int)launch_mma<8, 8, 4>(x, k, f, hb, out, npix, c, s);
+      case 16: return (int)launch_mma<16, 8, 4>(x, k, f, hb, out, npix, c, s);
+      case 32: return (int)launch_mma<32, 8, 4>(x, k, f, hb, out, npix, c, s);
+      default: return (int)launch_mma<64, 8, 4>(x, k, f, hb, out, npix, c, s);
     }
   }
   return (int)dispatch<__nv_bfloat16>(x, k, f, hb, out, npix, c, co, s);
@@ -321,10 +329,10 @@ extern "C" int head_conv_fused(const void* x, const void* kmat, const void* fold
 // Which kernel head_conv_fused launches for this static shape and dtype (h
 // and w do not matter; the signature is that of the conv kernels' queries):
 // 0 = the per-pixel FMA kernel, 1 = the bf16 mma.sync kernel with the
-// cp.async ring; -1 = not taken.
+// 4-stage cp.async ring, 2 = the same with 3 stages (C = 256); -1 = not taken.
 extern "C" int head_conv_fused_variant(int h, int w, int c, int co, int dtype) {
   (void)h, (void)w;
-  if (dtype == 1 && mma_takes(c, co)) return 1;
+  if (dtype == 1 && mma_takes(c, co)) return c == 256 ? 2 : 1;
   if (dtype != 0 && dtype != 1) return -1;
   const bool co_ok = co == 4 || co == 8 || co == 12 || co == 16 || co == 32 || co == 64;
   return co_ok ? 0 : -1;

@@ -47,10 +47,10 @@ BN_MOMENTUM = 0.9  # flax momentum == 1 - torch momentum (torch default 0.1)
 
 
 def conv_nhwc(x: torch.Tensor, weight: torch.Tensor, stride: int = 1, padding: int = 0,
-              dilation: int = 1) -> torch.Tensor:
+              dilation: int = 1, groups: int = 1) -> torch.Tensor:
     """NHWC conv with an OIHW weight, in ``x``'s dtype (library call)."""
     out = F.conv2d(x.permute(0, 3, 1, 2), weight.to(x.dtype), stride=stride,
-                   padding=padding, dilation=dilation)
+                   padding=padding, dilation=dilation, groups=groups)
     return out.permute(0, 2, 3, 1)
 
 
@@ -219,7 +219,26 @@ def fused_tail_scope(enabled: bool = True, defer_head: bool = False):
     if outstanding:
         raise AssertionError(
             "fused-tail deferred fold was never consumed by a packed head; "
-            "defer_head is only valid for single-branch packed-head variants")
+            "defer_head needs dec5 to reach the packed head unchanged or through "
+            "concat_registered of two deferred branches")
+
+
+def concat_registered(a, b):
+    """Channel concat of two branch maps (JAX ``concat_registered``).  When
+    both are :class:`DeferredFold` carriers it concatenates the raw maps and
+    the fold vectors (the prologue affine is per channel, so this is exact)
+    and returns one carrier for the packed head; one carrier beside a plain
+    map raises."""
+    da, db = isinstance(a, DeferredFold), isinstance(b, DeferredFold)
+    if da and db:
+        ra, fa = consume_fold(a)
+        rb, fb = consume_fold(b)
+        fold = tuple(torch.cat([va, vb]) for va, vb in zip(fa, fb))
+        return defer_fold(torch.cat([ra, rb], dim=-1), fold)
+    if da or db:
+        raise AssertionError("asymmetric deferred folds at a branch concat; defer_head "
+                             "requires both branches to end in fused packed chains")
+    return torch.cat([a, b], dim=-1)
 
 
 def _zero_fold(c: int, dtype: torch.dtype, device) -> Fold:
@@ -442,18 +461,19 @@ class PackedConvBlock(nn.Module):
 
 class PackedHead(nn.Module):
     """1x1 output head in the packed domain (JAX ``_PackedHead``); the
-    parameters are the FINE head's.  With a deferred ``fold`` it runs as
-    the fused head kernel."""
+    parameters are the FINE head's.  ``groups``: the input is the
+    group-major concat of that many packed branches.  With a deferred
+    ``fold`` it runs as the fused head kernel."""
 
-    def __init__(self, fine_in: int, head_n: int, dtype: torch.dtype):
+    def __init__(self, fine_in: int, head_n: int, groups: int, dtype: torch.dtype):
         super().__init__()
-        self.dtype = dtype
+        self.dtype, self.groups = dtype, groups
         self.weight = nn.Parameter(torch.empty(head_n, fine_in, 1, 1))
         self.bias = nn.Parameter(torch.zeros(head_n))
         nn.init.kaiming_uniform_(self.weight, a=5 ** 0.5)
 
     def forward(self, x: torch.Tensor, fold: Optional[Fold] = None) -> torch.Tensor:
-        wp = s2d_head_kernel(hwio(self.weight), 1).to(self.dtype)
+        wp = s2d_head_kernel(hwio(self.weight), self.groups).to(self.dtype)
         kmat = wp.reshape(wp.shape[2], wp.shape[3])
         if fold is not None:
             return head_conv_fused(x.to(self.dtype), kmat, self.bias.repeat(4), fold)
@@ -465,14 +485,16 @@ class OutputBlock(nn.Module):
     """Final head over the s2d-packed tail (JAX ``OutputBlock(packed_in=True,
     emit_loss_view=True)``): the packed 1x1 head, then at eval the
     depth-to-space of the logits, in train mode the loss view ``(B, H, 4W,
-    n)``, a reshape with no transpose."""
+    n)``, a reshape with no transpose.  ``packed_groups``: concatenated
+    packed branches (2 for siamese); ``fine_in`` counts all of them."""
 
-    def __init__(self, n_class: int, fine_in: int, dtype: torch.dtype):
+    def __init__(self, n_class: int, fine_in: int, dtype: torch.dtype,
+                 packed_groups: int = 1):
         super().__init__()
         if n_class == 3:
-            raise NotImplementedError("the CORAL head belongs to the damage variants "
-                                      "(ROADMAP Queue 1, damage variants)")
-        self.conv = PackedHead(fine_in, n_class, dtype)
+            raise NotImplementedError("the CORAL head is not ported yet (ROADMAP Queue 1, "
+                                      "damage variants)")
+        self.conv = PackedHead(fine_in, n_class, packed_groups, dtype)
 
     def forward(self, x, train: bool = False) -> torch.Tensor:
         x, fold = consume_fold(x)

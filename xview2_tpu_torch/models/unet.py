@@ -1,16 +1,19 @@
-"""The localization U-Net (port of ``xview2_tpu/models/unet.py``).
+"""The localization U-Net and the Siamese damage U-Net (port of
+``xview2_tpu/models/unet.py``).
 
-``build_model(cfg)`` builds ``UNetLoc`` for ``--type pre`` with a ResNet
-encoder and the s2d-packed decoder tail feeding the packed head.  Inputs are
-NHWC ``(B, H, W, 3)``, logits NHWC ``(B, H, W, 2)``; in train mode the
-logits come out in the packed loss view ``(B, H/2, 2W, 2)``
+``build_model(cfg)`` builds ``UNetLoc`` for ``--type pre`` and, for
+``--type post --dmg_model siamese``, ``SiameseUNet``; either with a ResNet
+or a ResNeSt encoder and the s2d-packed decoder tail feeding the packed
+head.  Inputs are NHWC ``(B, H, W, 3)`` (localization) or ``(B, H, W, 6)``
+(pre ++ post channels), logits NHWC ``(B, H, W, n_class)``; in train mode
+the logits come out in the packed loss view ``(B, H/2, 2W, n_class)``
 (:func:`emits_packed_loss_view`).  Module names follow the flax tree
 (``unet.enc_l1``, ``unet.dec_layers_4.conv_block.conv1.Conv_0``,
 ``output_block.output_block.conv``).
 
 Not ported yet, each raising ``NotImplementedError`` that names its ROADMAP
-item: the damage variants, PPM/ASPP, attention, deep supervision,
-``--dec_interp`` and ``--interpolate``.
+item: the other seven damage variants, the CORAL and MSE heads, PPM/ASPP,
+attention, deep supervision, ``--dec_interp`` and ``--interpolate``.
 """
 
 from __future__ import annotations
@@ -22,7 +25,7 @@ import torch.nn as nn
 
 from xview2_tpu_torch.config import Config
 from xview2_tpu_torch.models.encoder import make_encoder_stages
-from xview2_tpu_torch.models.layers import OutputBlock, UpsampleBlock
+from xview2_tpu_torch.models.layers import OutputBlock, UpsampleBlock, concat_registered
 
 DECODER_CHANNELS = (512, 256, 128, 64, 32)  # reference unet.py:90
 
@@ -34,8 +37,11 @@ def _unsupported(what: str, item: str):
 
 def check_supported(cfg: Config) -> None:
     """Raise for every model option outside this slice of the port."""
-    if cfg.type != "pre":
-        raise _unsupported("--type post (the damage variants)", "damage variants")
+    if cfg.type == "post" and cfg.dmg_model != "siamese":
+        raise _unsupported(f"--dmg_model {cfg.dmg_model}", "damage variants")
+    if cfg.type == "post" and cfg.n_class != 4:
+        raise _unsupported(f"--loss_str {cfg.loss_str} (the MSE and CORAL heads)",
+                           "damage variants")
     if cfg.ppm or cfg.aspp:
         raise _unsupported("--ppm/--aspp", "decoder options")
     if cfg.attention:
@@ -81,13 +87,15 @@ def _run_decoder(dec_layers, dilation: int, no_skip: bool, encs, train: bool):
 
 
 class UNetTemplate(nn.Module):
-    """Shared encoder + decoder; returns ``(dec5, dec4, dec3)``."""
+    """Shared encoder + decoder on one 3-channel image; returns
+    ``(dec5, dec4, dec3)``."""
 
     def __init__(self, cfg: Config):
         super().__init__()
         self.cfg = cfg
         dtype = cfg.compute_dtype
-        chans, stages = make_encoder_stages(cfg.encoder, cfg.dilation, cfg.in_channels, dtype)
+        # 3 channels: the Siamese model runs the template on each half of a pair
+        chans, stages = make_encoder_stages(cfg.encoder, cfg.dilation, 3, dtype)
         self.enc_l1, self.enc_l2, self.enc_l3, self.enc_l4, self.enc_l5 = stages
         self.dec_layers = make_decoder_stages(chans, cfg.dilation, cfg.no_skip, dtype)
         for i, stage in enumerate(self.dec_layers):
@@ -108,9 +116,9 @@ class OutputTemplate(nn.Module):
     """Final head (reference unet.py:175-197); the deep-supervision heads
     are not ported (see :func:`check_supported`)."""
 
-    def __init__(self, n_class: int, fine_in: int, dtype: torch.dtype):
+    def __init__(self, n_class: int, fine_in: int, dtype: torch.dtype, packed_groups: int = 1):
         super().__init__()
-        self.output_block = OutputBlock(n_class, fine_in, dtype)
+        self.output_block = OutputBlock(n_class, fine_in, dtype, packed_groups)
 
     def forward(self, dec5, train: bool = False) -> torch.Tensor:
         return self.output_block(dec5, train)
@@ -132,6 +140,27 @@ class UNetLoc(nn.Module):
         return self.output_block(dec5, train)
 
 
+class SiameseUNet(nn.Module):
+    """True siamese (reference unet.py:218-236): ONE shared UNetTemplate run
+    separately on the pre and the post image, the two dec5 maps
+    concatenated, and a head over both (``packed_groups=2``).  In train mode
+    each BatchNorm normalizes each branch by that branch's batch statistics
+    and updates its running statistics twice, pre then post, as flax does
+    when one module is applied twice."""
+
+    def __init__(self, cfg: Config, n_class: int = 4):
+        super().__init__()
+        check_supported(cfg)
+        self.unet = UNetTemplate(cfg)
+        self.output_block = OutputTemplate(n_class, 2 * DECODER_CHANNELS[-1],
+                                           cfg.compute_dtype, packed_groups=2)
+
+    def forward(self, data: torch.Tensor, train: bool = False) -> torch.Tensor:
+        p5, _, _ = self.unet(data[..., :3], train)
+        q5, _, _ = self.unet(data[..., 3:], train)
+        return self.output_block(concat_registered(p5, q5), train)
+
+
 def emits_packed_loss_view(cfg: Config) -> bool:
     """True when the model's TRAIN-mode logits come out in the packed loss
     view (B, H/2, 2W, n) instead of the fine grid; the loss consumer pairs it
@@ -146,8 +175,14 @@ def fused_head_defer_ok(cfg: Config) -> bool:
     return not cfg.interpolate and not cfg.dec_interp
 
 
+def get_dmg_unet(cfg: Config) -> nn.Module:
+    """Damage-variant factory (reference unet.py:29-42) with ``n_class`` from
+    the loss head rule (``Config.n_class``); only ``siamese`` is ported
+    (:func:`check_supported` raises for the others)."""
+    return SiameseUNet(cfg, cfg.n_class)
+
+
 def build_model(cfg: Config) -> nn.Module:
     """Task-level model factory (reference plt.py:26); ``.eval()`` mode."""
-    if cfg.type != "pre":
-        raise _unsupported("--type post (the damage variants)", "damage variants")
-    return UNetLoc(cfg).eval()
+    model = UNetLoc(cfg) if cfg.type == "pre" else get_dmg_unet(cfg)
+    return model.eval()

@@ -18,6 +18,10 @@ function):
 5. RandomBrightnessContrast p=0.2 (alpha 1 +- 0.2, beta +- 0.2 of 255).
 6. Normalize: (img/255 - imagenet_mean)/imagenet_std.
 
+A 6-channel pre/post pair shares every spatial draw (zoom, crop, flips);
+the intensity chain (4, 5) is drawn independently for each half, as two
+albumentations calls would be (reference pytorch_loader.py:45-50).
+
 DRAWING the random numbers (:func:`draw_augment`, from a ``torch.Generator``
 on the device) is split from APPLYING them (:func:`apply_augment`), so a test
 can hand the JAX package's own draws to the port.
@@ -32,7 +36,7 @@ and brightness/contrast are not applied (:func:`draw_augment_autoaugment`,
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -64,9 +68,24 @@ def eval_batch(images: torch.Tensor, bgr: bool = False) -> torch.Tensor:
 
 
 @dataclasses.dataclass
+class IntensityDraws:
+    """The random numbers of one 3-channel half's intensity chain, one entry
+    per sample."""
+
+    noise_do: torch.Tensor   # (B,) bool (p = 0.1)
+    noise_var: torch.Tensor  # (B,) f32 U[10, 50)
+    noise: torch.Tensor      # (B, crop, crop, 3) f32 standard normal
+    bc_do: torch.Tensor      # (B,) bool (p = 0.2)
+    alpha: torch.Tensor      # (B,) f32 U[0.8, 1.2)
+    beta: torch.Tensor       # (B,) f32 U[-0.2, 0.2)
+
+
+@dataclasses.dataclass
 class AugmentDraws:
     """The random numbers of one batch's augmentation, one entry per sample
-    (the draws of JAX ``augment_sample`` for 3-channel inputs)."""
+    (the draws of JAX ``augment_sample``): the spatial draws, shared by both
+    halves of a 6-channel pair, and each half's intensity chain (``post``
+    None for 3 channels)."""
 
     do_zoom: torch.Tensor    # (B,) bool: RandomScale fires (p = 0.2)
     zoom_u: torch.Tensor     # (B,) f32 U[0, 1): zoom s = 1 + 0.3 * u when it fires
@@ -76,12 +95,8 @@ class AugmentDraws:
     off_x: torch.Tensor      # (B,) int in [0, crop)
     flip_h: torch.Tensor     # (B,) bool (p = 0.33): reverse the W axis
     flip_v: torch.Tensor     # (B,) bool (p = 0.33): reverse the H axis
-    noise_do: torch.Tensor   # (B,) bool (p = 0.1)
-    noise_var: torch.Tensor  # (B,) f32 U[10, 50)
-    noise: torch.Tensor      # (B, crop, crop, 3) f32 standard normal
-    bc_do: torch.Tensor      # (B,) bool (p = 0.2)
-    alpha: torch.Tensor      # (B,) f32 U[0.8, 1.2)
-    beta: torch.Tensor       # (B,) f32 U[-0.2, 0.2)
+    pre: IntensityDraws
+    post: Optional[IntensityDraws] = None
 
 
 def sample_nonzero_pixel(masks: torch.Tensor,
@@ -96,8 +111,10 @@ def sample_nonzero_pixel(masks: torch.Tensor,
     return idx // w, idx % w
 
 
-def draw_augment(gen: torch.Generator, masks: torch.Tensor, crop: int = CROP) -> AugmentDraws:
-    """Draw one batch's random numbers on ``masks``'s device from ``gen``."""
+def draw_augment(gen: torch.Generator, masks: torch.Tensor, crop: int = CROP,
+                 channels: int = 3) -> AugmentDraws:
+    """Draw one batch's random numbers on ``masks``'s device from ``gen``;
+    ``channels=6`` also draws the post half's intensity chain."""
     b, dev = masks.shape[0], masks.device
 
     def uniform(lo: float = 0.0, hi: float = 1.0) -> torch.Tensor:
@@ -106,16 +123,20 @@ def draw_augment(gen: torch.Generator, masks: torch.Tensor, crop: int = CROP) ->
     def bernoulli(p: float) -> torch.Tensor:
         return uniform() < p
 
+    def intensity() -> IntensityDraws:
+        noise_do, noise_var = bernoulli(0.1), uniform(10.0, 50.0)
+        noise = torch.randn((b, crop, crop, 3), generator=gen, device=dev)
+        return IntensityDraws(noise_do, noise_var, noise, bernoulli(0.2), uniform(0.8, 1.2),
+                              uniform(-0.2, 0.2))
+
     do_zoom, zoom_u = bernoulli(0.2), uniform()
     pix_y, pix_x = sample_nonzero_pixel(masks, gen)
     off_y = torch.randint(0, crop, (b,), generator=gen, device=dev)
     off_x = torch.randint(0, crop, (b,), generator=gen, device=dev)
     flip_h, flip_v = bernoulli(0.33), bernoulli(0.33)
-    noise_do, noise_var = bernoulli(0.1), uniform(10.0, 50.0)
-    noise = torch.randn((b, crop, crop, 3), generator=gen, device=dev)
-    bc_do, alpha, beta = bernoulli(0.2), uniform(0.8, 1.2), uniform(-0.2, 0.2)
-    return AugmentDraws(do_zoom, zoom_u, pix_y, pix_x, off_y, off_x, flip_h, flip_v, noise_do,
-                        noise_var, noise, bc_do, alpha, beta)
+    pre = intensity()
+    return AugmentDraws(do_zoom, zoom_u, pix_y, pix_x, off_y, off_x, flip_h, flip_v, pre,
+                        intensity() if channels == 6 else None)
 
 
 def _keys_cubic(x: torch.Tensor) -> torch.Tensor:
@@ -176,21 +197,8 @@ def _zoom_crop(images: torch.Tensor, masks: torch.Tensor, d: AugmentDraws,
     return out, torch.gather(rows, 2, src_x.long()[:, None, :].expand(b, crop, crop))
 
 
-def apply_augment(images: torch.Tensor, masks: torch.Tensor, d: AugmentDraws,
-                  crop: int = CROP, bgr: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Apply one batch's draws: raw uint8 ``images`` (B, H, W, 3) and
-    ``masks`` (B, H, W) -> normalized float32 (B, crop, crop, 3) crops and
-    int32 (B, crop, crop) labels."""
-    if images.shape[-1] != 3:
-        raise NotImplementedError("6-channel (pre+post) augmentation belongs to the damage "
-                                  "variants (ROADMAP Queue 1, damage variants)")
-    img, mask = _zoom_crop(images, masks, d, crop)
-    # flips are selects: both branches have the same shape
-    fh, fv = d.flip_h[:, None, None], d.flip_v[:, None, None]
-    img = torch.where(fh[..., None], img.flip(2), img)
-    mask = torch.where(fh, mask.flip(2), mask)
-    img = torch.where(fv[..., None], img.flip(1), img)
-    mask = torch.where(fv, mask.flip(1), mask)
+def _intensity(img: torch.Tensor, d: IntensityDraws) -> torch.Tensor:
+    """GaussNoise, then RandomBrightnessContrast, on one 3-channel half."""
 
     def per_sample(v: torch.Tensor) -> torch.Tensor:
         return v[:, None, None, None]
@@ -198,8 +206,30 @@ def apply_augment(images: torch.Tensor, masks: torch.Tensor, d: AugmentDraws,
     noisy = torch.clamp(img + d.noise * per_sample(torch.sqrt(d.noise_var)), 0.0, 255.0)
     img = torch.where(per_sample(d.noise_do), noisy, img)
     bright = torch.clamp(img * per_sample(d.alpha) + per_sample(d.beta) * 255.0, 0.0, 255.0)
-    img = torch.where(per_sample(d.bc_do), bright, img)
-    return normalize(img, 3, bgr), mask.to(torch.int32)
+    return torch.where(per_sample(d.bc_do), bright, img)
+
+
+def apply_augment(images: torch.Tensor, masks: torch.Tensor, d: AugmentDraws,
+                  crop: int = CROP, bgr: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Apply one batch's draws: raw uint8 ``images`` (B, H, W, 3|6) and
+    ``masks`` (B, H, W) -> normalized float32 (B, crop, crop, 3|6) crops and
+    int32 (B, crop, crop) labels."""
+    c = images.shape[-1]
+    if (c == 6) != (d.post is not None):
+        raise ValueError(f"{c}-channel images need the draws of {c} channels")
+    img, mask = _zoom_crop(images, masks, d, crop)
+    # flips are selects: both branches have the same shape
+    fh, fv = d.flip_h[:, None, None], d.flip_v[:, None, None]
+    img = torch.where(fh[..., None], img.flip(2), img)
+    mask = torch.where(fh, mask.flip(2), mask)
+    img = torch.where(fv[..., None], img.flip(1), img)
+    mask = torch.where(fv, mask.flip(1), mask)
+    if c == 3:
+        img = _intensity(img, d.pre)
+    else:
+        img = torch.cat([_intensity(img[..., :3], d.pre), _intensity(img[..., 3:], d.post)],
+                        dim=-1)
+    return normalize(img, c, bgr), mask.to(torch.int32)
 
 
 @dataclasses.dataclass
@@ -255,6 +285,10 @@ def augment_batch(gen: torch.Generator, images: torch.Tensor, masks: torch.Tenso
                   use_autoaugment: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """Draw and apply: the train step's augmentation of a batch of raw tiles."""
     if use_autoaugment:
+        if images.shape[-1] != 3:
+            raise NotImplementedError("--autoaugment on 6-channel pairs is not ported yet "
+                                      "(ROADMAP Queue 1, damage variants)")
         return apply_augment_autoaugment(images, masks,
                                          draw_augment_autoaugment(gen, masks, crop), crop, bgr)
-    return apply_augment(images, masks, draw_augment(gen, masks, crop), crop, bgr)
+    return apply_augment(images, masks, draw_augment(gen, masks, crop, images.shape[-1]), crop,
+                         bgr)

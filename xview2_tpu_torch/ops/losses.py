@@ -1,12 +1,13 @@
-"""Segmentation losses (port of ``focal_loss``, ``dice_loss``,
-``make_loss_fn`` and ``packed_loss_view_labels`` of
+"""Segmentation losses (port of ``focal_loss``, ``dice_loss``, ``ce_loss``,
+``ohem_loss``, ``make_loss_fn`` and ``packed_loss_view_labels`` of
 ``xview2_tpu/ops/losses.py``).
 
 monai 0.4.0 numerics as in the JAX package: DiceLoss(softmax, to_onehot_y,
 batch=True, smooth 1e-5) and FocalLoss(gamma=2) with its mean-over-classes
-normalization; reductions are mask-weighted sums.  Logits are NHWC
-``(B, H, W, C)``, labels ``(B, H, W)`` integers.  The other loss terms (ce,
-ohem, mse, coral) are not ported yet (ROADMAP Queue 1, losses).
+normalization; reductions are mask-weighted sums.  OHEM is the intended
+per-image hard-negative top-k, as a rank mask.  Logits are NHWC ``(B, H, W,
+C)``, labels ``(B, H, W)`` integers.  The mse and coral terms are not ported
+yet (ROADMAP Queue 1, losses).
 """
 
 from __future__ import annotations
@@ -55,15 +56,21 @@ def dice_loss(logits: torch.Tensor, labels: torch.Tensor,
     return torch.mean(f)
 
 
+def _true_class_logp(logp: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Log-probability of the (clamped) true class, by a one-hot contraction
+    as in the JAX package."""
+    n_class = logp.shape[-1]
+    onehot = _one_hot(labels.clamp(0, n_class - 1), n_class, logp.dtype)
+    return torch.sum(logp * onehot, dim=-1)
+
+
 def focal_loss(logits: torch.Tensor, labels: torch.Tensor,
                mask: Optional[torch.Tensor] = None, gamma: float = 2.0) -> torch.Tensor:
     """Multiclass focal loss, monai 0.4.0 normalization: the global pixel
     mean of the true-class focal term divided by the number of classes."""
     n_class = logits.shape[-1]
     w = _ensure_mask(labels, mask)
-    logp = torch.log_softmax(_acc(logits), dim=-1)
-    onehot = _one_hot(labels.clamp(0, n_class - 1), n_class, logp.dtype)
-    logpt = torch.sum(logp * onehot, dim=-1)
+    logpt = _true_class_logp(torch.log_softmax(_acc(logits), dim=-1), labels)
     pt = torch.exp(logpt)
     per_pixel = -((1.0 - pt) ** gamma) * logpt
     total = torch.sum(w * per_pixel)
@@ -71,7 +78,44 @@ def focal_loss(logits: torch.Tensor, labels: torch.Tensor,
     return total / (count * n_class)
 
 
-_LOSS_FNS = {"dice": dice_loss, "focal": focal_loss}
+def ce_loss(logits: torch.Tensor, labels: torch.Tensor,
+            mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Masked mean cross-entropy (torch ``nn.CrossEntropyLoss`` semantics)."""
+    w = _ensure_mask(labels, mask)
+    nll = -_true_class_logp(torch.log_softmax(_acc(logits), dim=-1), labels)
+    return torch.sum(w * nll) / torch.clamp(torch.sum(w), min=1.0)
+
+
+def ohem_loss(logits: torch.Tensor, labels: torch.Tensor,
+              mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Online hard example mining CE (reference loss.py:24-51): per image,
+    every positive pixel (label > 0) and the ``max(clip(Cn/4, min 5),
+    2*Cp)`` negatives of largest CE.  A stable descending sort ranks the
+    negatives; positives sink to the end.
+
+    With a pixel mask (the post task) the reference's gather makes every
+    pixel a 1-pixel image whose budget keeps it, so OHEM is the masked mean
+    CE, as in the JAX package."""
+    if mask is not None:
+        return ce_loss(logits, labels, mask)
+    b = logits.shape[0]
+    nll = -_true_class_logp(torch.log_softmax(_acc(logits), dim=-1), labels).reshape(b, -1)
+    pos = (labels > 0).reshape(b, -1)
+    cp = pos.sum(dim=1)
+    cn = (~pos).sum(dim=1)
+    budget = torch.maximum(torch.clamp(cn.to(torch.float32) / 4.0, min=5.0),
+                           2.0 * cp.to(torch.float32))
+    budget = torch.minimum(budget.to(torch.int64), cn)
+    neg_scores = torch.where(pos, torch.full_like(nll, -torch.inf), nll)
+    order = torch.sort(-neg_scores, dim=1, stable=True).indices
+    ranks = torch.empty_like(order)
+    ranks.scatter_(1, order, torch.arange(order.shape[1], device=order.device).expand_as(order))
+    keep = pos | (~pos & (ranks < budget[:, None]))
+    total = torch.sum(torch.where(keep, nll, torch.zeros_like(nll)))
+    return total / torch.clamp(keep.sum(), min=1).to(nll.dtype)
+
+
+_LOSS_FNS = {"dice": dice_loss, "focal": focal_loss, "ce": ce_loss, "ohem": ohem_loss}
 
 
 def make_loss_fn(loss_str: str, task_type: str) -> Callable[..., torch.Tensor]:

@@ -234,7 +234,8 @@ _VARIANTS = {
         16: "bf16 wgmma pipelined, tile 16x16 px x 128 ch"}),
     "head_conv_fused": ("fused_head", {
         0: "per-pixel FMA, 128 px a block",
-        1: "bf16 mma.sync persistent, 128 px tiles in a 4-stage cp.async ring"}),
+        1: "bf16 mma.sync persistent, 128 px tiles in a 4-stage cp.async ring",
+        2: "bf16 mma.sync persistent, 128 px tiles in a 3-stage cp.async ring (C = 256)"}),
 }
 
 

@@ -1,11 +1,12 @@
 """The train and eval steps (port of ``xview2_tpu/parallel/steps.py``).
 
-Train: on-device augmentation of raw uint8 tiles (the albumentations chain,
-or the crop and one AutoAugment draw with ``--autoaugment``), the packed
-loss view of the labels, the relayout of labels and logits, the forward in
-train mode (batch statistics, running-stat updates, the fused tail),
-focal+dice, the backward and the optimizer update.  Eval: normalize, 4-flip TTA as one
-4x-stacked forward, the relayout copy, the loss and the F1 state.
+Train: on-device augmentation of raw uint8 tiles or pre/post pairs (the
+albumentations chain, or the crop and one AutoAugment draw with
+``--autoaugment``), the packed loss view of the labels, the relayout of
+labels and logits, the forward in train mode (batch statistics, running-stat
+updates, the fused tail), the loss, the backward and the optimizer update.
+Eval: normalize, 4-flip TTA as one 4x-stacked forward, the relayout copy,
+the loss and the F1 state.
 
 The JAX step is a pure function of a donated state; here the model's
 parameters, its BatchNorm buffers and the optimizer state are updated IN
@@ -110,6 +111,9 @@ def check_train_supported(cfg: Config) -> None:
     if cfg.gpus != 1 or cfg.spatial_shards != 1:
         raise NotImplementedError("--gpus/--spatial_shards > 1 are not ported yet "
                                   "(ROADMAP Queue 1, multi-GPU)")
+    if cfg.type == "post" and cfg.autoaugment:
+        raise NotImplementedError("--autoaugment with --type post is not ported yet "
+                                  "(ROADMAP Queue 1, damage variants)")
 
 
 def forward_loss(cfg: Config, model, loss_fn, x: torch.Tensor,
@@ -126,7 +130,7 @@ def make_train_step(cfg: Config, model, opt: torch.optim.Optimizer, crop: int = 
                     device="cuda", learning_rate: LearningRate = None,
                     ) -> Callable[..., Tuple[TrainState, torch.Tensor]]:
     """Build the augment+train step.  ``step_fn(state, images, masks, rng)``
-    takes raw uint8 (B, H, W, 3) tiles and (B, H, W) labels (numpy or
+    takes raw uint8 (B, H, W, 3|6) tiles and (B, H, W) labels (numpy or
     tensors; moved to ``device``) and a ``torch.Generator`` on the device
     (:func:`step_generator`); it updates the model, its BN buffers and the
     optimizer in place and returns ``(state, loss)``.  ``learning_rate`` is a

@@ -5,10 +5,13 @@
 ``last`` checkpoints with the optimizer state, honours ``--patience`` and
 logs one JSON line per epoch; a run resumed from ``--ckpt`` repeats an
 unbroken one bit for bit (loader epoch, step count and per-step random
-streams are restored).  ``test(cfg)`` restores a checkpoint, runs the holdout
-split through the eval step, dumps ``probs/*.npy`` and ``targets/*.png`` in
-the JAX package's format (localization probs = sigmoid of channel 1,
-filenames ``test_localization_{idx:05d}.npy`` and ``..._target.png``) and
+streams are restored).  A damage run starts from the localization encoder
+of ``--ckpt_pre`` when that checkpoint exists (``--ckpt`` then overrides
+it).  ``test(cfg)`` restores a checkpoint, runs the holdout split through
+the eval step, dumps ``probs/*.npy`` and ``targets/*.png`` in the JAX
+package's format (localization: sigmoid of channel 1, ``(H, W)``; damage:
+the class softmax channel-first, ``(4, H, W)``; float32, filenames
+``test_{localization|damage}_{idx:05d}.npy`` and ``..._target.png``) and
 logs the F1.
 """
 
@@ -34,6 +37,7 @@ from xview2_tpu_torch.parallel import checkpoint as ckpt_lib
 from xview2_tpu_torch.parallel.steps import (TrainState, check_train_supported,
                                              init_train_state, make_eval_step,
                                              make_train_step, resolve_device, step_generator)
+from xview2_tpu_torch.parallel.transplant import transplant_encoder
 from xview2_tpu_torch.train.logging import MetricsLogger, epoch_metrics, test_metrics
 from xview2_tpu_torch.train.optimizers import build_optimizer, check_optimizer
 from xview2_tpu_torch.train.scheduler import noam_schedule
@@ -42,21 +46,27 @@ from xview2_tpu_torch.weights import from_flax, to_flax
 
 def _save_predictions(cfg: Config, logits: torch.Tensor, targets: np.ndarray,
                       valid: np.ndarray, start_idx: int) -> int:
-    """Write per-image localization prob .npy (sigmoid of channel 1) +
-    target .png (reference plt.py:126-144)."""
+    """Write per-image prob .npy + target .png (reference plt.py:126-144):
+    localization the sigmoid of channel 1, damage the softmax over the
+    classes, channel-first as ``post_process`` reads it."""
     probs_dir = os.path.join(cfg.results, "probs")
     targets_dir = os.path.join(cfg.results, "targets")
     os.makedirs(probs_dir, exist_ok=True)
     os.makedirs(targets_dir, exist_ok=True)
-    probs = torch.sigmoid(logits[..., 1]).to(torch.float32).cpu().numpy()
+    logits = logits.to(torch.float32)
+    if cfg.type == "pre":
+        task, probs = "localization", torch.sigmoid(logits[..., 1])
+    else:
+        task, probs = "damage", torch.softmax(logits, dim=-1).permute(0, 3, 1, 2)
+    probs = probs.cpu().numpy()
     idx = start_idx
     for prob, target, v in zip(probs, targets, valid):
         if v <= 0:
             continue
-        fname = os.path.join(probs_dir, f"test_localization_{idx:05d}")
+        fname = os.path.join(probs_dir, f"test_{task}_{idx:05d}")
         np.save(fname, prob)
         Image.fromarray(target.astype(np.uint8)).save(
-            os.path.join(targets_dir, f"test_localization_{idx:05d}_target.png"))
+            os.path.join(targets_dir, f"test_{task}_{idx:05d}_target.png"))
         idx += 1
     return idx
 
@@ -160,9 +170,6 @@ def _check_fit_supported(cfg: Config) -> None:
     if cfg.pretrained_enc:
         raise NotImplementedError("--pretrained_enc is not ported to xview2_tpu_torch yet "
                                   "(ROADMAP Queue 1, models/pretrained.py)")
-    if cfg.ckpt_pre:
-        raise NotImplementedError("--ckpt_pre (the localization transplant) is not ported yet "
-                                  "(ROADMAP Queue 1, damage variants)")
     if not cfg.fold_eval_bn:
         raise NotImplementedError("--fold_eval_bn 0 is not ported: eval BatchNorm always "
                                   "runs folded (ROADMAP Queue 1, remaining CLI knobs)")
@@ -176,6 +183,13 @@ def fit(cfg: Config, device="cuda") -> str:
     train_loader, val_loader = make_train_loaders(cfg)
     runner = Runner(cfg, len(train_loader), device=device)
     state: TrainState = runner.state
+
+    if cfg.type == "post" and ckpt_lib.checkpoint_exists(cfg.ckpt_pre):
+        loc, _ = ckpt_lib.restore_raw(cfg.ckpt_pre)
+        copied = transplant_encoder(cfg.dmg_model, runner.model,
+                                    from_flax(loc["params"], loc["batch_stats"]))
+        print(f"transplanted localization encoder from {cfg.ckpt_pre} ({len(copied)} "
+              "tensors)", flush=True)
 
     start_epoch = 0
     best_f1, best_epoch = 0.0, 0
