@@ -58,7 +58,21 @@ Phases, each of which fails the script (non-zero exit, no result line):
    the card against the CPU (ResNeSt-50 Siamese, small).  Phase 3 also holds
    K1 at n = 4 and K3 at the Siamese head's C = 256, Co = 16 against their
    plain versions;
-9. one JSON line listing every kernel, then the ``nvidia-smi`` line, then
+9. the damage variants path (reusing A's best checkpoint): configuration C,
+   ``main([... --type post --dmg_model fused --loss_str coral --ckpt_pre <A's
+   best> ...])`` at batch 8 (ResNeSt-200 at full width and depth; K2, K4 and
+   K5 14 times per step: both branches' tails and the packed cross-fusion;
+   K3 at C = 256, Co = 4), its transplant watched (every
+   ``enc_fusion_i.pre_layer``/``.post_layer`` tensor equal to A's
+   ``unet.enc_l{i+1}``), then its eval CLI with TTA and its (1024, 1024)
+   float32 CORAL class dumps; C's train step (fused and stock tail) and eval
+   step (fused against stock) by CUDA events; one train and one eval step of
+   each of the six other variants and of ``cat`` with the MSE head (ResNet-50,
+   2 pairs of 256^2); the fused variant's float32 train step on the card
+   against the CPU; the --autoaugment chain on pairs against the CPU.  Phase
+   3 also holds K1 at n = 3 and 1, K3 at Co = 4 (C = 256 and 128), K2, K4 and
+   K5 at the cross-fusion's C = 256 -> 128, and K6 on 7-channel pairs;
+10. one JSON line listing every kernel, then the ``nvidia-smi`` line, then
    ``{"ok": true, "device": {...}}`` as the last line.
 """
 
@@ -119,14 +133,16 @@ def device_ms(fn, iters: int, warmup: int = 2) -> float:
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages() if e.self_device_time_total > 0]
-    if not kernels:
-        raise AssertionError("the profiler saw no device time")
-    return sum(e.self_device_time_total for e in kernels) / iters / 1e3
+    for _ in range(3):  # a session now and then records no kernel: profile again
+        with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+        if kernels:
+            return sum(e.self_device_time_total for e in kernels) / iters / 1e3
+        log("the profiler saw no device time; profiling again")
+    raise AssertionError("the profiler saw no device time in three sessions")
 
 
 def bound_ms(nbytes: float, flops: float, dtype: str):
@@ -696,6 +712,98 @@ def check_conv_bn_backward():
     return rows
 
 
+# (tag, B, H, W, C, Co): the fused variant's packed cross-fusion, conv_pre and
+# conv_post (two launches per step) over the concat of the two branches'
+# packed dec_l5 maps (2 x 4 x 32 channels) -> 4 x 32, at configuration C's
+# train batch of 512^2 crops and at its eval step (16 images of 1024^2)
+FUSION_PATH = [("train", 8, CROP // 2, CROP // 2, 256, 128),
+               ("eval", 4 * VAL_BATCH, TILE // 2, TILE // 2, 256, 128)]
+
+
+def fusion_kernel(seed: int):
+    """A packed kernel of the cross-fusion: a fine (3, 3, 64, 32) kernel
+    embedded by ``s2d_conv_kernel`` and row-permuted group-major
+    (``PackedConvLayer(groups=2)``), in bf16."""
+    import torch
+
+    from xview2_tpu_torch.models.layers import group_major_rows, s2d_conv_kernel
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    w = torch.randn((3, 3, 64, 32), generator=gen, device="cuda") / math.sqrt(9 * 64)
+    return group_major_rows(s2d_conv_kernel(w), 2).to(torch.bfloat16)
+
+
+def check_cross_fusion():
+    """K2, K4 and K5 at the packed cross-fusion of the fused variant (C = 256
+    -> 128 with a group-major kernel): K2 at C's train and eval shapes, K4
+    and K5 at the train shape, fold on and off, against their plain versions
+    at the tolerances of the other path shapes; the path shapes must take
+    the pipelined ``wgmma`` kernels.  Timed (fold on, as on the path: the
+    concat carries both branches' folds) beside the plain version, cuDNN's
+    conv, wgrad and dgrad on the activated input, and the bound.  Returns
+    {kernel: row} with ``fusion_`` keys per eval step (K2) and
+    ``fusion_train_`` keys per train step (two launches each)."""
+    import torch
+    import torch.nn.functional as F
+
+    from xview2_tpu_torch.ops import packed_fused_conv as pfc
+
+    rows = {k: {} for k in ("conv_bn_fused", "conv_bn_wgrad", "conv_bn_dgrad")}
+    for i, (tag, b, h, w, c, co) in enumerate(FUSION_PATH):
+        x, g, _, fold = bwd_case(b, h, w, c, co, torch.bfloat16, seed=150 + i)
+        k = fusion_kernel(160 + i)
+        kf = pfc.flip_kernel(k)
+        a = pfc.prologue(x, fold)
+        an, gn = a.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)
+        kc = k.permute(3, 2, 0, 1).contiguous()
+        flops = 2.0 * b * h * w * 9 * c * co
+        act = b * h * w * (c + co) * 2
+        kerns = {"conv_bn_fused": (
+            lambda hf: pfc.conv_bn_fused(x, k, fold, hf),
+            lambda hf: pfc.reference_conv_bn(x, k, fold if hf else None), _compare_conv,
+            lambda: F.conv2d(an, kc, padding=1), "cuDNN conv",
+            act + 9 * c * co * 2 + (3 * c + 2 * co) * 4)}
+        if tag == "train":
+            kerns["conv_bn_wgrad"] = (
+                lambda hf: pfc.conv_bn_wgrad(x, g, fold, hf),
+                lambda hf: pfc.reference_wgrad(x, g, fold if hf else None),
+                lambda got, want, t: _compare_wgrad(got, want, t)[0],
+                lambda: torch.nn.grad.conv2d_weight(an, kc.shape, gn, padding=1), "cuDNN wgrad",
+                act + 9 * c * co * 4 + 3 * c * 4)
+            kerns["conv_bn_dgrad"] = (
+                lambda hf: pfc.conv_bn_dgrad(g, kf, x, fold, hf),
+                lambda hf: pfc.reference_dgrad(g, kf, x, fold if hf else None), _compare_dgrad,
+                lambda: torch.nn.grad.conv2d_input(an.shape, kc, gn, padding=1), "cuDNN dgrad",
+                act + (b * h * w * c + 9 * c * co) * 2 + 5 * c * 4)
+        for kern, (fn, ref, compare, lib_fn, lib_name, nbytes) in kerns.items():
+            short = {"conv_bn_fused": "K2", "conv_bn_wgrad": "K4", "conv_bn_dgrad": "K5"}[kern]
+            err = 0.0
+            for hf in (True, False):
+                got = compare(fn(hf), ref(hf), f"{short} cross-fusion {tag} fold={hf}")
+                err = max(err, got[0] if isinstance(got, tuple) else got)
+            torch.cuda.synchronize()
+            variant = pfc.kernel_variant(kern, h, w, c, co, torch.bfloat16)
+            if "pipelined" not in variant:
+                raise AssertionError(f"{short} cross-fusion {tag}: the path shape took "
+                                     f"'{variant}'")
+            ms = cuda_ms(lambda: fn(True), 10)
+            plain = cuda_ms(lambda: ref(True), 2)
+            lib = cuda_ms(lib_fn, 10)
+            bnd, by = bound_ms(nbytes, flops, "bfloat16")
+            key = "fusion_" if tag == "eval" else "fusion_train_"
+            rows[kern].update({f"{key}max_abs_err": err, f"{key}ms": 2 * ms,
+                               f"{key}plain_ms": 2 * plain, f"{key}library_ms": 2 * lib,
+                               f"{key}bound_ms": 2 * bnd, f"{key}variant": variant})
+            log(f"{short} cross-fusion {tag} {(b, h, w, c)}->{co} bf16 [{variant}]: fold on "
+                f"and off within the tolerance of the other path shapes, max abs err "
+                f"{err:.4g}; fold=True kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s), "
+                f"plain {plain:.3f} ms, library ({lib_name}) {lib:.3f} ms, bound {bnd:.3f} ms "
+                f"({by}); two launches per step")
+        del x, g, k, kf, fold, a, an, gn, kc
+        torch.cuda.empty_cache()
+    return rows
+
+
 def head_case(shape, co, seed):
     """(x, kmat, hbias, fold) on the card for K3 at ``shape`` -> co."""
     import torch
@@ -790,23 +898,24 @@ def check_head_conv_fused(c: int = 128, cos=(16, 8), train_batch: int = TRAIN_BA
     return row
 
 
-def check_relayout_damage():
-    """K1 at the damage task's n = 4: the eval step's logits (VAL_BATCH,
-    1024, 1024, 4) f32, and the train step's three launches (labels
-    (DMG_BATCH, 256, 1024) int32, logits and cotangent (DMG_BATCH, 256,
-    1024, 4) bf16), bit-exact on the contiguous tensor and a transposed view,
-    timed by CUDA events beside the plain version, ``clone`` and the bound.
-    Returns the row with ``dmg_`` keys (``dmg_train_`` per train step)."""
+def check_relayout_damage(n: int = 4, pre: str = "dmg_"):
+    """K1 at a damage head's ``n`` logits (4 classes; 3 CORAL levels; 1 MSE
+    logit): the eval step's logits (VAL_BATCH, 1024, 1024, n) f32, and the
+    train step's three launches (labels (DMG_BATCH, 256, 1024) int32, logits
+    and cotangent (DMG_BATCH, 256, 1024, n) bf16), bit-exact on the
+    contiguous tensor and a transposed view, timed by CUDA events beside the
+    plain version, ``clone`` and the bound.  Returns the row with ``pre``
+    keys (``{pre}train_`` per train step)."""
     import torch
 
     from xview2_tpu_torch.ops import layout
 
     gen = torch.Generator(device="cuda").manual_seed(3)
-    k1 = {"dmg_max_abs_err": 0.0}
-    logits = torch.randn((VAL_BATCH, TILE, TILE, 4), generator=gen, device="cuda")
+    k1 = {f"{pre}max_abs_err": 0.0}
+    logits = torch.randn((VAL_BATCH, TILE, TILE, n), generator=gen, device="cuda")
     lab = torch.randint(0, 5, (DMG_BATCH, CROP // 2, 2 * CROP), generator=gen, device="cuda",
                         dtype=torch.int32)
-    tlog = torch.randn((DMG_BATCH, CROP // 2, 2 * CROP, 4), generator=gen,
+    tlog = torch.randn((DMG_BATCH, CROP // 2, 2 * CROP, n), generator=gen,
                        device="cuda").to(torch.bfloat16)
     for tag, tensors in (("eval", ((logits, 1),)), ("train", ((lab, 1), (tlog, 2)))):
         row = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
@@ -815,7 +924,7 @@ def check_relayout_damage():
                 got = layout.relayout_cuda(v)
                 torch.cuda.synchronize()
                 if not (got.is_contiguous() and torch.equal(got, v)):
-                    raise AssertionError(f"K1 at n = 4 {tuple(v.shape)} {v.dtype}: not a "
+                    raise AssertionError(f"K1 at n = {n} {tuple(v.shape)} {v.dtype}: not a "
                                          "bit-exact contiguous copy")
             row["ms"] += count * cuda_ms(lambda: layout.relayout_cuda(x), 20)
             row["plain_ms"] += count * cuda_ms(lambda: layout.relayout_reference(x), 20)
@@ -823,11 +932,11 @@ def check_relayout_damage():
             row["bound_ms"] += count * bound_ms(2 * x.numel() * x.element_size(), 0.0,
                                                 "float32")[0]
         shapes = ", ".join(f"{tuple(x.shape)} {str(x.dtype).split('.')[-1]}" for x, _ in tensors)
-        log(f"K1 relayout damage {tag} ({shapes}; {sum(c for _, c in tensors)} launches): "
-            f"bit-exact on the contiguous tensor and a transposed view; kernel {row['ms']:.4f} "
-            f"ms, plain {row['plain_ms']:.4f} ms, library (clone) {row['library_ms']:.4f} ms, "
-            f"bound {row['bound_ms']:.4f} ms (bytes)")
-        key = "dmg_" if tag == "eval" else "dmg_train_"
+        log(f"K1 relayout damage n = {n} {tag} ({shapes}; {sum(c for _, c in tensors)} "
+            f"launches): bit-exact on the contiguous tensor and a transposed view; kernel "
+            f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, library (clone) "
+            f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms (bytes)")
+        key = pre if tag == "eval" else f"{pre}train_"
         k1.update({key + k: v for k, v in row.items()})
     return k1
 
@@ -839,8 +948,9 @@ AA_GROUP = 2    # a typical group: 17% of a batch of 16 draw a spatial op
 ROT_WIDTH = CROP + 2 * (int(math.ceil(0.2680 * (CROP - 1) / 2.0)) + 2)
 
 
-def _row_shift_cases(n):
-    """(tag, x, shift, sel, axis) at the path's shapes and shift patterns."""
+def _row_shift_cases(n, c: int = 4):
+    """(tag, x, shift, sel, axis) at the path's shapes and shift patterns, on
+    ``c``-channel pixels (4: image and mask; 7: a pre/post pair and mask)."""
     import numpy as np
     import torch
 
@@ -848,7 +958,7 @@ def _row_shift_cases(n):
 
     gen = torch.Generator(device="cuda").manual_seed(60 + n)
 
-    def image(w, c=4):
+    def image(w):
         return torch.randint(0, 256, (n, CROP, w, c), generator=gen, device="cuda").float()
 
     rows = torch.arange(CROP, dtype=torch.float32, device="cuda")
@@ -867,7 +977,7 @@ def _row_shift_cases(n):
     ]
 
 
-def row_shift_host_breakdown(calls: int = 1000) -> dict:
+def row_shift_host_breakdown(calls: int = 1000, c: int = 4) -> dict:
     """Host microseconds of one ``row_shift_cuda`` call beside ``clone``, and
     of the ctypes call of the entry point without a launch (an empty map) and
     the launch (a call with one, less that), each by ``time.perf_counter``
@@ -881,7 +991,7 @@ def row_shift_host_breakdown(calls: int = 1000) -> dict:
 
     from xview2_tpu_torch.ops import cuda_build, rowshift
 
-    x = torch.zeros((1, 8, 8, 4), device="cuda")
+    x = torch.zeros((1, 8, 8, c), device="cuda")
     shift = torch.zeros((1, 8), device="cuda")
     sel = torch.zeros(1, dtype=torch.int32, device="cuda")
     out = torch.empty_like(x)
@@ -893,13 +1003,14 @@ def row_shift_host_breakdown(calls: int = 1000) -> dict:
     args = (x.data_ptr(), shift.data_ptr(), sel.data_ptr(), out.data_ptr())
     us = host_us({
         "row_shift_cuda": lambda: rowshift.row_shift_cuda(x, shift, sel),
-        "ctypes_call": lambda: bare(*args, 0, 8, 8, 4, 2, stream),
-        "ctypes_call_and_launch": lambda: bare(*args, 1, 8, 8, 4, 2, stream),
+        "ctypes_call": lambda: bare(*args, 0, 8, 8, c, 2, stream),
+        "ctypes_call_and_launch": lambda: bare(*args, 1, 8, 8, c, 2, stream),
         "clone": lambda: x.clone(),
     }, calls)
     us["launch"] = us.pop("ctypes_call_and_launch") - us["ctypes_call"]
     log("K6 host time per call (us, perf_counter over "
-        f"{calls} calls of a (1, 8, 8, 4) map): " + ", ".join(f"{k} {v:.2f}" for k, v in us.items()))
+        f"{calls} calls of a (1, 8, 8, {c}) map): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in us.items()))
     return us
 
 
@@ -972,6 +1083,38 @@ def check_row_shift():
         f"{row['device_ms']:.4f}), plain {row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
         "(bytes)")
     row.update({f"host_us_{k}": v for k, v in row_shift_host_breakdown().items()})
+    # --autoaugment on pairs: 7-channel pixels (pre, post, mask) take the
+    # scalar path; the same step row at C = 7 and each launch at the damage
+    # batch, EQUAL to the plain version
+    pair = dict(ms=0.0, device_ms=0.0, plain_ms=0.0, bound_ms=0.0)
+    for n in (AA_GROUP, DMG_BATCH):
+        for tag, x, shift, sel, axis in _row_shift_cases(n, 7):
+            got = rowshift.row_shift(x, shift, sel, axis=axis)
+            if not torch.equal(got, rowshift.row_shift_reference(x, shift, sel, axis=axis)):
+                raise AssertionError(f"K6 row_shift {tag} {tuple(x.shape)}: not bit-equal")
+            fn = lambda: rowshift.row_shift(x, shift, sel, axis=axis)  # noqa: E731
+            ms, dev = cuda_ms(fn, 20), device_ms(fn, 20)
+            plain = cuda_ms(lambda: rowshift.row_shift_reference(x, shift, sel, axis=axis), 5)
+            copy = cuda_ms(lambda: x.clone(), 20)
+            bnd, _ = bound_ms(2 * x.numel() * 4 + shift.numel() * 4 + sel.numel() * 4, 0.0,
+                              "float32")
+            log(f"K6 row_shift pair {tag} {tuple(x.shape)} f32 axis {axis}: bit-equal, kernel "
+                f"{ms:.4f} ms ({2 * x.numel() * 4 / ms / 1e9:.3f} TB/s; device time {dev:.4f}), "
+                f"plain {plain:.4f} ms, clone {copy:.4f} ms, bound {bnd:.4f} ms (bytes)")
+            if n == AA_GROUP:
+                times = 2 if tag == "rotate row pass" else 1
+                for k, v in (("ms", ms), ("device_ms", dev), ("plain_ms", plain),
+                             ("bound_ms", bnd)):
+                    pair[k] += times * v
+            else:
+                row[f"pair_batch_ms_{tag.replace(' ', '_')}"] = ms
+                row[f"pair_batch_device_ms_{tag.replace(' ', '_')}"] = dev
+    log(f"K6 per --autoaugment step on pairs (C = 7, one rotation and one shear group of "
+        f"{AA_GROUP}, 4 launches): kernel {pair['ms']:.4f} ms (device time "
+        f"{pair['device_ms']:.4f}), plain {pair['plain_ms']:.4f} ms, bound "
+        f"{pair['bound_ms']:.4f} ms (bytes)")
+    row.update({f"pair_{k}": v for k, v in pair.items()})
+    row.update({f"pair_host_us_{k}": v for k, v in row_shift_host_breakdown(c=7).items()})
     return row
 
 
@@ -1458,6 +1601,17 @@ DMG_NEED = {"relayout_cuda": 3, "conv_bn_fused": 12, "head_conv_fused": 1, "conv
             "conv_bn_dgrad": 12}   # launches per Siamese train step: the tail runs per branch
 
 
+def write_splits(work: str) -> None:
+    """The synthetic splits of the eval and train paths, where they are not
+    in ``work`` yet (the damage phases alone write them)."""
+    from xview2_tpu_torch.data.synthetic import make_synthetic_split
+
+    for split, n, seed in (("holdout", N_TILES, 7), ("train", TRAIN_TILES, 11),
+                           ("test", TRAIN_VAL_TILES, 12)):
+        if not os.path.isdir(os.path.join(work, split)):
+            make_synthetic_split(work, split, n, size=TILE, seed=seed)
+
+
 def run_damage_path(work: str, profile: bool):
     """The README's pipeline at the CLI's defaults (ResNeSt-200, full width
     and depth, torch's initializers from --seed): A, ``main([--exec_mode
@@ -1481,13 +1635,7 @@ def run_damage_path(work: str, profile: bool):
     from xview2_tpu_torch.train import trainer
     from xview2_tpu_torch.weights import from_flax
 
-    from xview2_tpu_torch.data.synthetic import make_synthetic_split
-
-    # the splits of the eval and train paths (written here when they did not run)
-    for split, n, seed in (("holdout", N_TILES, 7), ("train", TRAIN_TILES, 11),
-                           ("test", TRAIN_VAL_TILES, 12)):
-        if not os.path.isdir(os.path.join(work, split)):
-            make_synthetic_split(work, split, n, size=TILE, seed=seed)
+    write_splits(work)
     launches = {}
     res_a, res_b = os.path.join(work, "dmg_a"), os.path.join(work, "dmg_b")
     launches["A train"] = _drive_train_cli(work, "dmg_a", [], {}, "A (ResNeSt-200 UNetLoc) train",
@@ -1607,22 +1755,273 @@ def run_damage_path(work: str, profile: bool):
     return launches, rows
 
 
-def check_autoaugment_against_cpu() -> None:
+C_BATCH = 8   # configuration C: ResNeSt-200 fused + CORAL, BASELINE config 4's batch
+# launches per train step of C: each branch's decoder runs its dec_l2 and
+# dec_l3 ConvBlocks (two fused convs each) and its packed dec_l5 (two), and
+# the packed cross-fusion its conv_pre and conv_post (two): 14 K2, with a K4
+# and a K5 behind each; the CORAL head once (K3 at C = 256, Co = 4); K1 for
+# the labels, the logits and their cotangent
+C_NEED = {"relayout_cuda": 3, "conv_bn_fused": 14, "head_conv_fused": 1, "conv_bn_wgrad": 14,
+          "conv_bn_dgrad": 14}
+# the six other variants (and cat with the MSE head) at reduced depth and
+# batch: ResNet-50, VARIANT_BATCH pairs cropped to VARIANT_CROP^2; with the
+# fused convs of one step: dec_l2, dec_l3 and dec_l5 two each per decoder,
+# but the doubled decoders of siameseEnc and parallelEnc keep dec_l2 (C =
+# 1280) on the stock route, whose weight gradient exceeds supported()'s budget
+VARIANTS = (("siameseEnc", "ohem+dice", 4), ("fusedEnc", "ohem+dice", 6),
+            ("parallel", "ohem+dice", 12), ("parallelEnc", "ohem+dice", 4),
+            ("diff", "ohem+dice", 6), ("cat", "ohem+dice", 6), ("cat", "mse", 6))
+VARIANT_BATCH = 2
+VARIANT_CROP = 256
+
+
+def run_dmg_variants_path(work: str, profile: bool):
+    """Configuration C, BASELINE's config 4 without PPM, through the CLI at
+    full width and depth: ``main([--exec_mode train --type post --dmg_model
+    fused --loss_str coral --fused_tail 1 --batch_size 8 --ckpt_pre <A's
+    best>])`` (the CLI's default encoder, ResNeSt-200), its transplant
+    watched (every ``enc_fusion_i.pre_layer`` and ``.post_layer`` tensor
+    equal to A's ``unet.enc_l{i+1}``), then ``main([--exec_mode eval ...
+    --eval_tta on --eval_fused_tail on])`` on C's best with its CORAL dumps
+    ((1024, 1024) float32 classes in {1, 2, 3, 4}), each with the counters
+    from 0; C's train step (fused and stock tail) and eval step (fused
+    against stock) on device-resident batches.  Then the six other variants
+    and ``cat`` with the MSE head, one train and one eval step each
+    (ResNet-50, VARIANT_BATCH pairs of VARIANT_CROP^2): a finite loss, moved
+    parameters, fused and stock eval in agreement, K3 on the kernel its
+    shape should take.  Then the fused variant's float32 train step against
+    the CPU, and the --autoaugment chain on pairs against the CPU.  Needs
+    A's best checkpoint from :func:`run_damage_path`.  Returns ({path:
+    launch counts}, {row: steady-state numbers})."""
+    import numpy as np
+    import torch
+
+    from xview2_tpu_torch.config import Config
+    from xview2_tpu_torch.main import main as port_main
+    from xview2_tpu_torch.ops import packed_fused_conv as pfc
+    from xview2_tpu_torch.ops.metrics import init_f1_state
+    from xview2_tpu_torch.parallel import checkpoint as ckpt_lib
+    from xview2_tpu_torch.parallel.steps import (init_train_state, make_eval_step,
+                                                 make_train_step, step_generator)
+    from xview2_tpu_torch.train import trainer
+    from xview2_tpu_torch.train.optimizers import build_optimizer
+    from xview2_tpu_torch.weights import from_flax
+
+    a_best = os.path.join(work, "dmg_a", "checkpoints", "best")
+    payload, _ = ckpt_lib.restore_raw(a_best)
+    loc = from_flax(payload["params"], payload["batch_stats"])
+    del payload
+    launches, rows, seen = {}, {}, {}
+    real_transplant = trainer.transplant_encoder
+
+    def watched(dmg_model, model, loc_state):
+        copied = real_transplant(dmg_model, model, loc_state)
+        seen["copied"] = copied
+        seen["state"] = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()
+                         if k.startswith("enc_fusion_")
+                         and k.split(".")[1] in ("pre_layer", "post_layer")}
+        return copied
+
+    trainer.transplant_encoder = watched
+    try:
+        launches["C train"] = _drive_train_cli(
+            work, "dmg_c", ["--type", "post", "--dmg_model", "fused", "--loss_str", "coral",
+                            "--ckpt_pre", a_best],
+            {}, "C (ResNeSt-200 fused + CORAL, --ckpt_pre A) train", batch=C_BATCH,
+            need_per_step=C_NEED)
+    finally:
+        trainer.transplant_encoder = real_transplant
+    torch.cuda.empty_cache()
+    enc = sorted(seen.get("state", {}))
+
+    def source(name):  # enc_fusion_i.{pre,post}_layer.rest -> unet.enc_l{i+1}.rest
+        block, _, rest = name.split(".", 2)
+        return f"unet.enc_l{int(block.split('_')[-1]) + 1}.{rest}"
+
+    differ = [k for k in enc if source(k) not in loc or not torch.equal(seen["state"][k],
+                                                                        loc[source(k)])]
+    n_loc = sum(k.startswith("unet.enc_l") for k in loc)
+    log(f"C's --ckpt_pre transplant: {len(seen.get('copied', []))} tensors copied of "
+        f"{len(enc)} enc_fusion_*.pre_layer/post_layer tensors (A has {n_loc} unet.enc_l* "
+        f"tensors, each placed in both branches); {len(differ)} differ from A's best checkpoint")
+    if not enc or sorted(seen["copied"]) != enc or differ or len(enc) != 2 * n_loc:
+        raise AssertionError("the --ckpt_pre transplant did not copy A's encoder whole into "
+                             "both branches")
+    del loc, seen
+
+    res_c = os.path.join(work, "dmg_c")
+    argv = ["--exec_mode", "eval", "--type", "post", "--dmg_model", "fused", "--loss_str",
+            "coral", "--data", work, "--results", res_c, "--ckpt",
+            os.path.join(res_c, "checkpoints", "best"), "--val_batch_size", str(VAL_BATCH),
+            "--num_workers", "8", "--eval_tta", "on", "--eval_fused_tail", "on"]
+    _zero_counters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rc = port_main(argv, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches["C eval"] = _read_counters()
+    if rc != 0:
+        raise AssertionError(f"main returned {rc}")
+    log(f"C eval main path: main(--exec_mode eval --type post --dmg_model fused --loss_str coral "
+        f"--eval_tta on --eval_fused_tail on, {N_TILES} tiles) {wall:.2f} s end to end, peak "
+        f"memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; launches "
+        f"{launches['C eval']}")
+    steps = N_TILES // VAL_BATCH
+    _need_launches(launches["C eval"], {"relayout_cuda": steps, "conv_bn_fused": 14 * steps,
+                                        "head_conv_fused": steps}, "C eval")
+    probs = sorted(glob.glob(os.path.join(res_c, "probs", "test_damage_*.npy")))
+    targets = sorted(glob.glob(os.path.join(res_c, "targets", "test_damage_*.png")))
+    if len(probs) != N_TILES or len(targets) != N_TILES:
+        raise AssertionError(f"expected {N_TILES} damage dumps, got {len(probs)} probs and "
+                             f"{len(targets)} targets")
+    counts = np.zeros(5, np.int64)
+    for p in probs:
+        cls = np.load(p)
+        if cls.shape != (TILE, TILE) or cls.dtype != np.float32 or \
+                not set(np.unique(cls).tolist()) <= {1.0, 2.0, 3.0, 4.0}:
+            raise AssertionError(f"{p}: bad CORAL classes {cls.shape} {cls.dtype} "
+                                 f"{np.unique(cls)[:8]}")
+        counts += np.bincount(cls.astype(np.int64).ravel(), minlength=5)
+    with open(os.path.join(res_c, "logs.json")) as f:
+        metrics = json.loads(f.readlines()[-1])["data"]
+    log(f"C eval outputs: {len(probs)} ({TILE}, {TILE}) float32 CORAL class dumps, pixels per "
+        f"class 1-4 {counts[1:].tolist()}, {len(targets)} targets, metrics {metrics}")
+    if "f1" not in metrics:
+        raise AssertionError("the damage eval logged no F1")
+    shutil.rmtree(os.path.join(res_c, "checkpoints"))
+
+    # C's steady state on device-resident batches
+    c_cfg = Config(type="post", dmg_model="fused", encoder="resnest200", precision=16,
+                   loss_str="coral", batch_size=C_BATCH, optimizer="adamw", fused_tail=True)
+    images, masks = _raw_train_batch(C_BATCH, 6)
+    for fused in (True, False):
+        rows[f"C train {'fused' if fused else 'stock'}"] = _time_train_step(
+            c_cfg.replace(fused_tail=fused), images, masks, profile,
+            f"C ResNeSt-200 fused + CORAL, {'fused' if fused else 'stock'} tail", kernel_scale=1.9)
+    del images, masks
+    torch.cuda.empty_cache()
+    model = seeded_model(c_cfg.replace(tta=True), seed=0, kernel_scale=1.9).cuda()
+    outs = {}
+    for fused in (True, False):
+        rows[f"C eval {'fused' if fused else 'stock'}"], outs[fused] = _time_eval_step(
+            c_cfg.replace(tta=True, fused_tail=fused), model, 6, profile,
+            f"C ResNeSt-200 fused + CORAL, {'fused' if fused else 'stock'} tail")
+    _check_fused_vs_stock(outs, "C eval step (CORAL logits)")
+    del model, outs
+    torch.cuda.empty_cache()
+
+    # the six other variants, and cat with the MSE head
+    rng = np.random.default_rng(23)
+    images, masks = _raw_train_batch(VARIANT_BATCH, 6)
+    ev_images = torch.from_numpy(rng.integers(0, 256, (VARIANT_BATCH, VARIANT_CROP, VARIANT_CROP,
+                                                       6), np.uint8)).cuda()
+    ev_masks = torch.from_numpy(((rng.random((VARIANT_BATCH, VARIANT_CROP, VARIANT_CROP)) > 0.8)
+                                 * rng.integers(1, 5, (VARIANT_BATCH, VARIANT_CROP,
+                                                       VARIANT_CROP))).astype(np.uint8)).cuda()
+    valid = torch.ones(VARIANT_BATCH, device="cuda")
+    launches["variants"] = dict.fromkeys(_read_counters(), 0)
+    for dmg_model, loss_str, k2 in VARIANTS:
+        tag = f"{dmg_model} {loss_str} (ResNet-50)"
+        cfg = Config(type="post", dmg_model=dmg_model, encoder="resnet50", precision=16,
+                     loss_str=loss_str, batch_size=VARIANT_BATCH, optimizer="adamw",
+                     fused_tail=True)
+        model = seeded_model(cfg, seed=0)
+        before = {k: v.clone() for k, v in model.named_parameters()}
+        opt = build_optimizer(cfg, model.parameters(), cfg.lr)
+        state = init_train_state(model, opt, device="cuda")
+        step = make_train_step(cfg, model, opt, crop=VARIANT_CROP, device="cuda")
+        _zero_counters()
+        loss = float(step(state, images, masks, step_generator(cfg, 0, "cuda"))[1])
+        torch.cuda.synchronize()
+        train_launches = _read_counters()
+        moved = sum(not torch.equal(v.cpu(), before[k]) for k, v in model.named_parameters())
+
+        def train_step():
+            step(state, images, masks, step_generator(cfg, state.step, "cuda"))
+
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_ms(train_step, 3)
+        rows[f"{tag} train"] = {"ms": ms, "tiles_per_s": VARIANT_BATCH / ms * 1e3,
+                                "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+        if profile:
+            profile_step(train_step, f"train step, {tag}")
+        outs, eval_launches = {}, {}
+        for fused in (False, True):  # the fused eval step last: it is timed below
+            ecfg = cfg.replace(tta=True, fused_tail=fused)
+            f1 = init_f1_state(ecfg.n_metric_class, device="cuda")
+            eval_step = make_eval_step(ecfg, model, device="cuda")
+            _zero_counters()
+            _, eloss, outs[fused] = eval_step(f1, ev_images, ev_masks, valid)
+            torch.cuda.synchronize()
+            eval_launches[fused] = _read_counters()
+            outs[fused] = outs[fused].float()
+            if not math.isfinite(float(eloss)):
+                raise AssertionError(f"{tag}: eval loss is not finite")
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_ms(lambda: eval_step(f1, ev_images, ev_masks, valid), 3)
+        rows[f"{tag} eval fused"] = {"ms": ms, "tiles_per_s": VARIANT_BATCH / ms * 1e3,
+                                     "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+        groups = 2 if dmg_model == "parallel" else 1
+        c, co = 128 * groups, 4 * (1 if cfg.n_class == 3 else cfg.n_class)
+        variant = pfc.kernel_variant("head_conv_fused", VARIANT_CROP // 2, VARIANT_CROP // 2, c,
+                                     co, torch.bfloat16)
+        log(f"variant {tag}: train step loss {loss:.6f}, {moved} of {len(before)} parameters "
+            f"moved, then {rows[tag + ' train']['ms']:.2f} ms a step (batch {VARIANT_BATCH} "
+            f"of {VARIANT_CROP}^2 crops, peak {rows[tag + ' train']['peak_gib']:.2f} GiB); "
+            f"eval step (TTA, fused tail) {rows[tag + ' eval fused']['ms']:.2f} ms; "
+            f"launches {_nonzero(train_launches)}; eval step (TTA) launches fused "
+            f"{_nonzero(eval_launches[True])}, stock {_nonzero(eval_launches[False])}; K3 at "
+            f"C = {c}, Co = {co} [{variant}]")
+        _check_fused_vs_stock(outs, f"variant {tag} eval step")
+        if not (math.isfinite(loss) and moved >= 0.9 * len(before)):
+            raise AssertionError(f"{tag}: loss {loss}, {moved} of {len(before)} parameters moved")
+        if "mma.sync" not in variant:
+            raise AssertionError(f"{tag}: K3 at C = {c}, Co = {co} took '{variant}'")
+        _need_launches(train_launches, {"relayout_cuda": 3, "conv_bn_fused": k2,
+                                        "head_conv_fused": 1, "conv_bn_wgrad": k2,
+                                        "conv_bn_dgrad": k2}, f"{tag} train")
+        _need_launches(eval_launches[True], {"relayout_cuda": 1, "conv_bn_fused": k2,
+                                             "head_conv_fused": 1}, f"{tag} eval")
+        for d in (train_launches, eval_launches[True], eval_launches[False]):
+            for k, v in d.items():
+                launches["variants"][k] += v
+        del model, opt, state, step, before, outs
+        torch.cuda.empty_cache()
+    del images, masks, ev_images, ev_masks
+    torch.cuda.empty_cache()
+
+    check_f32_train_step_against_cpu(
+        Config(type="post", dmg_model="fused", encoder="resnet50", loss_str="coral",
+               precision=32), b=4, size=128, tag=" (C: ResNet-50 fused + CORAL)", spread=True,
+        noise_floor=True)
+    check_autoaugment_against_cpu(6)
+    return launches, rows
+
+
+def _nonzero(launches: dict) -> dict:
+    return {k: v for k, v in launches.items() if v}
+
+
+def check_autoaugment_against_cpu(channels: int = 3) -> None:
     """The --autoaugment chain (crop, AutoAugment, normalize) on the card,
     through K6, against the same chain on the CPU, through the plain
     version, on the same draws at full size (16 raw 1024^2 tiles -> 512^2
-    crops).  Labels EQUAL.  The image within 1e-5 of the normalized scale,
+    crops; with ``channels=6`` DMG_BATCH pre/post pairs, 7-channel pixels in
+    K6).  Labels EQUAL.  The image within 1e-5 of the normalized scale,
     except where contrast's mean (a float32 sum of 262,144 pixels, in another
     order on the card) lands on another side of .5."""
     import torch
 
     from xview2_tpu_torch.ops import augment, autoaugment, rowshift
 
-    images, masks = _raw_train_batch()
+    batch = TRAIN_BATCH if channels == 3 else DMG_BATCH
+    images, masks = _raw_train_batch(batch, channels)
     gen = torch.Generator().manual_seed(21)
     d = augment.draw_augment_autoaugment(gen, masks.cpu(), CROP)
     # every subpolicy with a spatial op at least once, slots forced to fire
-    pol = torch.tensor([0, 5, 8, 10, 11, 15, 18, 18], dtype=d.aa.policy.dtype)[:TRAIN_BATCH]
+    pol = torch.tensor([0, 5, 8, 10, 11, 15, 18, 18], dtype=d.aa.policy.dtype)[:batch]
     d.aa.policy[:len(pol)] = pol
     d.aa.u1[:len(pol)] = 0.0
     d.aa.u2[:len(pol)] = 0.0
@@ -1637,7 +2036,8 @@ def check_autoaugment_against_cpu() -> None:
     launched = rowshift.row_shift_cuda.launches - before
     err = (got_x.cpu() - want_x).abs().amax(dim=(1, 2, 3))
     labels_equal = torch.equal(got_y.cpu(), want_y)
-    log(f"--autoaugment chain ({TRAIN_BATCH} x {TILE}^2 -> {CROP}^2, every spatial subpolicy "
+    log(f"--autoaugment chain ({batch} x {TILE}^2 x {channels} channels -> {CROP}^2, every "
+        f"spatial subpolicy "
         f"forced: two rotation groups and a shear group, 7 launches or more), "
         f"card through K6 vs CPU through the plain version: labels equal: {labels_equal}, "
         f"image max abs err per sample {[float(f'{e:.2g}') for e in err.tolist()]} (tolerance "
@@ -1666,8 +2066,19 @@ def run_autoaugment_path(work: str, profile: bool):
     return launches
 
 
+def _kernel_leaf(name: str) -> bool:
+    """A parameter of a decoder block that the fused kernels run: dec_l2,
+    dec_l3 and the packed dec_l5 of a template, of each fused branch, and the
+    fused variant's packed cross-fusion."""
+    return (any(f"dec_layers_{i}.conv_block" in name for i in (1, 2, 4))
+            or any(f"dec_fusion_{i}.{b}_layer.conv_block" in name
+                   for i in (1, 2, 4) for b in ("pre", "post"))
+            or name.startswith(("dec_fusion_4.conv_pre.", "dec_fusion_4.conv_post.")))
+
+
 def check_f32_train_step_against_cpu(base=None, b: int = 4, size: int = 256,
-                                     tag: str = "", spread: bool = False) -> None:
+                                     tag: str = "", spread: bool = False,
+                                     noise_floor: bool = False) -> None:
     """One small float32 train-mode forward, loss and backward (TF32 off) on
     the card with the fused tail, through the f32 kernels, against the same
     on the CPU through the plain versions, from the same weights and the same
@@ -1691,7 +2102,14 @@ def check_f32_train_step_against_cpu(base=None, b: int = 4, size: int = 256,
     crops of one distribution: the CPU's own float32 step against itself
     with the batch reversed (the same sums in another order) and against
     the float64 step, and the card's float32 step against both CPU
-    steps."""
+    steps.
+
+    ``noise_floor`` (with ``spread``; the fused variant, where the CPU's own
+    float32 step reversed reads about 0.06 against itself, above the 5e-2):
+    the gradients may instead be no farther from the float64 step than 1.25
+    times the CPU's float32 step is, over all leaves and over the worst
+    fused-tail leaf, so the card is held to the float32 noise it cannot be
+    below; the gate against the card's own stock tail stays 5e-2."""
     import numpy as np
     import torch
 
@@ -1732,7 +2150,7 @@ def check_f32_train_step_against_cpu(base=None, b: int = 4, size: int = 256,
     lc, gc, sc, nc = run("cpu", True)
     lg, gg, sg, ng = run("cuda", True)
     ls, gs, _, _ = run("cuda", False)
-    tail = [k for k in gc if any(f"dec_layers_{i}.conv_block" in k for i in (1, 2, 4))]
+    tail = [k for k in gc if _kernel_leaf(k)]
     err_all, floor_all = rel_l2(gg, gc, list(gc)), rel_l2(gs, gc, list(gc))
     err_tail = max(rel_l2(gg, gc, [k]) for k in tail)
     floor_tail = max(rel_l2(gs, gc, [k]) for k in tail)
@@ -1747,9 +2165,10 @@ def check_f32_train_step_against_cpu(base=None, b: int = 4, size: int = 256,
         f"loss {ls:.6f}; fused against stock tail on the card: {card_all:.3g} and "
         f"{card_tail:.3g}); running statistics max err {stat_err:.3g} of scale (tolerance "
         f"1e-3); {ng} K4+K5 launches on the card, {nc} on the CPU")
-    if not (ng > 0 and nc == 0 and abs(lg - lc) <= 1e-4 * abs(lc) and stat_err <= 1e-3
-            and max(err_all, err_tail, card_all, card_tail) <= 5e-2):
-        raise AssertionError(f"float32 train step{tag} on the card disagrees with the CPU path")
+    top = sorted(gc, key=lambda k: -float(((gg[k] - gc[k]) ** 2).sum()))[:3]
+    log(f"f32 train step{tag}: the leaves farthest from the CPU: " + ", ".join(
+        f"{k} {rel_l2(gg, gc, [k]):.3g} (stock tail {rel_l2(gs, gc, [k]):.3g})" for k in top))
+    near_cpu = max(err_all, err_tail) <= 5e-2
     if spread:
         reverse = torch.arange(b - 1, -1, -1)
         for name, data, cpu, card in (("spread", x, gc, gg), ("one distribution", unspread,
@@ -1763,6 +2182,18 @@ def check_f32_train_step_against_cpu(base=None, b: int = 4, size: int = 256,
                 f"float32 vs CPU float64 {rel_l2(cpu, cpu64, list(cpu)):.3g}, card float32 vs "
                 f"CPU float32 {rel_l2(card, cpu, list(cpu)):.3g}, card float32 vs CPU float64 "
                 f"{rel_l2(card, cpu64, list(cpu)):.3g}")
+            if name == "spread" and noise_floor and not near_cpu:
+                floor = (rel_l2(cpu, cpu64, list(cpu)),
+                         max(rel_l2(cpu, cpu64, [k]) for k in tail))
+                got = (rel_l2(card, cpu64, list(cpu)), max(rel_l2(card, cpu64, [k]) for k in tail))
+                near_cpu = got[0] <= 1.25 * floor[0] and got[1] <= 1.25 * floor[1]
+                log(f"f32 train step{tag}: against float64, the card float32 {got[0]:.3g} over "
+                    f"all leaves and {got[1]:.3g} at the worst fused-tail leaf, the CPU float32 "
+                    f"{floor[0]:.3g} and {floor[1]:.3g} (noise-floor gate: the card within 1.25 "
+                    f"times the CPU)")
+    if not (ng > 0 and nc == 0 and abs(lg - lc) <= 1e-4 * abs(lc) and stat_err <= 1e-3
+            and near_cpu and max(card_all, card_tail) <= 5e-2):
+        raise AssertionError(f"float32 train step{tag} on the card disagrees with the CPU path")
 
 
 def check_f32_against_cpu(cfg=None, tag: str = "") -> None:
@@ -1882,9 +2313,15 @@ def main(argv=None) -> int:
             "head_conv_fused": check_head_conv_fused()}
     torch.cuda.empty_cache()
     rows["relayout"].update(check_relayout_damage())
+    rows["relayout"].update(check_relayout_damage(3, "coral_"))
+    rows["relayout"].update(check_relayout_damage(1, "mse_"))
     rows["head_conv_fused"].update(check_head_conv_fused(256, (8, 16), DMG_BATCH, "dmg_"))
+    rows["head_conv_fused"].update(check_head_conv_fused(256, (4,), C_BATCH, "coral_"))
+    rows["head_conv_fused"].update(check_head_conv_fused(128, (4,), VARIANT_BATCH, "mse_"))
     torch.cuda.empty_cache()
     rows.update(check_conv_bn_backward())
+    for kern, row in check_cross_fusion().items():
+        rows[kern].update(row)
     check_prologue_bit_equal()
     check_dgrad_epilogue_bit_equal()
     torch.cuda.empty_cache()
@@ -1913,6 +2350,12 @@ def main(argv=None) -> int:
                               for k in launches["eval"]}
         log(f"damage path done at {time.perf_counter() - t_start:.0f} s; steady state "
             f"{json.dumps(dmg_rows)}")
+        torch.cuda.empty_cache()
+        var_launches, var_rows = run_dmg_variants_path(work, args.profile)
+        launches["variants"] = {k: sum(d[k] for d in var_launches.values())
+                                for k in launches["eval"]}
+        log(f"damage variants path done at {time.perf_counter() - t_start:.0f} s; steady state "
+            f"{json.dumps(var_rows)}")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -1933,11 +2376,16 @@ def main(argv=None) -> int:
         "small_conv_wgrad": ("small_conv_wgrad", src + "small_conv.cu",
                              "xview2_tpu/ops/pallas_conv.py:121"),
     }
-    # launches: the five main paths' runs (eval CLI, train CLI, conv3x3_small,
-    # --autoaugment train CLI, and the damage path's A train, B train and B
-    # eval CLIs), each counted from 0; dmg_ keys of K1 and K3: the damage
-    # shapes (K1 at n = 4, K3 at C = 256, Co = 16; dmg_train_: per train
-    # step).  ms/plain_ms/library_ms/bound_ms: K1-K3 per eval step (train_* keys: per train step), K4/K5 per
+    # launches: the six main paths' runs (eval CLI, train CLI, conv3x3_small,
+    # --autoaugment train CLI, the damage path's A train, B train and B eval
+    # CLIs, and the variants path's C train and C eval CLIs and the six other
+    # variants' steps), each counted from 0; dmg_ keys of K1 and K3: the
+    # damage shapes (K1 at n = 4, K3 at C = 256, Co = 16; dmg_train_: per
+    # train step); coral_ and mse_ keys: K1 at n = 3 and 1, K3 at Co = 4 with
+    # C = 256 (C's head) and 128 (cat's MSE head); fusion_ keys of K2, K4 and
+    # K5: the fused variant's packed cross-fusion (C = 256 -> 128, two
+    # launches per step; fusion_train_: per train step); K6's pair_ keys: 7
+    # channels.  ms/plain_ms/library_ms/bound_ms: K1-K3 per eval step (train_* keys: per train step), K4/K5 per
     # train step, K6 per --autoaugment step with one rotation and one shear
     # group, K7/K8 per launch at (16, 512, 512, 32) -> 32 bf16, all by CUDA
     # events; K1, K3, K6, K7 and K8 add the profiler's device time of a
@@ -1956,6 +2404,7 @@ def main(argv=None) -> int:
                         "small_conv_path_launches": launches["small"][counter],
                         "autoaugment_path_launches": launches["autoaugment"][counter],
                         "damage_path_launches": launches["damage"][counter],
+                        "variants_path_launches": launches["variants"][counter],
                         "max_abs_err": r["max_abs_err"],
                         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"],

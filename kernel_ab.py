@@ -13,7 +13,8 @@ Run from the root of a checkout on a machine with the card::
 ``dgrad`` times K5 ``conv_bn_dgrad`` (``csrc/fused_conv_bwd.cu``) at the six
 train-path layers, fold on and off; ``head`` times K3 ``head_conv_fused``
 (``csrc/fused_head.cu``) at the eval and train shapes, localization (C =
-128, Co = 8) and Siamese (C = 256, Co = 16); ``small`` times K7
+128, Co = 8), Siamese (C = 256, Co = 16), and the single-logit CORAL (C =
+256) and MSE (C = 128) heads at Co = 4; ``small`` times K7
 ``small_conv_fwd`` (``csrc/small_conv.cu``) in bf16 at the smoke's shape
 (16, 512, 512, 32) -> 32 and its odd shape (2, 70, 200, 24) -> 40;
 ``relayout`` times K1's flat path ``relayout_flat`` (``csrc/relayout.cu``) on
@@ -171,7 +172,10 @@ def time_head(libs: dict) -> None:
     for tag_shape, shape, co in (("eval", (16, 512, 512, 128), 8),
                                  ("train", (16, 256, 256, 128), 8),
                                  ("Siamese eval", (16, 512, 512, 256), 16),
-                                 ("Siamese train", (8, 256, 256, 256), 16)):
+                                 ("Siamese train", (8, 256, 256, 256), 16),
+                                 ("CORAL eval", (16, 512, 512, 256), 4),
+                                 ("CORAL train", (8, 256, 256, 256), 4),
+                                 ("MSE eval", (16, 512, 512, 128), 4)):
         x, kmat, hbias, fold = cs.head_case(shape, co, seed=40)
         k32 = kmat.to(torch.bfloat16).float().contiguous()
         fmat = torch.stack(fold).float().contiguous()

@@ -9,7 +9,7 @@ magnitude and sign the policy table can give it, on 3 and on 6 channels;
 sample per subpolicy that fires a spatial op and some that fire none, applied
 as ONE batch so that the grouping by op is exercised; and the
 ``use_autoaugment`` branch of ``augment_sample`` (crop, AutoAugment,
-normalize).
+normalize), on 3 channels and on 6-channel pre/post pairs.
 
 Tolerances, on the uint8 scale.  Masks: EQUAL everywhere.  Translations,
 rotations (nearest taps only), posterize, solarize, invert, autocontrast and
@@ -341,20 +341,22 @@ BRANCH_CASES = [
 ]
 
 
-@pytest.fixture(scope="module")
-def branch_batch():
+def _branch_batch(cases, channels, labels):
+    """The port's ``apply_augment_autoaugment`` on one batch of ``channels``
+    tiles against JAX ``augment_sample(use_autoaugment=True)`` per sample, on
+    JAX's draws; a seed per case whose draws fire the case's ops."""
     jaa.force_pallas_interpret = True
     try:
         aug = jax.jit(functools.partial(jaug.augment_sample, use_autoaugment=True, crop=CROP))
         rng = np.random.default_rng(9)
         imgs, masks, crops, aas, want = [], [], [], [], []
-        for i, (_, kind, pred) in enumerate(BRANCH_CASES):
-            img = rng.integers(0, 256, (TILE, TILE, 3), np.uint8)
+        for i, (_, kind, pred) in enumerate(cases):
+            img = rng.integers(0, 256, (TILE, TILE, channels), np.uint8)
             mask = np.zeros((TILE, TILE), np.uint8)
             if kind == "blobs":
                 for _ in range(3):
                     y, x = rng.integers(0, TILE - 12, 2)
-                    mask[y:y + 12, x:x + 9] = rng.integers(1, 3)
+                    mask[y:y + 12, x:x + 9] = rng.integers(1, labels + 1)
             elif kind == "corner":
                 mask[TILE - 1, TILE - 2] = 1
             for seed in range(53 * i, 53 * i + 3000):
@@ -378,6 +380,11 @@ def branch_batch():
     got = taug.apply_augment_autoaugment(torch.from_numpy(np.stack(imgs)),
                                          torch.from_numpy(np.stack(masks)), d, crop=CROP)
     return d, got, want, aas
+
+
+@pytest.fixture(scope="module")
+def branch_batch():
+    return _branch_batch(BRANCH_CASES, 3, 2)
 
 
 @pytest.mark.parametrize("i", range(len(BRANCH_CASES)), ids=[c[0] for c in BRANCH_CASES])
@@ -413,3 +420,39 @@ def test_augment_batch_takes_the_flag():
     assert torch.equal(x, x2) and torch.equal(y, y2)
     x3, _ = taug.augment_batch(torch.Generator().manual_seed(5), images, masks, CROP)
     assert not torch.equal(x, x3)
+
+
+# --autoaugment on 6-channel pre/post pairs with damage labels 1..4: a shear
+# and a rotation (one signed draw for both halves and the mask), intensity
+# ops acting on each half with one magnitude, and a draw that fires nothing
+PAIR_CASES = [
+    ("rotate", "blobs", lambda fired: taa.ROTATE in fired),
+    ("shear", "blobs", lambda fired: taa.SHEAR_X in fired or taa.SHEAR_Y in fired),
+    ("intensity-only", "blobs",
+     lambda fired: None not in fired and not set(fired) & set(taa._SPATIAL)
+     and taa.EQUALIZE not in fired),
+    ("nothing", "blobs", lambda fired: fired == (None, None)),
+]
+
+
+@pytest.fixture(scope="module")
+def pair_batch():
+    return _branch_batch(PAIR_CASES, 6, 4)
+
+
+@pytest.mark.parametrize("i", range(len(PAIR_CASES)), ids=[c[0] for c in PAIR_CASES])
+def test_autoaugment_branch_on_pairs_matches_jax_augment_sample(pair_batch, i):
+    """The crop and one AutoAugment draw per pair against JAX
+    ``augment_sample(use_autoaugment=True)`` on 6 channels, under
+    ``test_autoaugment_branch_matches_jax_augment_sample``'s tolerances."""
+    d, (x, y), want, aas = pair_batch
+    wx, wy = want[i]
+    assert x.shape[1:] == (CROP, CROP, 6) and y.dtype == torch.int32
+    np.testing.assert_array_equal(y[i].numpy(), wy)
+    fired = _fires(aas[i])
+    if fired[0] is not None and fired[0] not in EXACT and fired[1] in ROUNDING:
+        _assert_policy_close(x[i].numpy(), wx, fired, unit=1 / 255 / 0.224)
+    else:
+        np.testing.assert_allclose(x[i].numpy(), wx, rtol=0, atol=1e-5)
+    if i == 3:  # nothing fired: the crop of the raw pair, normalized
+        assert y[i].max() > 0

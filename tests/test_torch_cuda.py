@@ -103,6 +103,21 @@ def test_relayout_damage_logits_bit_exact(dtype):
         assert got.is_contiguous() and torch.equal(_bytes(got), _bytes(view))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [3, 1], ids=["coral", "mse"])
+def test_relayout_coral_and_mse_logits_bit_exact(n, dtype):
+    """K1 at the CORAL head's 3 level logits and the MSE head's 1: the eval
+    logits and the train loss view, contiguous and NCHW viewed NHWC."""
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    x = (torch.randn((2, n, 24, 40), generator=gen, device="cuda") * 100).to(dtype)
+    for view in (x.permute(0, 2, 3, 1).contiguous(), x.permute(0, 2, 3, 1)):
+        got = layout.relayout_cuda(view)
+        torch.cuda.synchronize()
+        # reshape: at n = 1 the permuted view counts as contiguous with a last stride of 960
+        assert got.is_contiguous() and torch.equal(got.reshape(-1).view(torch.uint8),
+                                                   view.reshape(-1).view(torch.uint8))
+
+
 @pytest.mark.parametrize("mode", [(3, 2, 1, False, True), (3, 1, 1, False, True),
                                   (2, 2, 0, True, False)], ids=["avd", "avd-s1", "avg-down"])
 def test_resnest_pools_forward_and_backward_equal_the_cpu(mode):
@@ -425,6 +440,75 @@ def test_head_conv_fused_mma_matches_plain(shape):
     assert bool(((got - want).abs() <= tol).all())
 
 
+@pytest.mark.parametrize("zero_bias", [False, True], ids=["bias", "coral"])
+@pytest.mark.parametrize("shape", [(1, 37, 53, 128, 4), (2, 64, 64, 128, 4), (1, 1, 1, 128, 4),
+                                   (1, 37, 53, 256, 4), (2, 64, 64, 256, 4), (1, 1, 1, 256, 4),
+                                   (3, 16, 21, 256, 4)])
+def test_head_conv_fused_co4_equals_plain(shape, zero_bias):
+    """K3 at Co = 4, the single-logit CORAL and MSE heads (C = 128: one
+    branch; 256: two), on the mma.sync kernel with four zero columns in its
+    n8 tile: EQUAL to the plain version, at tiles of 128 pixels and at
+    ragged counts down to one pixel; the CORAL head's zero bias too."""
+    b, h, w, c, co = shape
+    assert "mma.sync" in pfc.kernel_variant("head_conv_fused", h, w, c, co, torch.bfloat16)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    x = torch.randn((b, h, w, c), generator=gen, device="cuda").to(torch.bfloat16)
+    kmat = torch.randn((c, co), generator=gen, device="cuda") / math.sqrt(c)
+    hbias = torch.zeros(co, device="cuda") if zero_bias else torch.randn(co, generator=gen,
+                                                                           device="cuda")
+    fold = _fold(c, gen)
+    before = pfc.head_conv_fused.launches
+    got = pfc.head_conv_fused(x, kmat, hbias, fold)
+    assert pfc.head_conv_fused.launches == before + 1
+    assert torch.equal(got, pfc.reference_head(x, kmat, hbias, fold))
+
+
+def _cross_fusion_case(shape, seed):
+    """(x, g, packed kernel, fold) of the fused variant's packed cross-fusion:
+    a fine (3, 3, 2*cg, Co/4) kernel embedded by s2d and row-permuted to the
+    group-major concat of two packed branches (``PackedConvLayer(groups=2)``)."""
+    from xview2_tpu_torch.models.layers import group_major_rows, s2d_conv_kernel
+
+    b, h, w, c, co = shape
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((b, h, w, c), generator=gen, device="cuda").to(torch.bfloat16)
+    g = torch.randn((b, h, w, co), generator=gen, device="cuda").to(torch.bfloat16)
+    fine = torch.randn((3, 3, c // 4, co // 4), generator=gen, device="cuda") / math.sqrt(9 * c / 4)
+    k = group_major_rows(s2d_conv_kernel(fine), 2).to(torch.bfloat16)
+    return x, g, k, _fold(c, gen)
+
+
+@pytest.mark.parametrize("has_fold", [False, True])
+@pytest.mark.parametrize("shape", [(1, 32, 32, 256, 128), (2, 13, 70, 256, 128)])
+def test_cross_fusion_kernels_match_plain(shape, has_fold):
+    """K2, K4 and K5 at the packed cross-fusion's C = 256 -> 128 with the
+    group-major kernel, on the wgmma kernels, against their plain versions
+    at the tolerances of test_conv_bn_fused_matches_plain,
+    test_conv_bn_wgrad_matches_plain and test_conv_bn_dgrad_matches_plain."""
+    b, h, w, c, co = shape
+    for kern in ("conv_bn_fused", "conv_bn_wgrad", "conv_bn_dgrad"):
+        assert "wgmma" in pfc.kernel_variant(kern, h, w, c, co, torch.bfloat16)
+    x, g, k, fold = _cross_fusion_case(shape, 8)
+    f = fold if has_fold else None
+    out, s1, s2 = pfc.conv_bn_fused(x, k, fold, has_fold)
+    ref, r1, r2 = pfc.reference_conv_bn(x, k, f)
+    scale = ref.float().abs().max().item()
+    err = (out.float() - ref.float()).abs()
+    assert bool((err <= 2 * 2 ** -7 * ref.float().abs() + 1e-3 * scale).all()), err.max().item()
+    assert bool(((s1 - r1).abs() <= 1e-3 * ref.float().abs().sum(dim=(0, 1, 2)) + 1e-4).all())
+    assert bool(((s2 - r2).abs() <= 1e-3 * r2 + 1e-4).all())
+    dw, rw = pfc.conv_bn_wgrad(x, g, fold, has_fold), pfc.reference_wgrad(x, g, f)
+    assert (dw - rw).abs().max().item() <= 1e-3 * rw.abs().max().item()
+    kf = pfc.flip_kernel(k)
+    dx, db, dm = pfc.conv_bn_dgrad(g, kf, x, fold, has_fold)
+    rx, rb, rm = pfc.reference_dgrad(g, kf, x, f)
+    rf = rx.float()
+    assert bool(((dx.float() - rf).abs() <= 2 * 2 ** -7 * rf.abs()
+                 + 1e-3 * rf.abs().max()).all())
+    for got, want in ((db, rb), (dm, rm)):
+        assert (got - want).abs().max().item() <= 1e-3 * max(want.abs().max().item(), 1.0)
+
+
 def test_path_shapes_take_the_redesigned_kernels():
     """The six train-path layers take the pipelined K5 and the eval and train
     heads the mma.sync K3; the shapes and types these do not take keep the
@@ -439,8 +523,10 @@ def test_path_shapes_take_the_redesigned_kernels():
     for h, w in ((512, 512), (256, 256)):
         assert "mma.sync" in pfc.kernel_variant("head_conv_fused", h, w, 128, 8, bf)
     assert "FMA" in pfc.kernel_variant("head_conv_fused", 512, 512, 128, 8, f32)
-    assert "FMA" in pfc.kernel_variant("head_conv_fused", 512, 512, 128, 4, bf)
-    for co in (8, 16):  # the Siamese head: C = 256 on the 3-stage ring
+    # the single-logit CORAL and MSE heads: Co = 4 at C = 128 and 256
+    assert "4-stage" in pfc.kernel_variant("head_conv_fused", 512, 512, 128, 4, bf)
+    assert "FMA" in pfc.kernel_variant("head_conv_fused", 512, 512, 128, 4, f32)
+    for co in (4, 8, 16):  # the two-branch heads: C = 256 on the 3-stage ring
         assert "3-stage" in pfc.kernel_variant("head_conv_fused", 512, 512, 256, co, bf)
     assert "FMA" in pfc.kernel_variant("head_conv_fused", 512, 512, 256, 32, bf)
     assert "FMA" in pfc.kernel_variant("head_conv_fused", 512, 512, 192, 8, bf)
@@ -481,6 +567,24 @@ def test_row_shift_bit_exact(shape, c, axis):
     want = rowshift.row_shift_reference(x, shift, sel, axis=axis)
     assert torch.equal(got, want)
     assert torch.equal(got.cpu(), rowshift.row_shift(x.cpu(), shift.cpu(), sel.cpu(), axis=axis))
+
+
+def test_autoaugment_pairs_on_the_card_equal_the_cpu():
+    """--autoaugment on 6-channel pre/post pairs (7-channel pixels in K6, the
+    mask riding along) on the card against the same draws on the CPU, under
+    test_autoaugment_on_the_card_equals_the_cpu's tolerance."""
+    gen = torch.Generator().manual_seed(8)
+    img = torch.randint(0, 256, (32, 64, 64, 6), generator=gen).float()
+    mask = torch.randint(0, 5, (32, 64, 64), generator=gen).to(torch.uint8)
+    d = taa.draw_autoaugment(gen, 32, "cpu")
+    want_img, want_mask = taa.apply_autoaugment(img, mask, d)
+    dc = taa.AutoAugmentDraws(d.policy.cuda(), d.u1.cuda(), d.u2.cuda(), d.neg1.cuda(),
+                              d.neg2.cuda())
+    before = rowshift.row_shift_cuda.launches
+    got_img, got_mask = taa.apply_autoaugment(img.cuda(), mask.cuda(), dc)
+    assert rowshift.row_shift_cuda.launches > before
+    assert torch.equal(got_mask.cpu(), want_mask)
+    assert (got_img.cpu() - want_img).abs().max().item() <= 1e-3
 
 
 def test_autoaugment_on_the_card_equals_the_cpu():

@@ -113,9 +113,10 @@ def test_train_mode_raises(tmp_path):
     yet still raises, naming its ROADMAP item, before any data is read."""
     base = ["--exec_mode", "train", "--type", "pre", "--encoder", "resnet50",
             "--results", str(tmp_path)]
-    for extra in (["--type", "post", "--dmg_model", "fused"], ["--remat", "tail"],
-                  ["--optimizer", "radam"], ["--loss_str", "mse"], ["--deep_supervision"],
+    for extra in (["--type", "post", "--dmg_model", "fused", "--ppm"], ["--remat", "tail"],
+                  ["--optimizer", "radam"], ["--interpolate"], ["--deep_supervision"],
                   ["--pretrained_enc", "enc.npz"], ["--gpus", "2"],
-                  ["--type", "post", "--loss_str", "coral"], ["--type", "post", "--autoaugment"]):
+                  ["--type", "post", "--loss_str", "coral", "--attention"],
+                  ["--type", "post", "--autoaugment", "--dec_interp"]):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             main(base + extra, device="cpu")

@@ -82,6 +82,7 @@ def test_options_left_out_raise_naming_a_roadmap_item():
         import torch
         from xview2_tpu_torch.config import Config
         from xview2_tpu_torch.main import main
+        from xview2_tpu_torch.models import unet
         from xview2_tpu_torch.models.unet import build_model
         from xview2_tpu_torch.parallel import steps
 
@@ -96,30 +97,35 @@ def test_options_left_out_raise_naming_a_roadmap_item():
         train = ["--exec_mode", "train", "--type", "pre", "--encoder", "resnet50",
                  "--results", "/nonexistent"]
         post = ["--type", "post"]
-        cli = [post + ["--dmg_model", "fused"], post + ["--dmg_model", "parallel"],
-               post + ["--dmg_model", "cat"],
+        cli = [post + ["--dmg_model", "fused", "--ppm"], post + ["--dmg_model", "parallel",
+                                                                  "--attention"],
+               post + ["--dmg_model", "cat", "--deep_supervision"],
                ["--ppm"], ["--aspp"], ["--attention"], ["--deep_supervision"],
-               ["--dec_interp"], ["--interpolate"],
-               post + ["--loss_str", "mse"], post + ["--loss_str", "coral"],
-               ["--loss_str", "mse"], ["--loss_str", "coral"], ["--pretrained_enc", "enc.npz"],
-               post + ["--autoaugment"], ["--gpus", "2"], ["--gpus", "2", "--spatial_shards", "2"],
+               ["--dec_interp"], ["--interpolate"], ["--pretrained_enc", "enc.npz"],
+               ["--gpus", "2"], ["--gpus", "2", "--spatial_shards", "2"],
                ["--remat", "tail"], ["--remat", "dots"], ["--remat", "full"],
                ["--fold_eval_bn", "0"]]
         cli += [["--optimizer", o] for o in ("radam", "adabelief", "adabound", "adamp",
                                              "novograd")]
         for extra in cli:
             raises(lambda: main(train + extra, device="cpu"), extra)
-        for kw in (dict(type="post", dmg_model="fused"), dict(ppm=True), dict(aspp=True),
-                   dict(attention=True), dict(deep_supervision=True), dict(dec_interp=True),
-                   dict(interpolate=True), dict(type="post", loss_str="coral")):
+        for kw in (dict(type="post", dmg_model="fused", ppm=True), dict(ppm=True),
+                   dict(aspp=True), dict(attention=True), dict(deep_supervision=True),
+                   dict(dec_interp=True), dict(interpolate=True),
+                   dict(type="post", loss_str="coral", aspp=True)):
             raises(lambda: build_model(Config(**{"encoder": "resnet50", **kw})), kw)
         raises(lambda: steps.make_train_multistep(None, None, None, 2), "make_train_multistep")
-        # --autoaugment is ported: the step's own check lets it through
+        # --autoaugment, on pairs too, the damage variants and the mse and coral
+        # heads are ported: the checks let them through
         assert steps.check_train_supported(Config(encoder="resnet50", autoaugment=True)) is None
+        assert steps.check_train_supported(Config(type="post", autoaugment=True)) is None
+        for kw in (dict(dmg_model="fused", loss_str="coral"), dict(dmg_model="cat",
+                                                                   loss_str="mse")):
+            assert unet.check_supported(Config(type="post", **kw)) is None
         print("checked", len(cli) + 9)
     """)
     assert proc.returncode == 0, proc.stderr + proc.stdout
-    assert proc.stdout.split()[-2:] == ["checked", "35"]
+    assert proc.stdout.split()[-2:] == ["checked", "30"]
 
 
 def test_cuda_request_without_a_device_raises():

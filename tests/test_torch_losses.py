@@ -2,9 +2,12 @@
 package on the same numpy inputs: focal, dice and ``make_loss_fn`` (pre and
 post, label-255 masking, ``sample_valid``) at rtol 1e-5; ce and ohem (with
 and without a mask, ties at OHEM's hard-negative budget, an image without
-positives) at rtol 1e-6; F1 counts equal; ``normalize`` (RGB and ``--bgr``,
-3 and 6 channels) at rtol 1e-6."""
+positives) at rtol 1e-6; mse and coral (labels past both ends of CORAL's
+table, with and without a mask, and through ``make_loss_fn``) and their
+gradients in float64 at rtol 1e-12; F1 counts equal; ``normalize`` (RGB and
+``--bgr``, 3 and 6 channels) at rtol 1e-6."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -50,8 +53,8 @@ def test_make_loss_fn_matches_jax(task, n_class):
                                                   torch.from_numpy(labels),
                                                   sample_valid=torch.from_numpy(valid))
     np.testing.assert_allclose(float(got), float(want), rtol=1e-5)
-    with pytest.raises(NotImplementedError):
-        losses.make_loss_fn("mse+dice", task)
+    with pytest.raises(ValueError, match="unknown loss term"):
+        losses.make_loss_fn("bogus+dice", task)
 
 
 @pytest.mark.parametrize("masked", [False, True], ids=["no-mask", "mask"])
@@ -68,6 +71,44 @@ def test_ce_and_ohem_match_jax(name, n_class, masked):
                                           torch.from_numpy(labels).long(),
                                           None if m is None else torch.from_numpy(m))
     np.testing.assert_allclose(float(got), float(want), rtol=1e-6)
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["no-mask", "mask"])
+@pytest.mark.parametrize("name,n_logit", [("mse", 1), ("coral", 3)])
+def test_mse_and_coral_and_their_gradients_match_jax(name, n_logit, masked):
+    """In float64: the value and the gradient with respect to the logits;
+    labels 0..5 (CORAL clips to its 4-row table, MSE regresses the label),
+    negative logits (MSE's relu)."""
+    rng = np.random.default_rng(15)
+    logits = rng.normal(0, 2, (3, 8, 8, n_logit))
+    labels = rng.integers(0, 6, (3, 8, 8)).astype(np.int32)
+    mask = (rng.random(labels.shape) > 0.3).astype(np.float32) if masked else None
+    with jax.enable_x64():
+        jfn = getattr(jlosses, f"{name}_loss")
+        jm = None if mask is None else jnp.asarray(mask)
+        want, jgrad = jax.value_and_grad(lambda x: jfn(x, jnp.asarray(labels), jm))(
+            jnp.asarray(logits))
+    x = torch.from_numpy(logits).requires_grad_()
+    got = getattr(losses, f"{name}_loss")(x, torch.from_numpy(labels).long(),
+                                          None if mask is None else torch.from_numpy(mask))
+    (grad,) = torch.autograd.grad(got, x)
+    assert got.dtype == torch.float64
+    np.testing.assert_allclose(float(got), float(want), rtol=1e-12)
+    np.testing.assert_allclose(grad.numpy(), np.asarray(jgrad), rtol=1e-12, atol=1e-15)
+
+
+@pytest.mark.parametrize("loss_str,n_logit", [("mse", 1), ("coral", 3), ("coral+dice", 3)])
+def test_make_loss_fn_mse_coral_matches_jax(loss_str, n_logit):
+    """The post task's mask, label shift and 255 masking around the mse and
+    coral terms, with ``sample_valid``."""
+    logits, labels = _logits(n_logit, seed=16), _labels(5, seed=17)
+    valid = np.array([1.0, 0.0, 1.0], np.float32)
+    want = jlosses.make_loss_fn(loss_str, "post")(jnp.asarray(logits), jnp.asarray(labels),
+                                                 sample_valid=jnp.asarray(valid))
+    got = losses.make_loss_fn(loss_str, "post")(torch.from_numpy(logits),
+                                               torch.from_numpy(labels),
+                                               sample_valid=torch.from_numpy(valid))
+    np.testing.assert_allclose(float(got), float(want), rtol=1e-5)
 
 
 @pytest.mark.parametrize("levels", [3, 1], ids=["three-values", "all-equal"])

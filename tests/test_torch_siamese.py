@@ -4,6 +4,8 @@ same numpy inputs: ``concat_registered`` of deferred folds, the whole
 Siamese eval step (float32, fused tail on and off, ResNet-50 and ResNeSt-50
 encoders), the 6-channel augmentation on JAX's own draws, and the
 ``--ckpt_pre`` encoder transplant (the train step: ``test_torch_siamese_train.py``).
+The weights of each encoder are built once for both tails (a module
+fixture).
 
 Tolerances: the eval step's logits at 2e-4 of their scale (the JAX
 package's fused-vs-stock tolerance), its loss at rtol 1e-5; each F1 count
@@ -22,7 +24,8 @@ import torch
 
 from test_torch_augment import CROP, SIZE, _stack, jax_draws
 from test_torch_train_step import _flat
-from torch_jax_variables import center_head, eval_batch, jax_variables, port_model
+from torch_jax_variables import (center_head, eval_batch, jax_variables,  # noqa: F401
+                                 one_torch_thread, port_model)
 from xview2_tpu.config import Config as JaxConfig
 from xview2_tpu.models.unet import build_model as jax_build_model
 from xview2_tpu.ops import augment as jaug
@@ -72,11 +75,28 @@ def test_concat_registered_refuses_one_deferred_branch():
                                      torch.zeros(1, 2, 2, 4))
 
 
+@pytest.fixture(scope="module")
+def siamese_weights():
+    """Per encoder, built once for both tails: the flax variables (the head
+    centered with the fused tail) and the port model loaded with them (eval
+    mode leaves it as it is)."""
+    cache = {}
+
+    def get(encoder):
+        if encoder not in cache:
+            kw = dict(POST, encoder=encoder, precision=32, tta=True, fused_tail=True)
+            variables = center_head(kw, jax_variables(kw, seed=4))
+            cache[encoder] = variables, port_model(kw, variables)
+        return cache[encoder]
+
+    return get
+
+
 @pytest.mark.parametrize("fused_tail", [True, False], ids=["fused", "stock"])
 @pytest.mark.parametrize("encoder", ["resnet50", "resnest50"])
-def test_siamese_eval_step_f32_matches_jax(encoder, fused_tail):
+def test_siamese_eval_step_f32_matches_jax(encoder, fused_tail, siamese_weights):
     kw = dict(POST, encoder=encoder, precision=32, tta=True, fused_tail=fused_tail)
-    variables = center_head(kw, jax_variables(kw, seed=4))
+    variables, model = siamese_weights(encoder)
     data = eval_batch(6, 6)
     jcfg = JaxConfig(**kw)
     jf1, jloss, jlog = jax.jit(jax_make_eval_step(jcfg, jax_build_model(jcfg)))(
@@ -84,8 +104,7 @@ def test_siamese_eval_step_f32_matches_jax(encoder, fused_tail):
     jlog = np.asarray(jlog)
     cfg = Config(**kw)
     launches = port_pfc.head_conv_fused.launches
-    tf1, tloss, tlog = make_eval_step(cfg, port_model(kw, variables), device="cpu")(
-        init_f1_state(5), *data)
+    tf1, tloss, tlog = make_eval_step(cfg, model, device="cpu")(init_f1_state(5), *data)
     assert port_pfc.head_conv_fused.launches == launches  # the CPU runs the plain versions
     tlog = tlog.numpy()
     assert tlog.shape == (2, 64, 64, 4) and np.isfinite(jlog).all()
@@ -166,9 +185,11 @@ def test_pair_draws_cover_both_halves():
     x, y = taug.augment_batch(torch.Generator().manual_seed(3), torch.zeros(
         (2, SIZE, SIZE, 6), dtype=torch.uint8), masks, CROP)
     assert x.shape == (2, CROP, CROP, 6) and int(y.max()) == 3
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        taug.augment_batch(torch.Generator(), torch.zeros((2, SIZE, SIZE, 6), dtype=torch.uint8),
-                           masks, CROP, use_autoaugment=True)
+    # --autoaugment on pairs: one draw per sample for both halves
+    x, y = taug.augment_batch(torch.Generator(), torch.zeros((2, SIZE, SIZE, 6),
+                                                             dtype=torch.uint8),
+                              masks, CROP, use_autoaugment=True)
+    assert x.shape == (2, CROP, CROP, 6) and int(y.max()) == 3
 
 
 def test_transplant_matches_jax():
@@ -193,5 +214,5 @@ def test_transplant_matches_jax():
         assert set(g) == set(w)
         for k in w:
             np.testing.assert_array_equal(g[k], w[k], err_msg=k)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        transplant_encoder("parallel", model, {})
+    with pytest.raises(ValueError, match="unknown dmg_model"):
+        transplant_encoder("bogus", model, {})

@@ -4,7 +4,8 @@ the same weights and the same crop, with the fused tail at a geometry that
 reaches it: the loss (``ohem`` is the masked mean CE under the post task's
 mask, and ``focal``), every gradient leaf of the shared template and the
 packed two-branch head, and the running statistics after the pre branch
-and then the post branch updated them.
+and then the post branch updated them.  The JAX side is traced once for
+both losses (``torch_jax_variables.jax_train_grads``), in a module fixture.
 
 Tolerances as ``tests/test_torch_train_step.py`` holds the localization
 step: loss rtol 1e-9, every gradient leaf within 1e-6 of its scale, running
@@ -19,31 +20,43 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_train_step import _close, _flat, _jax_steps
-from torch_jax_variables import jax_variables, port_model
+from test_torch_train_step import _close, _flat
+from torch_jax_variables import (jax_train_grads, jax_variables,  # noqa: F401
+                                 one_torch_thread, port_model)
 from xview2_tpu_torch.config import Config
 from xview2_tpu_torch.ops.losses import make_loss_fn, packed_loss_view_labels
 from xview2_tpu_torch.parallel import steps as port_steps
 from xview2_tpu_torch.weights import to_flax
 
+LOSSES = ("ohem+dice", "focal+dice")
+KW = dict(type="post", dmg_model="siamese", encoder="resnet50", loss_str=LOSSES[0],
+          precision=64, fused_tail=True, optimizer="adamw")
 
-@pytest.mark.parametrize("loss_str", ["ohem+dice", "focal+dice"])
-def test_siamese_train_step_f64_matches_jax(loss_str):
-    """One train step in float64 with the fused tail (the port's plain
-    versions of K2-K5 here, JAX's Pallas kernels in interpret mode): the
-    loss, every gradient leaf of the shared template and the packed head,
-    and the running statistics after both branches updated them."""
+
+@pytest.fixture(scope="module")
+def jax_step():
+    """The weights, the crop and JAX's (loss, gradients, statistics) for
+    each loss of LOSSES."""
     size = 64
-    kw = dict(type="post", dmg_model="siamese", encoder="resnet50", loss_str=loss_str,
-              precision=64, fused_tail=True, optimizer="adamw")
     rng = np.random.default_rng(9)
     x = rng.normal(size=(2, size, size, 6))
     y = rng.integers(0, 5, (2, size, size)).astype(np.int32)
     y[1, :4, :6] = 255
     with jax.enable_x64():
-        variables = jax_variables(kw, seed=2, dtype=np.float64)
-        jloss, jgrads, _, jstats = next(_jax_steps(kw, variables, [(x, y)]))
+        variables = jax_variables(KW, seed=2, dtype=np.float64)
+        results = dict(zip(LOSSES, jax_train_grads(KW, variables, x, y, LOSSES)))
+    return variables, x, y, results
 
+
+@pytest.mark.parametrize("loss_str", LOSSES)
+def test_siamese_train_step_f64_matches_jax(loss_str, jax_step):
+    """One train step in float64 with the fused tail (the port's plain
+    versions of K2-K5 here, JAX's Pallas kernels in interpret mode): the
+    loss, every gradient leaf of the shared template and the packed head,
+    and the running statistics after both branches updated them."""
+    variables, x, y, results = jax_step
+    jloss, jgrads, jstats = results[loss_str]
+    kw = dict(KW, loss_str=loss_str)
     cfg = Config(**kw)
     model = port_model(kw, variables)
     loss = port_steps.forward_loss(cfg, model, make_loss_fn(cfg.loss_str, cfg.type),

@@ -125,9 +125,10 @@ def test_fused_and_stock_paths_agree_in_the_port():
 
 
 def test_unported_options_raise():
-    for kw in (dict(type="post", dmg_model="fused"), dict(ppm=True), dict(attention=True),
-               dict(deep_supervision=True), dict(dec_interp=True), dict(interpolate=True),
-               dict(type="post", loss_str="mse"), dict(type="post", loss_str="coral")):
+    for kw in (dict(type="post", dmg_model="fused", ppm=True), dict(ppm=True),
+               dict(attention=True), dict(deep_supervision=True), dict(dec_interp=True),
+               dict(interpolate=True), dict(type="post", loss_str="mse", aspp=True),
+               dict(type="post", loss_str="coral", dec_interp=True)):
         with pytest.raises(NotImplementedError):
             build_model(Config(**{"encoder": "resnet50", **kw}))
     # train mode is ported: the logits come out in the packed loss view

@@ -1,5 +1,6 @@
 """Port weights mapping: flax tree -> torch state_dict -> flax tree is
-bit-identical, and the mapped keys are exactly the port model's keys."""
+bit-identical, and the mapped keys are exactly the port model's keys (the
+CORAL head's ``coral_bias`` too)."""
 
 import jax
 import jax.numpy as jnp
@@ -57,3 +58,22 @@ def test_kernel_conventions():
     assert float(sd["conv_transpose.weight"][5, 4, 1, 0]) == convt[1, 0, 4, 5]
     assert set(sd) == {"a.Conv_0.weight", "conv_transpose.weight", "bn.weight", "bn.bias",
                        "bn.running_mean", "bn.running_var"}
+
+
+def test_coral_bias_maps_both_ways():
+    """The CORAL head's shared ordinal bias: a 1-D param named neither
+    ``scale`` nor ``bias`` keeps its name in both directions, and a CORAL
+    model's tree round-trips through ``load_state_dict``."""
+    bias = np.array([0.9, 0.1, -1.2], np.float32)
+    sd = from_flax({"output_block": {"output_block": {"coral_bias": bias}}}, {})
+    assert set(sd) == {"output_block.output_block.coral_bias"}
+    params, stats = to_flax(sd)
+    np.testing.assert_array_equal(params["output_block"]["output_block"]["coral_bias"], bias)
+    assert stats == {}
+    port = build_model(Config(type="post", dmg_model="diff", encoder="resnet50",
+                              loss_str="coral"))
+    np.testing.assert_array_equal(
+        port.state_dict()["unet.output_block.output_block.coral_bias"].numpy(), [1.0, 0.0, -1.0])
+    params, stats = to_flax(port.state_dict())
+    port.load_state_dict(from_flax(params, stats), strict=True)
+    assert set(params["unet"]["output_block"]["output_block"]) == {"conv", "coral_bias"}

@@ -16,7 +16,8 @@
 // dtype only (head_conv_fused_variant reports the choice):
 //  * bf16 with C in {16, 32, 64, 128} and Co in {8, 16, 32, 64} (the
 //    localization path: C = 128, Co = 8), or C = 256 with Co in {8, 16} (the
-//    Siamese head: two packed branches of 128, Co = 16): head_mma_kernel.
+//    Siamese head: two packed branches of 128, Co = 16), or Co = 4 at C = 128
+//    and 256 (the single-logit CORAL and MSE heads): head_mma_kernel.
 //    Persistent blocks of 256 threads, one per SM, walk tiles of 128
 //    pixels.  A ring filled by cp.async (16 bytes a copy, zero fill past the
 //    last pixel) keeps tiles in flight per SM: four stages (three tiles,
@@ -32,8 +33,11 @@
 //    Co = 16, hence Co <= 16 there), f32 accumulators.  The
 //    epilogue rounds twice on bf16 pairs and gathers each pixel's eight
 //    channels of an n8 tile into one lane by quad shuffles: one 16-byte store.
+//    Co = 4 takes one n8 tile whose B fragment has four zero columns; the
+//    quad's first two lanes hold the four real channels, gathered into one
+//    8-byte store per pixel.
 //    kmat, the fold and hbias are read once per block.
-//  * everything else (float32, Co in {4, 12}, other C): head_kernel, a block
+//  * everything else (float32, Co = 12, other C): head_kernel, a block
 //    of 128 threads per 128 pixels, staging its tile with the prologue
 //    applied per element in f32, then one pixel per thread against kmat in
 //    shared memory by scalar FMA.
@@ -134,7 +138,8 @@ __global__ void __launch_bounds__(H_THREADS, 1) head_mma_kernel(
     const __nv_bfloat16* __restrict__ x, const float* __restrict__ kmat,
     const float* __restrict__ fold, const float* __restrict__ hbias,
     __nv_bfloat16* __restrict__ out, long long npix, int c) {
-  constexpr int NT = CO / 8;  // n8 tiles
+  constexpr int NT = (CO + 7) / 8;  // n8 tiles (Co = 4: one, half of it zero)
+  constexpr int NK = CO >= 8 ? 4 : CO / 2;  // lanes of a quad holding real channels
   extern __shared__ __align__(128) unsigned char smem[];
   const int ldx = head_ldx(c);
   const int stage_bytes = H_TP * ldx;
@@ -157,16 +162,19 @@ __global__ void __launch_bounds__(H_THREADS, 1) head_mma_kernel(
 #pragma unroll
       for (int hw = 0; hw < 2; ++hw) {
         bfr[s][t][hw] = 0u;
-        if (s < ks) {
-          const int k = 16 * s + 2 * q + 8 * hw, n = 8 * t + g;
+        const int k = 16 * s + 2 * q + 8 * hw, n = 8 * t + g;
+        if (s < ks && n < CO) {
           const __nv_bfloat162 v = __floats2bfloat162_rn(kmat[k * CO + n], kmat[(k + 1) * CO + n]);
           bfr[s][t][hw] = *reinterpret_cast<const uint32_t*>(&v);
         }
       }
-  __nv_bfloat162 hb[NT];  // hbias rounded, channels 8t + 2q, +1
+  __nv_bfloat162 hb[NT];  // hbias rounded, channels 8t + 2q, +1 (zero past Co)
 #pragma unroll
-  for (int t = 0; t < NT; ++t)
-    hb[t] = __floats2bfloat162_rn(hbias[8 * t + 2 * q], hbias[8 * t + 2 * q + 1]);
+  for (int t = 0; t < NT; ++t) {
+    const int ch = 8 * t + 2 * q;
+    hb[t] = ch < CO ? __floats2bfloat162_rn(hbias[ch], hbias[ch + 1])
+                    : __floats2bfloat162_rn(0.f, 0.f);
+  }
   __syncthreads();  // fs
 
   // this thread's pieces of a tile: v = tid + i * H_THREADS, pixel v / cv,
@@ -246,13 +254,19 @@ __global__ void __launch_bounds__(H_THREADS, 1) head_mma_kernel(
       const uint32_t r1 = *reinterpret_cast<const uint32_t*>(&o1);
       uint32_t wv[4];
 #pragma unroll
-      for (int k = 0; k < 4; ++k) {
+      for (int k = 0; k < NK; ++k) {
         const uint32_t w0 = __shfl_sync(0xffffffffu, r0, (lane & ~3) | k);
         const uint32_t w1 = __shfl_sync(0xffffffffu, r1, (lane & ~3) | k);
         wv[k] = (q & 1) ? w1 : w0;
       }
-      if (q < 2 && prow < npix)
-        *reinterpret_cast<uint4*>(out + prow * CO + 8 * t) = make_uint4(wv[0], wv[1], wv[2], wv[3]);
+      if constexpr (CO >= 8) {
+        if (q < 2 && prow < npix)
+          *reinterpret_cast<uint4*>(out + prow * CO + 8 * t) =
+              make_uint4(wv[0], wv[1], wv[2], wv[3]);
+      } else {
+        if (q < 2 && prow < npix)
+          *reinterpret_cast<uint2*>(out + prow * CO) = make_uint2(wv[0], wv[1]);
+      }
     }
   }
   mm::cp_async_wait<0>();
@@ -279,6 +293,7 @@ cudaError_t launch_mma(const void* x, const float* kmat, const float* fold, cons
 
 // C and Co that head_mma_kernel takes
 bool mma_takes(int c, int co) {
+  if (co == 4) return c == 128 || c == 256;
   if (c == 256) return co == 8 || co == 16;
   return (c == 16 || c == 32 || c == 64 || c == 128) &&
          (co == 8 || co == 16 || co == 32 || co == 64);
@@ -312,11 +327,16 @@ extern "C" int head_conv_fused(const void* x, const void* kmat, const void* fold
   const float* hb = (const float*)hbias;
   if (dtype == 0) return (int)dispatch<float>(x, k, f, hb, out, npix, c, co, s);
   if (dtype != 1) return (int)cudaErrorInvalidValue;
-  if (mma_takes(c, co) && c == 256)
-    return (int)(co == 8 ? launch_mma<8, 16, 3>(x, k, f, hb, out, npix, c, s)
-                         : launch_mma<16, 16, 3>(x, k, f, hb, out, npix, c, s));
+  if (mma_takes(c, co) && c == 256) {
+    switch (co) {
+      case 4: return (int)launch_mma<4, 16, 3>(x, k, f, hb, out, npix, c, s);
+      case 8: return (int)launch_mma<8, 16, 3>(x, k, f, hb, out, npix, c, s);
+      default: return (int)launch_mma<16, 16, 3>(x, k, f, hb, out, npix, c, s);
+    }
+  }
   if (mma_takes(c, co)) {
     switch (co) {
+      case 4: return (int)launch_mma<4, 8, 4>(x, k, f, hb, out, npix, c, s);
       case 8: return (int)launch_mma<8, 8, 4>(x, k, f, hb, out, npix, c, s);
       case 16: return (int)launch_mma<16, 8, 4>(x, k, f, hb, out, npix, c, s);
       case 32: return (int)launch_mma<32, 8, 4>(x, k, f, hb, out, npix, c, s);

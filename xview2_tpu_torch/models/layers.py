@@ -24,7 +24,8 @@ JAX counterparts merged here: ``TorchBatchNorm``/``_BNStats``/``_PackedBN``/
 ``_PackedBNSums`` share one variable tree, so they are one class,
 :class:`BatchNorm`, with one method per JAX module;
 ``_FusedConvLayer``/``_FusedPackedConvLayer`` are the ``forward_fused``
-methods of :class:`ConvLayer`/:class:`PackedConvLayer`.
+methods of :class:`ConvLayer`/:class:`PackedConvLayer`, and
+``PackedGroupConvLayer`` is :class:`PackedConvLayer` with ``groups > 1``.
 """
 
 from __future__ import annotations
@@ -382,6 +383,19 @@ def s2d_conv_kernel(w: torch.Tensor) -> torch.Tensor:
     return wp.reshape(3, 3, 4 * ci, 4 * co)
 
 
+def group_major_rows(wp: torch.Tensor, groups: int) -> torch.Tensor:
+    """Row-permute a packed kernel (3, 3, 4*groups*cg, Co) from the phase-major
+    rows ``[p, g, c]`` of :func:`s2d_conv_kernel` over the whole fine input to
+    the group-major rows ``[g, p, c]`` of a concat of ``groups`` packed
+    branches (JAX ``PackedGroupConvLayer``)."""
+    if groups == 1:
+        return wp
+    kh, kw, rows, co = wp.shape
+    cg = rows // (4 * groups)
+    wp = wp.reshape(kh, kw, 4, groups, cg, co).permute(0, 1, 3, 2, 4, 5)
+    return wp.reshape(kh, kw, rows, co)
+
+
 def s2d_head_kernel(w: torch.Tensor, groups: int) -> torch.Tensor:
     """Embed a fine 1x1 head kernel (1, 1, groups*C, n) as the packed
     (1, 1, groups*4C, 4n) block-diagonal-over-phases kernel."""
@@ -413,16 +427,21 @@ def unview_loss_logits(x: torch.Tensor) -> torch.Tensor:
 
 
 class PackedConvLayer(nn.Module):
-    """ConvLayer on s2d-packed activations; variable tree of ``ConvLayer``."""
+    """ConvLayer on s2d-packed activations; variable tree of ``ConvLayer``.
+    ``groups > 1`` (JAX ``PackedGroupConvLayer``): the input is the
+    group-major concat of that many packed branches, ``in_features`` counts
+    the fine channels of all of them, and the packed kernel's rows are
+    permuted to match (:func:`group_major_rows`)."""
 
-    def __init__(self, in_features: int, features: int, dtype: torch.dtype):
+    def __init__(self, in_features: int, features: int, dtype: torch.dtype, groups: int = 1):
         super().__init__()
-        self.dtype = dtype
+        self.dtype, self.groups = dtype, groups
         self.Conv_0 = nn.Conv2d(in_features, features, 3, padding=1, bias=False)
         self.BatchNorm_0 = BatchNorm(features)
 
     def packed_kernel(self) -> torch.Tensor:
-        return s2d_conv_kernel(hwio(self.Conv_0.weight)).to(self.dtype)
+        wp = s2d_conv_kernel(hwio(self.Conv_0.weight))
+        return group_major_rows(wp, self.groups).to(self.dtype)
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         x = conv3x3_nhwc(x.to(self.dtype), self.packed_kernel())
@@ -432,7 +451,7 @@ class PackedConvLayer(nn.Module):
 
     def forward_fused(self, xprev: torch.Tensor, fold: Fold, has_fold: bool, n: int,
                       train: bool) -> Tuple[torch.Tensor, Fold]:
-        """JAX ``_FusedPackedConvLayer`` (groups=1)."""
+        """JAX ``_FusedPackedConvLayer``: RAW conv output + this layer's fold."""
         out, s1, s2 = conv_bn_fused(xprev.to(self.dtype), self.packed_kernel(), fold, has_fold)
         return out, self.BatchNorm_0.fold_from_sums(s1, s2, n, 4, train)
 
@@ -459,25 +478,91 @@ class PackedConvBlock(nn.Module):
         return self.conv2(self.conv1(x, train), train)
 
 
+class FusionBlock(nn.Module):
+    """Cross-branch fusion (JAX ``FusionBlock``): run the pre and post
+    sub-layers, concatenate the two branches and re-mix them with two
+    ConvLayers, ``conv_pre`` and ``conv_post``.  The sub-layers are encoder
+    stages, called ``(x, train)``, or decoder stages (``decoder_mode``),
+    called ``(x, skip, train)``.
+
+    ``packed_last``: the sub-layers are the s2d-packed last decoder stage, so
+    the re-mix is a packed group conv over the concat (``groups=2``).  Under
+    ``fused_tail_scope``, where :func:`supported` takes the shape, both group
+    convs consume the SAME raw concat and its concatenated fold through the
+    fused kernel, and return deferred folds when a registry is open (the
+    head's concat joins them), activated maps otherwise.  The stock route
+    activates a fold-carrying concat first."""
+
+    def __init__(self, pre_layer: nn.Module, post_layer: nn.Module, features: int,
+                 dtype: torch.dtype, decoder_mode: bool = False, packed_last: bool = False):
+        super().__init__()
+        self.features, self.dtype = features, dtype
+        self.decoder_mode, self.packed_last = decoder_mode, packed_last
+        self.pre_layer, self.post_layer = pre_layer, post_layer
+        if packed_last:
+            self.conv_pre = PackedConvLayer(2 * features, features, dtype, groups=2)
+            self.conv_post = PackedConvLayer(2 * features, features, dtype, groups=2)
+        else:
+            self.conv_pre = ConvLayer(2 * features, features, dtype)
+            self.conv_post = ConvLayer(2 * features, features, dtype)
+
+    def forward(self, pre, post, dec_pre=None, dec_post=None, last_dec: bool = False,
+                train: bool = False):
+        if self.decoder_mode and (dec_pre is not None or dec_post is not None or last_dec):
+            pre = self.pre_layer(pre, dec_pre, train)
+            post = self.post_layer(post, dec_post, train)
+        else:
+            pre = self.pre_layer(pre, train)
+            post = self.post_layer(post, train)
+        fmap = concat_registered(pre, post)
+        if self.packed_last and last_dec:
+            fused, outstanding = fused_tail_state()
+            raw_in = fmap.raw if isinstance(fmap, DeferredFold) else fmap
+            if fused and supported(tuple(raw_in.shape), 4 * self.features):
+                raw_in, fold_in = consume_fold(fmap)
+                has_fold = fold_in is not None
+                if fold_in is None:
+                    fold_in = _zero_fold(raw_in.shape[-1], self.dtype, raw_in.device)
+                n = raw_in.shape[0] * raw_in.shape[1] * raw_in.shape[2] * 4
+                raw_pre, fold_pre = self.conv_pre.forward_fused(raw_in, fold_in, has_fold, n,
+                                                                train)
+                raw_post, fold_post = self.conv_post.forward_fused(raw_in, fold_in, has_fold, n,
+                                                                   train)
+                if outstanding is not None:
+                    return defer_fold(raw_pre, fold_pre), defer_fold(raw_post, fold_post)
+                return (norm_act(raw_pre, *fold_pre, act="leaky"),
+                        norm_act(raw_post, *fold_post, act="leaky"))
+            if isinstance(fmap, DeferredFold):  # the branch chains returned RAW maps
+                raw, fold = consume_fold(fmap)
+                fmap = norm_act(raw, *fold, act="leaky")
+        return self.conv_pre(fmap, train), self.conv_post(fmap, train)
+
+
 class PackedHead(nn.Module):
     """1x1 output head in the packed domain (JAX ``_PackedHead``); the
     parameters are the FINE head's.  ``groups``: the input is the
     group-major concat of that many packed branches.  With a deferred
-    ``fold`` it runs as the fused head kernel."""
+    ``fold`` it runs as the fused head kernel (a zero bias without
+    ``use_bias``)."""
 
-    def __init__(self, fine_in: int, head_n: int, groups: int, dtype: torch.dtype):
+    def __init__(self, fine_in: int, head_n: int, groups: int, dtype: torch.dtype,
+                 use_bias: bool = True):
         super().__init__()
         self.dtype, self.groups = dtype, groups
         self.weight = nn.Parameter(torch.empty(head_n, fine_in, 1, 1))
-        self.bias = nn.Parameter(torch.zeros(head_n))
+        self.bias = nn.Parameter(torch.zeros(head_n)) if use_bias else None
         nn.init.kaiming_uniform_(self.weight, a=5 ** 0.5)
 
     def forward(self, x: torch.Tensor, fold: Optional[Fold] = None) -> torch.Tensor:
         wp = s2d_head_kernel(hwio(self.weight), self.groups).to(self.dtype)
         kmat = wp.reshape(wp.shape[2], wp.shape[3])
         if fold is not None:
-            return head_conv_fused(x.to(self.dtype), kmat, self.bias.repeat(4), fold)
+            hbias = (self.bias.repeat(4) if self.bias is not None else
+                     torch.zeros(kmat.shape[1], dtype=torch.float32, device=x.device))
+            return head_conv_fused(x.to(self.dtype), kmat, hbias, fold)
         out = torch.matmul(x.to(self.dtype), kmat)
+        if self.bias is None:
+            return out
         return out + self.bias.repeat(4).to(out.dtype)
 
 
@@ -486,20 +571,29 @@ class OutputBlock(nn.Module):
     emit_loss_view=True)``): the packed 1x1 head, then at eval the
     depth-to-space of the logits, in train mode the loss view ``(B, H, 4W,
     n)``, a reshape with no transpose.  ``packed_groups``: concatenated
-    packed branches (2 for siamese); ``fine_in`` counts all of them."""
+    packed branches (2 for siamese); ``fine_in`` counts all of them.
+
+    ``n_class == 3`` is the CORAL head: one logit, no bias, and the shared
+    ordinal ``coral_bias`` (initialized to [1, 0, -1]) added to either view,
+    broadcasting the logit to 3 channels; ``n_class == 1`` is the MSE head."""
 
     def __init__(self, n_class: int, fine_in: int, dtype: torch.dtype,
                  packed_groups: int = 1):
         super().__init__()
-        if n_class == 3:
-            raise NotImplementedError("the CORAL head is not ported yet (ROADMAP Queue 1, "
-                                      "damage variants)")
-        self.conv = PackedHead(fine_in, n_class, packed_groups, dtype)
+        self.coral = n_class == 3
+        self.conv = PackedHead(fine_in, 1 if self.coral else n_class, packed_groups, dtype,
+                               use_bias=not self.coral)
+        if self.coral:
+            self.coral_bias = nn.Parameter(torch.tensor([1.0, 0.0, -1.0]))
 
     def forward(self, x, train: bool = False) -> torch.Tensor:
         x, fold = consume_fold(x)
         out = self.conv(x, fold=fold)
         if train:
             b, h, w, pn = out.shape
-            return out.reshape(b, h, 4 * w, pn // 4)
-        return depth_to_space(out)
+            out = out.reshape(b, h, 4 * w, pn // 4)
+        else:
+            out = depth_to_space(out)
+        if self.coral:
+            out = out + self.coral_bias.to(out.dtype)
+        return out

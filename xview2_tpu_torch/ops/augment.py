@@ -30,7 +30,9 @@ With ``--autoaugment`` the chain is the other branch of JAX
 ``augment_sample``: the non-empty-mask crop WITHOUT the zoom, one ImageNet
 AutoAugment draw (``ops/autoaugment.py``) and the normalization; flips, noise
 and brightness/contrast are not applied (:func:`draw_augment_autoaugment`,
-:func:`apply_augment_autoaugment`).
+:func:`apply_augment_autoaugment`).  A 6-channel pair takes one draw per
+sample: a spatial op, with its sign, moves both halves and the mask alike,
+and an intensity op acts on each half with the same magnitude.
 """
 
 from __future__ import annotations
@@ -285,9 +287,6 @@ def augment_batch(gen: torch.Generator, images: torch.Tensor, masks: torch.Tenso
                   use_autoaugment: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """Draw and apply: the train step's augmentation of a batch of raw tiles."""
     if use_autoaugment:
-        if images.shape[-1] != 3:
-            raise NotImplementedError("--autoaugment on 6-channel pairs is not ported yet "
-                                      "(ROADMAP Queue 1, damage variants)")
         return apply_augment_autoaugment(images, masks,
                                          draw_augment_autoaugment(gen, masks, crop), crop, bgr)
     return apply_augment(images, masks, draw_augment(gen, masks, crop, images.shape[-1]), crop,

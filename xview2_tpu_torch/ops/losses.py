@@ -1,13 +1,13 @@
 """Segmentation losses (port of ``focal_loss``, ``dice_loss``, ``ce_loss``,
-``ohem_loss``, ``make_loss_fn`` and ``packed_loss_view_labels`` of
-``xview2_tpu/ops/losses.py``).
+``ohem_loss``, ``mse_loss``, ``coral_loss``, ``make_loss_fn`` and
+``packed_loss_view_labels`` of ``xview2_tpu/ops/losses.py``).
 
 monai 0.4.0 numerics as in the JAX package: DiceLoss(softmax, to_onehot_y,
 batch=True, smooth 1e-5) and FocalLoss(gamma=2) with its mean-over-classes
 normalization; reductions are mask-weighted sums.  OHEM is the intended
 per-image hard-negative top-k, as a rank mask.  Logits are NHWC ``(B, H, W,
-C)``, labels ``(B, H, W)`` integers.  The mse and coral terms are not ported
-yet (ROADMAP Queue 1, losses).
+C)``, labels ``(B, H, W)`` integers.  ``deep_supervision_loss`` comes with
+the deep-supervision heads (ROADMAP Queue 1, decoder options).
 """
 
 from __future__ import annotations
@@ -115,7 +115,38 @@ def ohem_loss(logits: torch.Tensor, labels: torch.Tensor,
     return total / torch.clamp(keep.sum(), min=1).to(nll.dtype)
 
 
-_LOSS_FNS = {"dice": dice_loss, "focal": focal_loss, "ce": ce_loss, "ohem": ohem_loss}
+def mse_loss(logits: torch.Tensor, labels: torch.Tensor,
+             mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Masked mean squared error on ``relu(logits[..., 0])`` (reference
+    loss.py:92-94)."""
+    w = _ensure_mask(labels, mask)
+    pred = torch.relu(_acc(logits)[..., 0])
+    err = (pred - labels.to(torch.float32)) ** 2
+    return torch.sum(w * err) / torch.clamp(torch.sum(w), min=1.0)
+
+
+# CORAL cumulative-level targets of the 4 ordinal damage classes (reference
+# loss.py:58)
+_CORAL_LEVELS = ((0.0, 0.0, 0.0), (1.0, 0.0, 0.0), (1.0, 1.0, 0.0), (1.0, 1.0, 1.0))
+
+
+def coral_loss(logits: torch.Tensor, labels: torch.Tensor,
+               mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Ordinal regression (CORAL) on 3 cumulative level logits (reference
+    loss.py:54-65): per pixel ``-sum_k[logsigmoid(x_k)*l_k + (logsigmoid(x_k)
+    - x_k)*(1 - l_k)]``, the levels a one-hot of ``clip(labels, 0, 3)`` times
+    the 4x3 table, as in the JAX package."""
+    w = _ensure_mask(labels, mask)
+    x = _acc(logits)
+    table = torch.tensor(_CORAL_LEVELS, dtype=torch.float32, device=logits.device)
+    levels = _one_hot(labels.clamp(0, 3), 4) @ table
+    logpt = torch.nn.functional.logsigmoid(x)
+    per_pixel = torch.sum(logpt * levels + (logpt - x) * (1.0 - levels), dim=-1)
+    return -torch.sum(w * per_pixel) / torch.clamp(torch.sum(w), min=1.0)
+
+
+_LOSS_FNS = {"dice": dice_loss, "focal": focal_loss, "ce": ce_loss, "ohem": ohem_loss,
+             "mse": mse_loss, "coral": coral_loss}
 
 
 def make_loss_fn(loss_str: str, task_type: str) -> Callable[..., torch.Tensor]:
@@ -126,8 +157,7 @@ def make_loss_fn(loss_str: str, task_type: str) -> Callable[..., torch.Tensor]:
     terms = loss_str.split("+")
     for t in terms:
         if t not in _LOSS_FNS:
-            raise NotImplementedError(f"loss term {t!r} is not ported to xview2_tpu_torch yet "
-                                      "(ROADMAP Queue 1, losses)")
+            raise ValueError(f"unknown loss term {t!r}")
     is_post = task_type == "post"
 
     def loss_fn(logits: torch.Tensor, labels: torch.Tensor,

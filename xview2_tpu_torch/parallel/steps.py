@@ -111,9 +111,6 @@ def check_train_supported(cfg: Config) -> None:
     if cfg.gpus != 1 or cfg.spatial_shards != 1:
         raise NotImplementedError("--gpus/--spatial_shards > 1 are not ported yet "
                                   "(ROADMAP Queue 1, multi-GPU)")
-    if cfg.type == "post" and cfg.autoaugment:
-        raise NotImplementedError("--autoaugment with --type post is not ported yet "
-                                  "(ROADMAP Queue 1, damage variants)")
 
 
 def forward_loss(cfg: Config, model, loss_fn, x: torch.Tensor,

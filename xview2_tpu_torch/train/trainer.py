@@ -47,17 +47,24 @@ from xview2_tpu_torch.weights import from_flax, to_flax
 def _save_predictions(cfg: Config, logits: torch.Tensor, targets: np.ndarray,
                       valid: np.ndarray, start_idx: int) -> int:
     """Write per-image prob .npy + target .png (reference plt.py:126-144):
-    localization the sigmoid of channel 1, damage the softmax over the
-    classes, channel-first as ``post_process`` reads it."""
+    localization the sigmoid of channel 1; damage the softmax over the
+    classes, channel-first as ``post_process`` reads it, or with ``--loss_str
+    coral`` the class ``count(sigmoid > 0.5) + 1`` and with ``mse``
+    ``round(max(logit, 0)) + 1``, both (H, W) float32."""
     probs_dir = os.path.join(cfg.results, "probs")
     targets_dir = os.path.join(cfg.results, "targets")
     os.makedirs(probs_dir, exist_ok=True)
     os.makedirs(targets_dir, exist_ok=True)
     logits = logits.to(torch.float32)
+    task = "localization" if cfg.type == "pre" else "damage"
     if cfg.type == "pre":
-        task, probs = "localization", torch.sigmoid(logits[..., 1])
+        probs = torch.sigmoid(logits[..., 1])
+    elif cfg.loss_str == "coral":
+        probs = (torch.sigmoid(logits) > 0.5).sum(dim=-1).to(torch.float32) + 1
+    elif cfg.loss_str == "mse":
+        probs = torch.round(torch.clamp(logits[..., 0], min=0)) + 1
     else:
-        task, probs = "damage", torch.softmax(logits, dim=-1).permute(0, 3, 1, 2)
+        probs = torch.softmax(logits, dim=-1).permute(0, 3, 1, 2)
     probs = probs.cpu().numpy()
     idx = start_idx
     for prob, target, v in zip(probs, targets, valid):

@@ -7,7 +7,8 @@ mapping is mechanical, leaf by leaf:
   transposed-conv kernel ``(kh, kw, out, in)`` <-> torch's ``(in, out, kh,
   kw)`` (no flip).  Both are the same axis permutation ``(3, 2, 0, 1)``.
 * ``params/.../scale`` <-> ``....weight`` (1-D, BatchNorm);
-  ``params/.../bias`` <-> ``....bias``.
+  ``params/.../bias`` <-> ``....bias``; the CORAL head's
+  ``params/.../coral_bias`` <-> ``....coral_bias``.
 * ``batch_stats/.../mean`` <-> ``....running_mean``; ``var`` <->
   ``running_var``.
 
@@ -27,7 +28,7 @@ import torch
 _KERNEL_PERM = (3, 2, 0, 1)      # HWIO -> OIHW, (kh, kw, out, in) -> (in, out, kh, kw)
 _KERNEL_PERM_INV = (2, 3, 1, 0)
 
-_PARAM_LEAF = {"scale": "weight", "bias": "bias"}
+_PARAM_LEAF = {"scale": "weight", "bias": "bias", "coral_bias": "coral_bias"}
 _STAT_LEAF = {"mean": "running_mean", "var": "running_var"}
 
 
