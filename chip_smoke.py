@@ -72,7 +72,23 @@ Phases, each of which fails the script (non-zero exit, no result line):
    against the CPU; the --autoaugment chain on pairs against the CPU.  Phase
    3 also holds K1 at n = 3 and 1, K3 at Co = 4 (C = 256 and 128), K2, K4 and
    K5 at the cross-fusion's C = 256 -> 128, and K6 on 7-channel pairs;
-10. one JSON line listing every kernel, then the ``nvidia-smi`` line, then
+10. the decoder options path: configuration D (BASELINE config 2),
+   ``main([... --type pre --encoder resnest50 --attention --deep_supervision
+   --autoaugment --fused_tail 1 ...])`` at batch 16 (K1 eight times a step:
+   both label views, the three outputs [out, ds4, ds3] and their
+   cotangents; K2, K4 and K5 six times; K3 once; K6), then its eval CLI
+   with TTA on the 1024^2 holdout and its dumps, each with the counters from
+   0; D's train (fused and stock tail) and eval steps (fused against stock)
+   by CUDA events, its train-mode outputs finite, its float32 eval and train
+   steps against the CPU; then one train and one TTA eval step each of
+   ``--ppm``, ``--aspp --dilation 2``, ``--dec_interp``, ``--interpolate``
+   (512^2 crops; its eval CLI too, dumps (1024, 1024)), ``parallelEnc
+   --ppm --deep_supervision`` with CORAL and ``fused --dec_interp
+   --attention --deep_supervision`` (ResNet-50, 2 tiles or pairs), each with
+   its float32 eval step against the CPU.  Configuration C of phase 9 runs
+   with ``--ppm``, config 4 as written (its tree held equal without it).
+   Phase 3 also holds K1 at D's eight train launches;
+11. one JSON line listing every kernel, then the ``nvidia-smi`` line, then
    ``{"ok": true, "device": {...}}`` as the last line.
 """
 
@@ -1245,8 +1261,11 @@ def check_small_conv():
 def seeded_model(cfg, seed: int, kernel_scale: float = 2.2):
     """The port's model with random weights from ``seed``: torch's default
     conv init scaled by ``kernel_scale`` so activations stay O(1) (1.9 for
-    the 66 blocks of ResNeSt-200), and BN statistics and affines drawn away
-    from the identity so the folds do real work."""
+    the 66 blocks of ResNeSt-200), BN statistics and affines drawn away
+    from the identity so the folds do real work, and each CORAL head's
+    ordinal bias its initial [1, 0, -1] plus N(0, 0.1) noise, as the CPU
+    tests draw it: levels drawn near each other would tie in bfloat16 and
+    make the logits' argmax a coin toss between two equal channels."""
     import torch
 
     from xview2_tpu_torch.models.unet import build_model
@@ -1256,7 +1275,9 @@ def seeded_model(cfg, seed: int, kernel_scale: float = 2.2):
     gen = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for name, t in model.state_dict().items():
-            if name.endswith("running_mean") or name.endswith("bias"):
+            if name.endswith("coral_bias"):
+                t.copy_(torch.tensor([1.0, 0.0, -1.0]) + torch.randn(t.shape, generator=gen) * 0.1)
+            elif name.endswith("running_mean") or name.endswith("bias"):
                 t.copy_(torch.randn(t.shape, generator=gen) * 0.1)
             elif name.endswith("running_var"):
                 t.copy_(torch.rand(t.shape, generator=gen) * 1.5 + 0.5)
@@ -1755,7 +1776,7 @@ def run_damage_path(work: str, profile: bool):
     return launches, rows
 
 
-C_BATCH = 8   # configuration C: ResNeSt-200 fused + CORAL, BASELINE config 4's batch
+C_BATCH = 8   # configuration C: ResNeSt-200 fused + CORAL (+ --ppm), BASELINE config 4
 # launches per train step of C: each branch's decoder runs its dec_l2 and
 # dec_l3 ConvBlocks (two fused convs each) and its packed dec_l5 (two), and
 # the packed cross-fusion its conv_pre and conv_post (two): 14 K2, with a K4
@@ -1776,10 +1797,12 @@ VARIANT_CROP = 256
 
 
 def run_dmg_variants_path(work: str, profile: bool):
-    """Configuration C, BASELINE's config 4 without PPM, through the CLI at
+    """Configuration C, BASELINE's config 4 as written, through the CLI at
     full width and depth: ``main([--exec_mode train --type post --dmg_model
-    fused --loss_str coral --fused_tail 1 --batch_size 8 --ckpt_pre <A's
-    best>])`` (the CLI's default encoder, ResNeSt-200), its transplant
+    fused --loss_str coral --ppm --fused_tail 1 --batch_size 8 --ckpt_pre
+    <A's best>])`` (the CLI's default encoder, ResNeSt-200; the fused
+    variant ignores ``--ppm``, as JAX's does: its tree is held equal with
+    and without it), its transplant
     watched (every ``enc_fusion_i.pre_layer`` and ``.post_layer`` tensor
     equal to A's ``unet.enc_l{i+1}``), then ``main([--exec_mode eval ...
     --eval_tta on --eval_fused_tail on])`` on C's best with its CORAL dumps
@@ -1798,6 +1821,7 @@ def run_dmg_variants_path(work: str, profile: bool):
 
     from xview2_tpu_torch.config import Config
     from xview2_tpu_torch.main import main as port_main
+    from xview2_tpu_torch.models.unet import build_model
     from xview2_tpu_torch.ops import packed_fused_conv as pfc
     from xview2_tpu_torch.ops.metrics import init_f1_state
     from xview2_tpu_torch.parallel import checkpoint as ckpt_lib
@@ -1807,6 +1831,14 @@ def run_dmg_variants_path(work: str, profile: bool):
     from xview2_tpu_torch.train.optimizers import build_optimizer
     from xview2_tpu_torch.weights import from_flax
 
+    # config 4 as written: the fused variant ignores --ppm, as JAX's does
+    with torch.device("meta"):
+        trees = [{k: tuple(v.shape) for k, v in build_model(Config(
+            type="post", dmg_model="fused", loss_str="coral", ppm=ppm)).state_dict().items()}
+            for ppm in (False, True)]
+    if trees[0] != trees[1]:
+        raise AssertionError("C's parameter tree changes with --ppm")
+    log(f"C's tree with and without --ppm: the same {len(trees[0])} tensors, names and shapes")
     a_best = os.path.join(work, "dmg_a", "checkpoints", "best")
     payload, _ = ckpt_lib.restore_raw(a_best)
     loc = from_flax(payload["params"], payload["batch_stats"])
@@ -1826,7 +1858,7 @@ def run_dmg_variants_path(work: str, profile: bool):
     try:
         launches["C train"] = _drive_train_cli(
             work, "dmg_c", ["--type", "post", "--dmg_model", "fused", "--loss_str", "coral",
-                            "--ckpt_pre", a_best],
+                            "--ppm", "--ckpt_pre", a_best],
             {}, "C (ResNeSt-200 fused + CORAL, --ckpt_pre A) train", batch=C_BATCH,
             need_per_step=C_NEED)
     finally:
@@ -1851,7 +1883,7 @@ def run_dmg_variants_path(work: str, profile: bool):
 
     res_c = os.path.join(work, "dmg_c")
     argv = ["--exec_mode", "eval", "--type", "post", "--dmg_model", "fused", "--loss_str",
-            "coral", "--data", work, "--results", res_c, "--ckpt",
+            "coral", "--ppm", "--data", work, "--results", res_c, "--ckpt",
             os.path.join(res_c, "checkpoints", "best"), "--val_batch_size", str(VAL_BATCH),
             "--num_workers", "8", "--eval_tta", "on", "--eval_fused_tail", "on"]
     _zero_counters()
@@ -1894,7 +1926,8 @@ def run_dmg_variants_path(work: str, profile: bool):
 
     # C's steady state on device-resident batches
     c_cfg = Config(type="post", dmg_model="fused", encoder="resnest200", precision=16,
-                   loss_str="coral", batch_size=C_BATCH, optimizer="adamw", fused_tail=True)
+                   loss_str="coral", batch_size=C_BATCH, optimizer="adamw", fused_tail=True,
+                   ppm=True)
     images, masks = _raw_train_batch(C_BATCH, 6)
     for fused in (True, False):
         rows[f"C train {'fused' if fused else 'stock'}"] = _time_train_step(
@@ -2004,6 +2037,279 @@ def _nonzero(launches: dict) -> dict:
     return {k: v for k, v in launches.items() if v}
 
 
+# configuration D, BASELINE config 2 (tools/roofline_configs.py:61-64): ResNeSt-50
+# UNetLoc with the attention gates, deep supervision and --autoaugment at
+# batch 16, 512^2 crops; per train step K2 at dec_l2, dec_l3 (after their
+# gates) and the packed dec_l5 (two each), a K4 and a K5 behind each, the
+# fused head once; K1 eight times: both label views (packed and fine), the
+# three outputs [out, ds4, ds3] and their three cotangents
+D_NEED = {"relayout_cuda": 8, "conv_bn_fused": 6, "head_conv_fused": 1, "conv_bn_wgrad": 6,
+          "conv_bn_dgrad": 6}
+D_BASE = dict(type="pre", encoder="resnest50", attention=True, deep_supervision=True)
+# the other options, small: (tag, Config kwargs, crop, K1/K2/K3 per train step,
+# K1/K2/K3 per eval step).  --dec_interp leaves the fine dec_l5 (C = 32) and
+# its fine head on the stock route, as supported() refuses C = 32; --interpolate
+# has no decoder; parallelEnc's doubled dec_l2 (C = 1280) stays stock; the
+# fused variant's dec_interp tail fuses dec_l2 and dec_l3 of both branches
+OPTION_RUNS = (
+    ("--ppm", dict(type="pre", ppm=True), VARIANT_CROP, (3, 6, 1), (1, 6, 1)),
+    ("--aspp --dilation 2", dict(type="pre", aspp=True, dilation=2), VARIANT_CROP, (3, 6, 1),
+     (1, 6, 1)),
+    ("--dec_interp", dict(type="pre", dec_interp=True), VARIANT_CROP, (3, 4, 0), (1, 4, 0)),
+    ("--interpolate", dict(type="pre", interpolate=True), CROP, (3, 0, 0), (1, 0, 0)),
+    ("parallelEnc --ppm --deep_supervision coral",
+     dict(type="post", dmg_model="parallelEnc", ppm=True, deep_supervision=True,
+          loss_str="coral"), VARIANT_CROP, (8, 4, 1), (1, 4, 1)),
+    ("fused --dec_interp --attention --deep_supervision",
+     dict(type="post", dmg_model="fused", dec_interp=True, attention=True,
+          deep_supervision=True), VARIANT_CROP, (7, 8, 0), (1, 8, 0)),
+)
+
+
+def check_relayout_ds() -> dict:
+    """K1 at configuration D's eight launches per train step: the packed
+    labels (16, 256, 1024) and the fine labels (16, 512, 512) int32, and the
+    three outputs (16, 256, 1024, 2), (16, 256, 256, 2), (16, 128, 128, 2)
+    bf16 with their cotangents; bit-exact, timed by CUDA events beside the
+    plain version, ``clone`` and the bound.  Returns the ``ds_train_`` keys."""
+    import torch
+
+    from xview2_tpu_torch.ops import layout
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    b = TRAIN_BATCH
+    tensors = [(torch.randint(0, 2, shape, generator=gen, device="cuda", dtype=torch.int32), 1)
+               for shape in ((b, CROP // 2, 2 * CROP), (b, CROP, CROP))]
+    tensors += [(torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16), 2)
+                for shape in ((b, CROP // 2, 2 * CROP, 2), (b, CROP // 2, CROP // 2, 2),
+                              (b, CROP // 4, CROP // 4, 2))]
+    row = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
+    for x, count in tensors:
+        got = layout.relayout_cuda(x)
+        torch.cuda.synchronize()
+        if not (got.is_contiguous() and torch.equal(got, x)):
+            raise AssertionError(f"K1 {tuple(x.shape)} {x.dtype}: not a bit-exact copy")
+        row["ms"] += count * cuda_ms(lambda: layout.relayout_cuda(x), 20)
+        row["plain_ms"] += count * cuda_ms(lambda: layout.relayout_reference(x), 20)
+        row["library_ms"] += count * cuda_ms(lambda: x.clone(), 20)
+        row["bound_ms"] += count * bound_ms(2 * x.numel() * x.element_size(), 0.0,
+                                            "float32")[0]
+    log(f"K1 relayout per D train step ({sum(c for _, c in tensors)} launches: "
+        f"{', '.join(f'{tuple(x.shape)} x{c}' for x, c in tensors)}): bit-exact; kernel "
+        f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, library (clone) "
+        f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms (bytes)")
+    return {f"ds_train_{k}": v for k, v in row.items()}
+
+
+def check_ds_outputs(cfg) -> None:
+    """The train-mode outputs of ``cfg`` (deep supervision, bf16, fused tail)
+    on 2 crops of CROP^2 on the card: the list [out, ds4, ds3] in the
+    packed loss view and on dec4's and dec3's grids, all finite."""
+    import torch
+
+    from xview2_tpu_torch.models.layers import fused_tail_scope
+    from xview2_tpu_torch.models.unet import fused_head_defer_ok
+
+    model = seeded_model(cfg, seed=4).cuda()
+    x = torch.randn((2, CROP, CROP, cfg.in_channels), device="cuda")
+    with torch.no_grad(), fused_tail_scope(True, defer_head=fused_head_defer_ok(cfg)):
+        outs = model(x, True)
+    shapes = [tuple(o.shape) for o in outs]
+    n = cfg.n_class
+    want = [(2, CROP // 2, 2 * CROP, n), (2, CROP // 2, CROP // 2, n), (2, CROP // 4, CROP // 4, n)]
+    finite = [bool(torch.isfinite(o).all()) for o in outs]
+    log(f"D's train-mode outputs on the card: {shapes}, finite {finite}")
+    if shapes != want or not all(finite):
+        raise AssertionError(f"deep-supervision outputs {shapes} (expected {want}), "
+                             f"finite {finite}")
+    del model
+
+
+def run_decoder_options_path(work: str, profile: bool):
+    """Configuration D, BASELINE's config 2, through the CLI at full width:
+    ``main([--exec_mode train --encoder resnest50 --attention
+    --deep_supervision --autoaugment --fused_tail 1 --batch_size 16])`` on the
+    synthetic train split (torch's initializers from --seed; no checkpoint of
+    another phase is read), then ``main([--exec_mode eval --eval_tta on
+    --eval_fused_tail on])`` of its best checkpoint on the 1024^2 holdout at
+    val batch 4 with its (1024, 1024) probability dumps, each with the
+    counters from 0 (``D_NEED`` per train step, K6 at least once); D's train
+    step (fused and stock tail) and eval step (fused against stock) on
+    device-resident batches; its train-mode outputs; its float32 eval and
+    train steps against the CPU.  Then each of OPTION_RUNS (ResNet-50,
+    VARIANT_BATCH tiles or pairs): one train step and one TTA eval step with
+    their launches, a finite loss, moved parameters and fused against stock
+    eval, and its float32 eval step against the CPU; the --interpolate model
+    also through the eval CLI on the holdout, its dumps (1024, 1024).
+    Returns ({path: launch counts}, {row: steady-state numbers})."""
+    import numpy as np
+    import torch
+
+    from xview2_tpu_torch.config import Config
+    from xview2_tpu_torch.main import main as port_main
+    from xview2_tpu_torch.ops.metrics import init_f1_state
+    from xview2_tpu_torch.parallel import checkpoint as ckpt_lib
+    from xview2_tpu_torch.parallel.steps import (init_train_state, make_eval_step,
+                                                 make_train_step, step_generator)
+    from xview2_tpu_torch.train.optimizers import build_optimizer
+    from xview2_tpu_torch.weights import to_flax
+
+    write_splits(work)
+    launches, rows = {}, {}
+    launches["D train"] = _drive_train_cli(
+        work, "dmg_d", ["--encoder", "resnest50", "--attention", "--deep_supervision",
+                        "--autoaugment"], {"row_shift_cuda": 1},
+        "D (ResNeSt-50 + attention + deep supervision + --autoaugment) train",
+        need_per_step=D_NEED)
+    torch.cuda.empty_cache()
+
+    def eval_cli(results, ckpt, tag, need):
+        argv = ["--exec_mode", "eval", "--type", "pre", "--data", work, "--results", results,
+                "--ckpt", ckpt, "--val_batch_size", str(VAL_BATCH), "--num_workers", "8",
+                "--eval_tta", "on", "--eval_fused_tail", "on"]
+        _zero_counters()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        rc = port_main(argv, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = _read_counters()
+        if rc != 0:
+            raise AssertionError(f"main returned {rc}")
+        steps = N_TILES // VAL_BATCH
+        _need_launches(got, {k: n * steps for k, n in need.items()}, tag)
+        probs = sorted(glob.glob(os.path.join(results, "probs", "test_localization_*.npy")))
+        if len(probs) != N_TILES:
+            raise AssertionError(f"{tag}: expected {N_TILES} dumps, got {len(probs)}")
+        for path in probs:
+            prob = np.load(path)
+            if prob.shape != (TILE, TILE) or prob.dtype != np.float32 or \
+                    not np.isfinite(prob).all() or prob.min() < 0 or prob.max() > 1:
+                raise AssertionError(f"{path}: bad probabilities {prob.shape} {prob.dtype}")
+        with open(os.path.join(results, "logs.json")) as f:
+            metrics = json.loads(f.readlines()[-1])["data"]
+        log(f"{tag} main path: main(--exec_mode eval --eval_tta on --eval_fused_tail on, "
+            f"{N_TILES} tiles of {TILE}^2) {wall:.2f} s end to end, peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; launches {_nonzero(got)}; "
+            f"{len(probs)} ({TILE}, {TILE}) float32 probability dumps; metrics {metrics}")
+        return got
+
+    res_d = os.path.join(work, "dmg_d")
+    launches["D eval"] = eval_cli(res_d, os.path.join(res_d, "checkpoints", "best"), "D eval",
+                                  {"relayout_cuda": 1, "conv_bn_fused": 6,
+                                   "head_conv_fused": 1})
+    shutil.rmtree(os.path.join(res_d, "checkpoints"))
+
+    # D's steady state on device-resident batches
+    d_cfg = Config(precision=16, loss_str="focal+dice", batch_size=TRAIN_BATCH,
+                   optimizer="adamw", fused_tail=True, autoaugment=True, **D_BASE)
+    images, masks = _raw_train_batch()
+    for fused in (True, False):
+        rows[f"D train {'fused' if fused else 'stock'}"] = _time_train_step(
+            d_cfg.replace(fused_tail=fused), images, masks, profile,
+            f"D ResNeSt-50 + attention + DS + --autoaugment, {'fused' if fused else 'stock'} "
+            "tail")
+    # what the gates and the DS heads add: the same step without them
+    rows["D without gates and DS train fused"] = _time_train_step(
+        d_cfg.replace(attention=False, deep_supervision=False), images, masks, profile,
+        "ResNeSt-50 + --autoaugment without the gates and the DS heads, fused tail")
+    del images, masks
+    torch.cuda.empty_cache()
+    model = seeded_model(d_cfg.replace(tta=True), seed=0).cuda()
+    outs = {}
+    for fused in (True, False):
+        rows[f"D eval {'fused' if fused else 'stock'}"], outs[fused] = _time_eval_step(
+            d_cfg.replace(tta=True, fused_tail=fused), model, 3, profile,
+            f"D ResNeSt-50 + attention + DS, {'fused' if fused else 'stock'} tail")
+    _check_fused_vs_stock(outs, "D eval step")
+    bare = d_cfg.replace(tta=True, attention=False, deep_supervision=False)
+    rows["D without gates eval fused"], _ = _time_eval_step(
+        bare, seeded_model(bare, seed=0).cuda(), 3, profile,
+        "ResNeSt-50 without the gates, fused tail")
+    del model, outs
+    torch.cuda.empty_cache()
+    check_ds_outputs(d_cfg)
+    check_f32_against_cpu(Config(**D_BASE), " (D: ResNeSt-50 + attention + DS)")
+    check_f32_train_step_against_cpu(Config(precision=32, **D_BASE), b=4, size=256,
+                                     tag=" (D: ResNeSt-50 + attention + DS)", spread=True)
+
+    # the other options, small
+    rng = np.random.default_rng(29)
+    launches["options"] = dict.fromkeys(_read_counters(), 0)
+    for tag, kw, crop, need_train, need_eval in OPTION_RUNS:
+        cfg = Config(encoder="resnet50", precision=16, batch_size=VARIANT_BATCH,
+                     optimizer="adamw", fused_tail=True, **kw)
+        ch = cfg.in_channels
+        images, masks = _raw_train_batch(VARIANT_BATCH, ch)
+        model = seeded_model(cfg, seed=0)
+        before = {k: v.clone() for k, v in model.named_parameters()}
+        opt = build_optimizer(cfg, model.parameters(), cfg.lr)
+        state = init_train_state(model, opt, device="cuda")
+        step = make_train_step(cfg, model, opt, crop=crop, device="cuda")
+        _zero_counters()
+        loss = float(step(state, images, masks, step_generator(cfg, 0, "cuda"))[1])
+        torch.cuda.synchronize()
+        train_launches = _read_counters()
+        moved = sum(not torch.equal(v.cpu(), before[k]) for k, v in model.named_parameters())
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_ms(lambda: step(state, images, masks,
+                                  step_generator(cfg, state.step, "cuda")), 3)
+        rows[f"{tag} train"] = {"ms": ms, "tiles_per_s": VARIANT_BATCH / ms * 1e3,
+                                "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+        msize = TILE if cfg.interpolate else VARIANT_CROP
+        ev_images = torch.from_numpy(rng.integers(0, 256, (VARIANT_BATCH, VARIANT_CROP,
+                                                           VARIANT_CROP, ch), np.uint8)).cuda()
+        hi = 5 if cfg.type == "post" else 2
+        ev_masks = torch.from_numpy(((rng.random((VARIANT_BATCH, msize, msize)) > 0.8)
+                                     * rng.integers(1, hi, (VARIANT_BATCH, msize, msize)))
+                                    .astype(np.uint8)).cuda()
+        valid = torch.ones(VARIANT_BATCH, device="cuda")
+        outs, eval_launches = {}, {}
+        for fused in (False, True):
+            ecfg = cfg.replace(tta=True, fused_tail=fused)
+            eval_step = make_eval_step(ecfg, model, device="cuda")
+            _zero_counters()
+            _, eloss, outs[fused] = eval_step(init_f1_state(ecfg.n_metric_class, device="cuda"),
+                                              ev_images, ev_masks, valid)
+            torch.cuda.synchronize()
+            eval_launches[fused] = _read_counters()
+            outs[fused] = outs[fused].float()
+            if not math.isfinite(float(eloss)):
+                raise AssertionError(f"{tag}: eval loss is not finite")
+        f1 = init_f1_state(cfg.n_metric_class, device="cuda")
+        rows[f"{tag} eval fused"] = {"ms": cuda_ms(lambda: eval_step(f1, ev_images, ev_masks,
+                                                                     valid), 3)}
+        log(f"option {tag} (ResNet-50, batch {VARIANT_BATCH}, {crop}^2 crops): train step loss "
+            f"{loss:.6f}, {moved} of {len(before)} parameters moved, then "
+            f"{rows[tag + ' train']['ms']:.2f} ms a step (peak "
+            f"{rows[tag + ' train']['peak_gib']:.2f} GiB); eval step (TTA, fused tail, "
+            f"{VARIANT_CROP}^2 -> logits {tuple(outs[True].shape)}) "
+            f"{rows[tag + ' eval fused']['ms']:.2f} ms; launches {_nonzero(train_launches)}; "
+            f"eval launches fused {_nonzero(eval_launches[True])}, stock "
+            f"{_nonzero(eval_launches[False])}")
+        _check_fused_vs_stock(outs, f"option {tag} eval step")
+        if not (math.isfinite(loss) and moved >= 0.9 * len(before)):
+            raise AssertionError(f"{tag}: loss {loss}, {moved} of {len(before)} parameters moved")
+        names = ("relayout_cuda", "conv_bn_fused", "head_conv_fused")
+        _need_launches(train_launches, dict(zip(names, need_train), conv_bn_wgrad=need_train[1],
+                                            conv_bn_dgrad=need_train[1]), f"{tag} train")
+        _need_launches(eval_launches[True], dict(zip(names, need_eval)), f"{tag} eval")
+        for d in (train_launches, eval_launches[True], eval_launches[False]):
+            for k, v in d.items():
+                launches["options"][k] += v
+        if cfg.interpolate:
+            ckpt = os.path.join(work, "interp_ckpt")
+            ckpt_lib.save_checkpoint(ckpt, *to_flax(model.state_dict()), epoch=0, best_f1=0.0,
+                                     best_epoch=0, cfg=cfg.replace(tta=True))
+            launches["interpolate eval"] = eval_cli(os.path.join(work, "interp_results"), ckpt,
+                                                    "--interpolate eval", {"relayout_cuda": 1})
+        del model, opt, state, step, before, outs, images, masks
+        torch.cuda.empty_cache()
+        check_f32_against_cpu(cfg.replace(precision=32), f" ({tag})")
+    return launches, rows
+
+
 def check_autoaugment_against_cpu(channels: int = 3) -> None:
     """The --autoaugment chain (crop, AutoAugment, normalize) on the card,
     through K6, against the same chain on the CPU, through the plain
@@ -2092,7 +2398,8 @@ def check_f32_train_step_against_cpu(base=None, b: int = 4, size: int = 256,
     within 5e-2 in relative L2 norm of the CPU's, and within the same of the
     card's own stock tail; running statistics within 1e-3 of each tensor's
     scale.  ``base``: the configuration (default the ResNet-50 UNetLoc), at
-    ``b`` crops of ``size``^2.  ``spread``: each crop (and channel) gets its
+    ``b`` crops of ``size``^2; with deep supervision the DS heads read the
+    fine labels, the main head their packed view.  ``spread``: each crop (and channel) gets its
     own contrast and brightness, as real tiles do; the ResNeSt split
     attention needs it in a float32 train step, where its ``bn1``
     normalizes the batch's few pooled values: with crops of one
@@ -2114,6 +2421,7 @@ def check_f32_train_step_against_cpu(base=None, b: int = 4, size: int = 256,
     import torch
 
     from xview2_tpu_torch.config import Config, apply_precision
+    from xview2_tpu_torch.models.unet import emits_packed_loss_view
     from xview2_tpu_torch.ops import packed_fused_conv as pfc
     from xview2_tpu_torch.ops.losses import make_loss_fn, packed_loss_view_labels
     from xview2_tpu_torch.parallel.steps import forward_loss
@@ -2127,16 +2435,18 @@ def check_f32_train_step_against_cpu(base=None, b: int = 4, size: int = 256,
             + rng.normal(0.0, 1.0, (b, 1, 1, base.in_channels))
     x, unspread = torch.from_numpy(x.astype(np.float32)), torch.from_numpy(x0.astype(np.float32))
     hi = 5 if base.type == "post" else 2
-    y = packed_loss_view_labels(torch.from_numpy(
-        (rng.random((b, size, size)) > 0.7) * rng.integers(1, hi, (b, size, size)))
-        .to(torch.int32))
+    fine = torch.from_numpy((rng.random((b, size, size)) > 0.7)
+                            * rng.integers(1, hi, (b, size, size))).to(torch.int32)
+    # the main head's view of the labels; the deep-supervision heads read the fine ones
+    y = packed_loss_view_labels(fine) if emits_packed_loss_view(base) else fine
     loss_fn = make_loss_fn(base.loss_str, base.type)
 
     def run(dev, fused, x=x, dtype=torch.float32, order=slice(None)):
         cfg = base.replace(fused_tail=fused, precision=64 if dtype == torch.float64 else 32)
         model = seeded_model(cfg, seed=2).to(dev, dtype)
         before = pfc.conv_bn_wgrad.launches + pfc.conv_bn_dgrad.launches
-        loss = forward_loss(cfg, model, loss_fn, x[order].to(dev, dtype), y[order].to(dev))
+        loss = forward_loss(cfg, model, loss_fn, x[order].to(dev, dtype), y[order].to(dev),
+                            fine[order].to(dev))
         names, params = zip(*model.named_parameters())
         grads = dict(zip(names, (g.cpu() for g in torch.autograd.grad(loss, params))))
         stats = {k: v.cpu() for k, v in model.state_dict().items() if "running" in k}
@@ -2201,38 +2511,46 @@ def check_f32_against_cpu(cfg=None, tag: str = "") -> None:
     tail through the f32 kernels, TF32 off) against the port's plain path on
     the CPU, at rtol = atol = 2e-4 of the logits' scale (float32 sums in
     another order through the encoder's depth).  ``cfg``: the configuration
-    (default the ResNet-50 UNetLoc), with TTA and the fused tail on."""
+    (default the ResNet-50 UNetLoc), with TTA and the fused tail on; the
+    card's step must launch a fused kernel, or K1 where the model has no
+    decoder (``--interpolate``, whose masks are then 1024^2, the head's fixed
+    eval size).  2 x 64^2 inputs, 128^2 under ``--dec_interp``: its fine
+    tail takes no fused conv, and in float32 dec_l3 reaches one from 128^2."""
     import numpy as np
     import torch
 
     from xview2_tpu_torch.config import Config, apply_precision
-    from xview2_tpu_torch.ops import packed_fused_conv as pfc
     from xview2_tpu_torch.ops.metrics import init_f1_state
     from xview2_tpu_torch.parallel.steps import make_eval_step
 
     cfg = Config(type="pre", encoder="resnet50") if cfg is None else cfg
     cfg = cfg.replace(precision=32, tta=True, fused_tail=True)
     apply_precision(cfg)
+    kernels = ("relayout_cuda",) if cfg.interpolate else ("conv_bn_fused", "head_conv_fused")
+    size = 128 if cfg.dec_interp else 64
     model = seeded_model(cfg, seed=1)
     rng = np.random.default_rng(5)
     hi = 5 if cfg.type == "post" else 2
-    data = (rng.integers(0, 256, (2, 64, 64, cfg.in_channels), np.uint8),
-            ((rng.random((2, 64, 64)) > 0.8) * rng.integers(1, hi, (2, 64, 64))).astype(np.uint8),
+    msize = 1024 if cfg.interpolate else size
+    data = (rng.integers(0, 256, (2, size, size, cfg.in_channels), np.uint8),
+            ((rng.random((2, msize, msize)) > 0.8)
+             * rng.integers(1, hi, (2, msize, msize))).astype(np.uint8),
             np.ones(2, np.float32))
     nm = cfg.n_metric_class
     _, loss_c, logits_c = make_eval_step(cfg, model, device="cpu")(init_f1_state(nm), *data)
-    before = pfc.conv_bn_fused.launches + pfc.head_conv_fused.launches
+    counters = {fn.__name__: fn for fn in _counters()}
+    before = sum(counters[k].launches for k in kernels)
     _, loss_g, logits_g = make_eval_step(cfg, model.cuda(), device="cuda")(
         init_f1_state(nm, device="cuda"), *data)
-    launched = pfc.conv_bn_fused.launches + pfc.head_conv_fused.launches - before
+    launched = sum(counters[k].launches for k in kernels) - before
     logits_g = logits_g.cpu()
     scale = max(1.0, logits_c.abs().max().item())
     diff = (logits_g - logits_c).abs().max().item()
     agree = (logits_g.argmax(-1) == logits_c.argmax(-1)).float().mean().item()
-    log(f"f32 eval step{tag} (2 x 64^2, TTA, fused tail), card vs CPU plain path: max abs diff "
-        f"{diff:.4g}, max |logit| {scale:.4g}, loss {loss_g.item():.6f} vs {loss_c.item():.6f}, "
-        f"argmax agreement {agree:.5f}, {launched} fused-kernel launches (tolerance 2e-4 "
-        f"* max(1, max|logit|))")
+    log(f"f32 eval step{tag} (2 x {size}^2, TTA, fused tail), card vs CPU plain path: max abs "
+        f"diff {diff:.4g}, max |logit| {scale:.4g}, loss {loss_g.item():.6f} vs "
+        f"{loss_c.item():.6f}, argmax agreement {agree:.5f}, {launched} launches of "
+        f"{'/'.join(kernels)} (tolerance 2e-4 * max(1, max|logit|))")
     if not (launched > 0 and diff <= 2e-4 * scale
             and abs(loss_g.item() - loss_c.item()) <= 1e-4 * abs(loss_c.item())):
         raise AssertionError(f"float32 eval step{tag} on the card disagrees with the CPU path")
@@ -2315,6 +2633,7 @@ def main(argv=None) -> int:
     rows["relayout"].update(check_relayout_damage())
     rows["relayout"].update(check_relayout_damage(3, "coral_"))
     rows["relayout"].update(check_relayout_damage(1, "mse_"))
+    rows["relayout"].update(check_relayout_ds())
     rows["head_conv_fused"].update(check_head_conv_fused(256, (8, 16), DMG_BATCH, "dmg_"))
     rows["head_conv_fused"].update(check_head_conv_fused(256, (4,), C_BATCH, "coral_"))
     rows["head_conv_fused"].update(check_head_conv_fused(128, (4,), VARIANT_BATCH, "mse_"))
@@ -2356,6 +2675,12 @@ def main(argv=None) -> int:
                                 for k in launches["eval"]}
         log(f"damage variants path done at {time.perf_counter() - t_start:.0f} s; steady state "
             f"{json.dumps(var_rows)}")
+        torch.cuda.empty_cache()
+        opt_launches, opt_rows = run_decoder_options_path(work, args.profile)
+        launches["decoder_options"] = {k: sum(d[k] for d in opt_launches.values())
+                                       for k in launches["eval"]}
+        log(f"decoder options path done at {time.perf_counter() - t_start:.0f} s; steady state "
+            f"{json.dumps(opt_rows)}")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -2376,10 +2701,12 @@ def main(argv=None) -> int:
         "small_conv_wgrad": ("small_conv_wgrad", src + "small_conv.cu",
                              "xview2_tpu/ops/pallas_conv.py:121"),
     }
-    # launches: the six main paths' runs (eval CLI, train CLI, conv3x3_small,
+    # launches: the seven main paths' runs (eval CLI, train CLI, conv3x3_small,
     # --autoaugment train CLI, the damage path's A train, B train and B eval
-    # CLIs, and the variants path's C train and C eval CLIs and the six other
-    # variants' steps), each counted from 0; dmg_ keys of K1 and K3: the
+    # CLIs, the variants path's C train and C eval CLIs and the six other
+    # variants' steps, and the decoder options path's D train and D eval CLIs,
+    # the six option runs' steps and the --interpolate eval CLI), each counted
+    # from 0; ds_train_ keys of K1: D's eight launches per train step; dmg_ keys of K1 and K3: the
     # damage shapes (K1 at n = 4, K3 at C = 256, Co = 16; dmg_train_: per
     # train step); coral_ and mse_ keys: K1 at n = 3 and 1, K3 at Co = 4 with
     # C = 256 (C's head) and 128 (cat's MSE head); fusion_ keys of K2, K4 and
@@ -2405,6 +2732,7 @@ def main(argv=None) -> int:
                         "autoaugment_path_launches": launches["autoaugment"][counter],
                         "damage_path_launches": launches["damage"][counter],
                         "variants_path_launches": launches["variants"][counter],
+                        "decoder_options_path_launches": launches["decoder_options"][counter],
                         "max_abs_err": r["max_abs_err"],
                         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"],

@@ -36,7 +36,7 @@ from xview2_tpu.parallel.transplant import transplant_encoder as jax_transplant
 from xview2_tpu.train import trainer as jax_trainer
 from xview2_tpu_torch.config import Config
 from xview2_tpu_torch.models import layers as tl
-from xview2_tpu_torch.models.unet import DMG_UNETS, build_model, check_supported
+from xview2_tpu_torch.models.unet import DMG_UNETS, build_model
 from xview2_tpu_torch.ops import packed_fused_conv as port_pfc
 from xview2_tpu_torch.ops.metrics import init_f1_state
 from xview2_tpu_torch.parallel.steps import make_eval_step
@@ -387,18 +387,22 @@ def _flax_shapes(state_dict):
 
 
 def test_every_variant_and_loss_is_supported():
-    """``check_supported`` takes all eight variants with ``ohem+dice``,
-    ``coral`` and ``mse``, and ``--autoaugment``; the factory maps each name
-    to the class of the JAX package's name (their trees:
-    ``test_parameter_trees_match_jax``)."""
+    """The fit checks take all eight variants with ``ohem+dice``, ``coral``
+    and ``mse``, and ``--autoaugment``; the factory maps each name to the
+    class of the JAX package's name (their trees:
+    ``test_parameter_trees_match_jax``).  ``fused`` with ``--ppm``, config 4
+    as written, builds too: the fused variants ignore ``--ppm``, as JAX's do
+    (``tests/test_torch_decoder_options.py`` holds the trees equal)."""
     for dmg_model in DMG_UNETS:
         for loss_str in ("ohem+dice", "coral", "mse"):
-            check_supported(Config(type="post", dmg_model=dmg_model, loss_str=loss_str,
-                                   autoaugment=True))
+            port_trainer._check_fit_supported(Config(type="post", dmg_model=dmg_model,
+                                                     loss_str=loss_str, autoaugment=True))
     assert {k: v.__name__ for k, v in DMG_UNETS.items()} == \
         {k: v.__name__ for k, v in JAX_DMG_UNETS.items()}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        check_supported(Config(type="post", dmg_model="fused", ppm=True))
+    cfg = Config(type="post", dmg_model="fused", ppm=True, encoder="resnet50")
+    port_trainer._check_fit_supported(cfg)
+    with torch.device("meta"):
+        assert not any(k.startswith("ppm") for k in build_model(cfg).state_dict())
 
 
 def _boundary_pixels(logits, loss_str, tol):

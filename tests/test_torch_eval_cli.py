@@ -23,9 +23,10 @@ from xview2_tpu.models.unet import build_model as jax_build_model
 from xview2_tpu.parallel import checkpoint as jax_ckpt
 from xview2_tpu.parallel.steps import init_train_state
 from xview2_tpu.train import trainer as jax_trainer
-from xview2_tpu_torch.config import Config
+from xview2_tpu_torch.config import Config, parse_args
 from xview2_tpu_torch.main import main
 from xview2_tpu_torch.parallel import checkpoint as port_ckpt
+from xview2_tpu_torch.train import trainer as port_trainer
 
 SIZE = 96
 
@@ -110,13 +111,20 @@ def test_f1_equal(evaluated):
 
 def test_train_mode_raises(tmp_path):
     """Train mode is ported (tests/test_torch_train_cli.py); what it cannot do
-    yet still raises, naming its ROADMAP item, before any data is read."""
+    yet still raises, naming its ROADMAP item, before any data is read.  The
+    decoder options, ``fused --ppm`` and ``--autoaugment --dec_interp`` on
+    pairs among them, are ported and pass the same checks."""
     base = ["--exec_mode", "train", "--type", "pre", "--encoder", "resnet50",
             "--results", str(tmp_path)]
-    for extra in (["--type", "post", "--dmg_model", "fused", "--ppm"], ["--remat", "tail"],
-                  ["--optimizer", "radam"], ["--interpolate"], ["--deep_supervision"],
+    for extra in (["--remat", "tail"], ["--optimizer", "radam"],
                   ["--pretrained_enc", "enc.npz"], ["--gpus", "2"],
-                  ["--type", "post", "--loss_str", "coral", "--attention"],
-                  ["--type", "post", "--autoaugment", "--dec_interp"]):
+                  ["--type", "post", "--loss_str", "coral", "--attention", "--remat", "dots"],
+                  ["--type", "post", "--dmg_model", "fused", "--ppm", "--fold_eval_bn", "0"]):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             main(base + extra, device="cpu")
+    for extra in (["--type", "post", "--dmg_model", "fused", "--ppm"], ["--interpolate"],
+                  ["--deep_supervision"], ["--type", "post", "--loss_str", "coral",
+                                           "--attention"],
+                  ["--type", "post", "--autoaugment", "--dec_interp"]):
+        cfg = parse_args(base + extra)
+        assert port_trainer._check_fit_supported(cfg) is None, extra

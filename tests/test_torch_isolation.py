@@ -76,15 +76,19 @@ def test_no_port_source_names_the_jax_stack():
 
 def test_options_left_out_raise_naming_a_roadmap_item():
     """Every option outside the ported slices raises NotImplementedError
-    naming its ROADMAP item, through ``main`` (train and eval) or
-    ``build_model``; none returns numbers."""
+    naming its ROADMAP item, through ``main`` (train and eval) or the train
+    step; none returns numbers.  The decoder options (``--ppm``, ``--aspp``,
+    ``--attention``, ``--deep_supervision``, ``--dec_interp``,
+    ``--interpolate``, alone and together, for ``UNetLoc`` and the damage
+    variants, ``fused --ppm`` among them) are ported: the checks let them
+    through and ``build_model`` builds them."""
     proc = _run("""
         import torch
         from xview2_tpu_torch.config import Config
         from xview2_tpu_torch.main import main
-        from xview2_tpu_torch.models import unet
         from xview2_tpu_torch.models.unet import build_model
         from xview2_tpu_torch.parallel import steps
+        from xview2_tpu_torch.train import trainer
 
         def raises(fn, what):
             try:
@@ -96,36 +100,36 @@ def test_options_left_out_raise_naming_a_roadmap_item():
 
         train = ["--exec_mode", "train", "--type", "pre", "--encoder", "resnet50",
                  "--results", "/nonexistent"]
-        post = ["--type", "post"]
-        cli = [post + ["--dmg_model", "fused", "--ppm"], post + ["--dmg_model", "parallel",
-                                                                  "--attention"],
-               post + ["--dmg_model", "cat", "--deep_supervision"],
-               ["--ppm"], ["--aspp"], ["--attention"], ["--deep_supervision"],
-               ["--dec_interp"], ["--interpolate"], ["--pretrained_enc", "enc.npz"],
-               ["--gpus", "2"], ["--gpus", "2", "--spatial_shards", "2"],
-               ["--remat", "tail"], ["--remat", "dots"], ["--remat", "full"],
-               ["--fold_eval_bn", "0"]]
+        cli = [["--pretrained_enc", "enc.npz"], ["--gpus", "2"],
+               ["--gpus", "2", "--spatial_shards", "2"], ["--remat", "tail"],
+               ["--remat", "dots"], ["--remat", "full"], ["--fold_eval_bn", "0"]]
         cli += [["--optimizer", o] for o in ("radam", "adabelief", "adabound", "adamp",
                                              "novograd")]
         for extra in cli:
             raises(lambda: main(train + extra, device="cpu"), extra)
-        for kw in (dict(type="post", dmg_model="fused", ppm=True), dict(ppm=True),
-                   dict(aspp=True), dict(attention=True), dict(deep_supervision=True),
-                   dict(dec_interp=True), dict(interpolate=True),
-                   dict(type="post", loss_str="coral", aspp=True)):
-            raises(lambda: build_model(Config(**{"encoder": "resnet50", **kw})), kw)
         raises(lambda: steps.make_train_multistep(None, None, None, 2), "make_train_multistep")
-        # --autoaugment, on pairs too, the damage variants and the mse and coral
-        # heads are ported: the checks let them through
-        assert steps.check_train_supported(Config(encoder="resnet50", autoaugment=True)) is None
-        assert steps.check_train_supported(Config(type="post", autoaugment=True)) is None
-        for kw in (dict(dmg_model="fused", loss_str="coral"), dict(dmg_model="cat",
-                                                                   loss_str="mse")):
-            assert unet.check_supported(Config(type="post", **kw)) is None
-        print("checked", len(cli) + 9)
+        # --autoaugment, on pairs too, the damage variants, the mse and coral
+        # heads and the decoder options are ported: the checks let them through
+        ported = [dict(autoaugment=True), dict(type="post", autoaugment=True),
+                  dict(type="post", dmg_model="fused", loss_str="coral"),
+                  dict(type="post", dmg_model="cat", loss_str="mse"),
+                  dict(type="post", dmg_model="fused", ppm=True),
+                  dict(type="post", dmg_model="parallel", attention=True),
+                  dict(type="post", dmg_model="cat", deep_supervision=True),
+                  dict(ppm=True), dict(aspp=True), dict(attention=True),
+                  dict(deep_supervision=True), dict(dec_interp=True), dict(interpolate=True),
+                  dict(type="post", loss_str="coral", aspp=True),
+                  dict(attention=True, deep_supervision=True, ppm=True, dec_interp=True)]
+        for kw in ported:
+            cfg = Config(**{"encoder": "resnet50", **kw})
+            assert trainer._check_fit_supported(cfg) is None, kw
+            assert steps.check_train_supported(cfg) is None, kw
+            with torch.device("meta"):
+                build_model(cfg)
+        print("checked", len(cli) + 1, "raising,", len(ported), "ported")
     """)
     assert proc.returncode == 0, proc.stderr + proc.stdout
-    assert proc.stdout.split()[-2:] == ["checked", "30"]
+    assert proc.stdout.split()[-5:] == ["checked", "13", "raising,", "15", "ported"]
 
 
 def test_cuda_request_without_a_device_raises():

@@ -125,13 +125,30 @@ def test_fused_and_stock_paths_agree_in_the_port():
 
 
 def test_unported_options_raise():
-    for kw in (dict(type="post", dmg_model="fused", ppm=True), dict(ppm=True),
-               dict(attention=True), dict(deep_supervision=True), dict(dec_interp=True),
-               dict(interpolate=True), dict(type="post", loss_str="mse", aspp=True),
-               dict(type="post", loss_str="coral", dec_interp=True)):
-        with pytest.raises(NotImplementedError):
-            build_model(Config(**{"encoder": "resnet50", **kw}))
-    # train mode is ported: the logits come out in the packed loss view
+    """What the eval path cannot do yet raises (``--fold_eval_bn 0``,
+    ``--gpus 2``, naming the ROADMAP); the decoder options that raised here
+    before they were ported now build and run, their logits the fine grid
+    at eval, the packed loss view (or the DS list) in train mode."""
+    from xview2_tpu_torch.train import trainer
+
+    for kw in (dict(fold_eval_bn=False), dict(gpus=2)):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            trainer._check_supported(Config(encoder="resnet50", **kw))
+    x = torch.zeros(1, 32, 32, 3)
+    for kw in (dict(ppm=True, attention=True), dict(deep_supervision=True),
+               dict(dec_interp=True, aspp=True, dilation=2)):
+        model = build_model(Config(encoder="resnet50", precision=32, **kw))
+        with torch.no_grad():
+            assert model(x).shape == (1, 32, 32, 2), kw
+            out = model(x, train=True)
+        if kw.get("deep_supervision"):
+            assert [o.shape for o in out] == [(1, 16, 64, 2), (1, 16, 16, 2), (1, 8, 8, 2)]
+        else:
+            assert out.shape == ((1, 32, 32, 2) if kw.get("dec_interp") else (1, 16, 64, 2))
+    with torch.device("meta"):  # shapes only: the cross-fusion convs are 300 M parameters
+        model = build_model(Config(type="post", dmg_model="fused", ppm=True, encoder="resnet50"))
+    assert not any("ppm" in k for k in model.state_dict())
+    # train mode: the logits come out in the packed loss view
     model = build_model(Config(encoder="resnet50", precision=32))
     assert model(torch.zeros(1, 64, 64, 3), train=True).shape == (1, 32, 128, 2)
 

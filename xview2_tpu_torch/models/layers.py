@@ -18,7 +18,10 @@ rule: biased variance to normalize, unbiased into ``running_var``.  Under
 ``fused_tail_scope`` the lane-full decoder ConvBlocks and the s2d-packed
 last stage run through the fused conv+BN kernels and the packed head
 through the fused head kernel (``ops/packed_fused_conv.py``), forward and
-backward.
+backward.  The decoder options (the attention gate, ``--dec_interp``, PPM,
+ASPP, the fine and ``--interpolate`` heads) are plain PyTorch, as they are
+plain XLA in the JAX package; their resizes and pools keep JAX's matmul
+form with (out, in) weight matrices rounded to the compute dtype.
 
 JAX counterparts merged here: ``TorchBatchNorm``/``_BNStats``/``_PackedBN``/
 ``_PackedBNSums`` share one variable tree, so they are one class,
@@ -32,6 +35,7 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
+import functools
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -83,6 +87,72 @@ def _activate(y: torch.Tensor, act: str) -> torch.Tensor:
     if act == "relu":
         return F.relu(y)
     return y
+
+
+def conv_bias_nhwc(x: torch.Tensor, conv: nn.Conv2d, dtype: torch.dtype,
+                   padding: int = 0) -> torch.Tensor:
+    """A flax ``nn.Conv(use_bias=True)``: the conv and the bias add in
+    ``dtype``."""
+    out = conv_nhwc(x.to(dtype), conv.weight, padding=padding)
+    return out + conv.bias.to(out.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Resampling in the JAX package's matmul form (JAX layers.py:418-477): two
+# products with (out, in) weight matrices, the weights cast to x's dtype.
+
+@functools.lru_cache(maxsize=64)
+def _align_corners_weights(in_size: int, out_size: int) -> np.ndarray:
+    """(out, in) 1-D linear-interpolation matrix, ``align_corners=True``."""
+    w = np.zeros((out_size, in_size), np.float32)
+    if out_size == 1:
+        w[0, 0] = 1.0
+        return w
+    if in_size == 1:
+        w[:, 0] = 1.0
+        return w
+    scale = (in_size - 1) / (out_size - 1)
+    pos = np.arange(out_size) * scale
+    lo = np.floor(pos).astype(np.int64)
+    hi = np.minimum(lo + 1, in_size - 1)
+    frac = (pos - lo).astype(np.float32)
+    w[np.arange(out_size), lo] += 1.0 - frac
+    w[np.arange(out_size), hi] += frac
+    return w
+
+
+@functools.lru_cache(maxsize=64)
+def _adaptive_pool_weights(in_size: int, out_size: int) -> np.ndarray:
+    """(out, in) averaging matrix of torch's ``adaptive_avg_pool2d`` windows."""
+    w = np.zeros((out_size, in_size), np.float32)
+    for i in range(out_size):
+        lo = (i * in_size) // out_size
+        hi = -(-((i + 1) * in_size) // out_size)  # ceil
+        w[i, lo:hi] = 1.0 / (hi - lo)
+    return w
+
+
+def _separable(x: torch.Tensor, wh: np.ndarray, ww: np.ndarray) -> torch.Tensor:
+    """``Wh @ x @ Ww^T`` over the H and W axes of an NHWC map."""
+    wh_t = torch.from_numpy(wh).to(x.device, x.dtype)
+    ww_t = torch.from_numpy(ww).to(x.device, x.dtype)
+    x = torch.einsum("oh,bhwc->bowc", wh_t, x)
+    return torch.einsum("ow,bhwc->bhoc", ww_t, x)
+
+
+def interpolate_bilinear(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
+    """NHWC bilinear resize with torch's ``align_corners=True`` semantics."""
+    h, w = x.shape[1], x.shape[2]
+    if (h, w) == tuple(out_hw):
+        return x
+    return _separable(x, _align_corners_weights(h, out_hw[0]),
+                      _align_corners_weights(w, out_hw[1]))
+
+
+def adaptive_avg_pool(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
+    """NHWC adaptive average pool with torch's window semantics."""
+    return _separable(x, _adaptive_pool_weights(x.shape[1], out_hw[0]),
+                      _adaptive_pool_weights(x.shape[2], out_hw[1]))
 
 
 class BatchNorm(nn.Module):
@@ -321,21 +391,51 @@ class ConvTranspose(nn.Module):
         return y.permute(0, 1, 3, 2, 4, 5).reshape(b, 2 * h, 2 * w, cout)
 
 
-class UpsampleBlock(nn.Module):
-    """Decoder stage: ConvTranspose, concat with the skip, ConvBlock (JAX
-    ``UpsampleBlock`` without attention or ``--dec_interp``).
+class AttentionLayer(nn.Module):
+    """1x1 conv (no bias) + BN, no activation (JAX ``AttentionLayer``)."""
 
-    ``packed_out``: the output stays s2d-packed (B, H, W, 4*features),
-    phase-major: the k2s2 transposed conv's four output phases ARE the s2d
-    phases, so the upsample is one dense GEMM and no interleave happens."""
+    def __init__(self, in_features: int, features: int, dtype: torch.dtype):
+        super().__init__()
+        self.dtype = dtype
+        self.Conv_0 = nn.Conv2d(in_features, features, 1, bias=False)
+        self.BatchNorm_0 = BatchNorm(features)
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        x = conv_nhwc(x.to(self.dtype), self.Conv_0.weight)
+        return bn_act(self.BatchNorm_0, x, train, "none", self.dtype)
+
+
+class UpsampleBlock(nn.Module):
+    """Decoder stage: upsample, the optional additive attention gate on the
+    skip, concat with the skip, ConvBlock (JAX ``UpsampleBlock``).
+
+    The upsample is the k2s2 transposed conv, or with ``dec_interp`` a 3x3
+    conv with bias and a bilinear 2x resize (align corners).  ``attention``
+    (stages with a skip only) gates the skip by ``sigmoid(psi(relu(conv_o(out)
+    + conv_s(skip))))`` with ``features // 2`` gate channels and one ``psi``
+    channel.  ``packed_out``: the output stays s2d-packed (B, H, W,
+    4*features), phase-major: the k2s2 transposed conv's four output phases
+    ARE the s2d phases, so the upsample is one dense GEMM and no interleave
+    happens."""
 
     def __init__(self, in_features: int, features: int, skip_channels: int,
-                 packed_out: bool, dtype: torch.dtype):
+                 packed_out: bool, dtype: torch.dtype, attention: bool = False,
+                 dec_interp: bool = False):
         super().__init__()
-        if packed_out and skip_channels:
-            raise ValueError("the packed last stage has no skip connection")
+        if packed_out and (skip_channels or dec_interp):
+            raise ValueError("the packed last stage has no skip connection and no interpolation")
         self.skip_channels, self.packed_out = skip_channels, packed_out
-        self.conv_transpose = ConvTranspose(in_features, features, dtype)
+        self.dtype, self.dec_interp = dtype, dec_interp
+        self.attention = attention and bool(skip_channels)
+        if dec_interp:
+            self.conv = nn.Conv2d(in_features, features, 3, padding=1, bias=True)
+        else:
+            self.conv_transpose = ConvTranspose(in_features, features, dtype)
+        if self.attention:
+            att = features // 2
+            self.conv_o = AttentionLayer(features, att, dtype)
+            self.conv_s = AttentionLayer(skip_channels, att, dtype)
+            self.psi = AttentionLayer(att, 1, dtype)
         if packed_out:
             self.conv_block = PackedConvBlock(features, features, dtype)
         else:
@@ -346,10 +446,84 @@ class UpsampleBlock(nn.Module):
         if self.packed_out:
             ct = self.conv_transpose
             return self.conv_block(_convt_matmul(x, ct.weight, ct.dtype), train)
-        out = self.conv_transpose(x)
-        if self.skip_channels:
-            out = torch.cat([out, skip], dim=-1)
-        return self.conv_block(out, train)
+        if self.dec_interp:
+            out = conv_bias_nhwc(x, self.conv, self.dtype, padding=1)
+            out = interpolate_bilinear(out, (2 * out.shape[1], 2 * out.shape[2]))
+        else:
+            out = self.conv_transpose(x)
+        if not self.skip_channels:
+            return self.conv_block(out, train)
+        if self.attention:
+            gate = F.relu(self.conv_o(out, train) + self.conv_s(skip, train))
+            skip = skip * torch.sigmoid(self.psi(gate, train))
+        return self.conv_block(torch.cat([out, skip], dim=-1), train)
+
+
+class PPM(nn.Module):
+    """Pyramid pooling (JAX ``PPM``): for each bin of (1, 2, 3, 6) an
+    adaptive average pool, a 1x1 conv ``reduce{i}`` (no bias) to C/4
+    channels, ``bn{i}`` and LeakyReLU, and a bilinear resize back; the input
+    and the four branches concatenated, then the 1x1 ``fuse`` conv with bias
+    back to C channels."""
+
+    BINS = (1, 2, 3, 6)
+
+    def __init__(self, in_features: int, dtype: torch.dtype):
+        super().__init__()
+        self.dtype = dtype
+        out = in_features // 4
+        for i in range(len(self.BINS)):
+            self.add_module(f"reduce{i}", nn.Conv2d(in_features, out, 1, bias=False))
+            self.add_module(f"bn{i}", BatchNorm(out))
+        self.fuse = nn.Conv2d(2 * in_features, in_features, 1, bias=True)
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        h, w = x.shape[1], x.shape[2]
+        feats = [x]
+        for i, b in enumerate(self.BINS):
+            f = conv_nhwc(adaptive_avg_pool(x, (b, b)).to(self.dtype),
+                          getattr(self, f"reduce{i}").weight)
+            f = bn_act(getattr(self, f"bn{i}"), f, train, "leaky", self.dtype)
+            feats.append(interpolate_bilinear(f, (h, w)))
+        return conv_bias_nhwc(torch.cat(feats, dim=-1), self.fuse, self.dtype)
+
+
+class ASPPModule(nn.Module):
+    """One atrous branch: conv (no bias, kaiming-normal init) + BN +
+    LeakyReLU (JAX ``ASPPModule``)."""
+
+    def __init__(self, in_features: int, features: int, kernel_size: int, dilation: int,
+                 dtype: torch.dtype):
+        super().__init__()
+        self.dtype, self.dilation = dtype, dilation
+        self.padding = 0 if kernel_size == 1 else dilation
+        self.Conv_0 = nn.Conv2d(in_features, features, kernel_size, padding=self.padding,
+                                dilation=dilation, bias=False)
+        nn.init.kaiming_normal_(self.Conv_0.weight, mode="fan_in", nonlinearity="relu")
+        self.BatchNorm_0 = BatchNorm(features)
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        x = conv_nhwc(x.to(self.dtype), self.Conv_0.weight, padding=self.padding,
+                      dilation=self.dilation)
+        return bn_act(self.BatchNorm_0, x, train, "leaky", self.dtype)
+
+
+class ASPP(nn.Module):
+    """Atrous spatial pyramid pooling (JAX ``ASPP``): branches ``aspp1..4`` at
+    dilations 1, 3d, 6d, 9d (the first 1x1), each to C/4 channels; the output
+    is their concat, C channels, with no fuse conv."""
+
+    def __init__(self, in_features: int, dilation: int, dtype: torch.dtype):
+        super().__init__()
+        out = in_features // 4
+        self.aspp1 = ASPPModule(in_features, out, 1, 1, dtype)
+        self.aspp2 = ASPPModule(in_features, out, 3, 3 * dilation, dtype)
+        self.aspp3 = ASPPModule(in_features, out, 3, 6 * dilation, dtype)
+        self.aspp4 = ASPPModule(in_features, out, 3, 9 * dilation, dtype)
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        return torch.cat([m(x, train) for m in (self.aspp1, self.aspp2, self.aspp3,
+                                                self.aspp4)], dim=-1)
 
 
 # ---------------------------------------------------------------------------
@@ -567,26 +741,42 @@ class PackedHead(nn.Module):
 
 
 class OutputBlock(nn.Module):
-    """Final head over the s2d-packed tail (JAX ``OutputBlock(packed_in=True,
-    emit_loss_view=True)``): the packed 1x1 head, then at eval the
-    depth-to-space of the logits, in train mode the loss view ``(B, H, 4W,
-    n)``, a reshape with no transpose.  ``packed_groups``: concatenated
-    packed branches (2 for siamese); ``fine_in`` counts all of them.
+    """Final 1x1 head (JAX ``OutputBlock``).
+
+    ``packed`` (``packed_in=True, emit_loss_view=True``): the head over the
+    s2d-packed tail, the packed 1x1 head, then at eval the depth-to-space of
+    the logits, in train mode the loss view ``(B, H, 4W, n)``, a reshape with
+    no transpose; ``packed_groups``: concatenated packed branches (2 for
+    siamese); ``fine_in`` counts all of them.  Otherwise the fine head: a
+    1x1 conv on the fine map, and with ``interpolate`` a bilinear resize
+    (align corners) to a FIXED 512^2 in train mode and 1024^2 at eval,
+    whatever the input size.
 
     ``n_class == 3`` is the CORAL head: one logit, no bias, and the shared
     ordinal ``coral_bias`` (initialized to [1, 0, -1]) added to either view,
     broadcasting the logit to 3 channels; ``n_class == 1`` is the MSE head."""
 
     def __init__(self, n_class: int, fine_in: int, dtype: torch.dtype,
-                 packed_groups: int = 1):
+                 packed_groups: int = 1, packed: bool = True, interpolate: bool = False):
         super().__init__()
-        self.coral = n_class == 3
-        self.conv = PackedHead(fine_in, 1 if self.coral else n_class, packed_groups, dtype,
-                               use_bias=not self.coral)
+        if packed and interpolate:
+            raise ValueError("--interpolate has no decoder to pack")
+        self.coral, self.packed, self.interpolate = n_class == 3, packed, interpolate
+        self.dtype = dtype
+        head_n = 1 if self.coral else n_class
+        if packed:
+            self.conv = PackedHead(fine_in, head_n, packed_groups, dtype,
+                                   use_bias=not self.coral)
+        else:
+            self.conv = nn.Conv2d(fine_in, head_n, 1, bias=not self.coral)
+            if not self.coral:
+                nn.init.zeros_(self.conv.bias)
         if self.coral:
             self.coral_bias = nn.Parameter(torch.tensor([1.0, 0.0, -1.0]))
 
     def forward(self, x, train: bool = False) -> torch.Tensor:
+        if not self.packed:
+            return self._fine(x, train)
         x, fold = consume_fold(x)
         out = self.conv(x, fold=fold)
         if train:
@@ -596,4 +786,15 @@ class OutputBlock(nn.Module):
             out = depth_to_space(out)
         if self.coral:
             out = out + self.coral_bias.to(out.dtype)
+        return out
+
+    def _fine(self, x: torch.Tensor, train: bool) -> torch.Tensor:
+        if self.coral:
+            out = conv_nhwc(x.to(self.dtype), self.conv.weight)
+            out = out + self.coral_bias.to(out.dtype)
+        else:
+            out = conv_bias_nhwc(x, self.conv, self.dtype)
+        if self.interpolate:
+            size = 512 if train else 1024
+            out = interpolate_bilinear(out, (size, size))
         return out

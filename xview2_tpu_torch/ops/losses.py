@@ -1,18 +1,18 @@
 """Segmentation losses (port of ``focal_loss``, ``dice_loss``, ``ce_loss``,
-``ohem_loss``, ``mse_loss``, ``coral_loss``, ``make_loss_fn`` and
-``packed_loss_view_labels`` of ``xview2_tpu/ops/losses.py``).
+``ohem_loss``, ``mse_loss``, ``coral_loss``, ``make_loss_fn``,
+``packed_loss_view_labels`` and ``deep_supervision_loss`` of
+``xview2_tpu/ops/losses.py``).
 
 monai 0.4.0 numerics as in the JAX package: DiceLoss(softmax, to_onehot_y,
 batch=True, smooth 1e-5) and FocalLoss(gamma=2) with its mean-over-classes
 normalization; reductions are mask-weighted sums.  OHEM is the intended
 per-image hard-negative top-k, as a rank mask.  Logits are NHWC ``(B, H, W,
-C)``, labels ``(B, H, W)`` integers.  ``deep_supervision_loss`` comes with
-the deep-supervision heads (ROADMAP Queue 1, decoder options).
+C)``, labels ``(B, H, W)`` integers.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, Optional, Sequence
 
 import torch
 
@@ -190,3 +190,24 @@ def packed_loss_view_labels(labels: torch.Tensor) -> torch.Tensor:
     b, h, w = labels.shape
     y = labels.reshape(b, h // 2, 2, w // 2, 2).permute(0, 1, 3, 2, 4)  # [b, i, j, di, dj]
     return y.reshape(b, h // 2, 2 * w)
+
+
+def deep_supervision_loss(loss_fn: Callable[..., torch.Tensor], outputs: Sequence[torch.Tensor],
+                          labels: torch.Tensor,
+                          main_labels: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Weighted deep-supervision objective (reference ``model/plt.py:69-77``):
+    ``loss(out) + sum_i 0.5^(i+1) * loss(ds_i, nearest-downsampled labels)``,
+    normalized by ``1/(2 - 2^-len(outputs))``.
+
+    ``main_labels``: the labels of ``outputs[0]`` when it comes in another
+    pixel arrangement than the fine ``labels`` (the packed loss view); the
+    DS heads always read downsamplings of the fine ``labels``, torch's
+    nearest rule ``src = floor(dst * in / out)``."""
+    total = loss_fn(outputs[0], labels if main_labels is None else main_labels)
+    h0, w0 = labels.shape[1], labels.shape[2]
+    for i, out in enumerate(outputs[1:]):
+        h, w = out.shape[1], out.shape[2]
+        iy = torch.floor(torch.arange(h, device=labels.device) * (h0 / h)).to(torch.int64)
+        ix = torch.floor(torch.arange(w, device=labels.device) * (w0 / w)).to(torch.int64)
+        total = total + (0.5 ** (i + 1)) * loss_fn(out, labels[:, iy][:, :, ix])
+    return (1.0 / (2.0 - 2.0 ** (-len(outputs)))) * total

@@ -4,7 +4,9 @@ Train: on-device augmentation of raw uint8 tiles or pre/post pairs (the
 albumentations chain, or the crop and one AutoAugment draw with
 ``--autoaugment``), the packed loss view of the labels, the relayout of
 labels and logits, the forward in train mode (batch statistics, running-stat
-updates, the fused tail), the loss, the backward and the optimizer update.
+updates, the fused tail), the loss (with ``--deep_supervision`` the weighted
+sum over the main and the two DS heads), the backward and the optimizer
+update.
 Eval: normalize, 4-flip TTA as one 4x-stacked forward, the relayout copy,
 the loss and the F1 state.
 
@@ -16,7 +18,7 @@ PLACE and ``TrainState`` only carries the references and the step count.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -25,7 +27,8 @@ from xview2_tpu_torch.models.layers import fused_tail_scope
 from xview2_tpu_torch.models.unet import emits_packed_loss_view, fused_head_defer_ok
 from xview2_tpu_torch.ops.augment import augment_batch, eval_batch
 from xview2_tpu_torch.ops.layout import relayout_standard
-from xview2_tpu_torch.ops.losses import make_loss_fn, packed_loss_view_labels
+from xview2_tpu_torch.ops.losses import (deep_supervision_loss, make_loss_fn,
+                                         packed_loss_view_labels)
 from xview2_tpu_torch.ops.metrics import F1State, update_f1_state
 from xview2_tpu_torch.train.optimizers import LearningRate, lr_at
 
@@ -113,14 +116,19 @@ def check_train_supported(cfg: Config) -> None:
                                   "(ROADMAP Queue 1, multi-GPU)")
 
 
-def forward_loss(cfg: Config, model, loss_fn, x: torch.Tensor,
-                 y_main: torch.Tensor) -> torch.Tensor:
+def forward_loss(cfg: Config, model, loss_fn, x: torch.Tensor, y_main: torch.Tensor,
+                 y: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Train-mode forward and loss of an augmented batch: the fused-tail
-    scope, the model, the relayout of the logits at the loss seam, the loss.
-    ``y_main`` is already in the logits' view (see ``make_train_step``)."""
+    scope, the model, the relayout of each output at the loss seam, the
+    loss.  ``y_main`` is already in the main logits' view (see
+    ``make_train_step``); ``y``: the fine labels the deep-supervision heads
+    read (default ``y_main``, right when the main logits are fine)."""
     with fused_tail_scope(bool(cfg.fused_tail), defer_head=fused_head_defer_ok(cfg)):
-        logits = model(x, True)
-    return loss_fn(relayout_standard(logits), y_main)
+        outs = model(x, True)
+    if isinstance(outs, list):
+        return deep_supervision_loss(loss_fn, [relayout_standard(o) for o in outs],
+                                     y_main if y is None else y, main_labels=y_main)
+    return loss_fn(relayout_standard(outs), y_main)
 
 
 def make_train_step(cfg: Config, model, opt: torch.optim.Optimizer, crop: int = 512,
@@ -145,9 +153,14 @@ def make_train_step(cfg: Config, model, opt: torch.optim.Optimizer, crop: int = 
             x, y = augment_batch(rng, images, masks, crop=crop, bgr=cfg.bgr,
                                  use_autoaugment=cfg.autoaugment)
             # the packed head emits train logits as a (B, H/2, 2W, n) pixel
-            # permutation; pair it with the same permutation of the labels
-            y_main = relayout_standard(packed_loss_view_labels(y) if packed_view else y)
-        loss = forward_loss(cfg, model, loss_fn, x, y_main)
+            # permutation; pair it with the same permutation of the labels.
+            # The fine labels are read only by the deep-supervision heads.
+            if packed_view:
+                y_main = relayout_standard(packed_loss_view_labels(y))
+                y = relayout_standard(y) if cfg.deep_supervision else y_main
+            else:
+                y = y_main = relayout_standard(y)
+        loss = forward_loss(cfg, model, loss_fn, x, y_main, y)
         loss.backward()
         for group in opt.param_groups:
             group["lr"] = lr_at(lr, state.step)

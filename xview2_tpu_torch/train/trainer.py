@@ -30,7 +30,6 @@ from xview2_tpu_torch.config import Config, apply_precision
 from xview2_tpu_torch.data.pipeline import Loader, make_test_loader, make_train_loaders
 from xview2_tpu_torch.models.encoder import encoder_channels
 from xview2_tpu_torch.models.unet import build_model
-from xview2_tpu_torch.models.unet import check_supported as check_model_supported
 from xview2_tpu_torch.ops.losses import make_loss_fn
 from xview2_tpu_torch.ops.metrics import compute_f1, init_f1_state
 from xview2_tpu_torch.parallel import checkpoint as ckpt_lib
@@ -167,9 +166,8 @@ class Runner:
 
 def _check_fit_supported(cfg: Config) -> None:
     """Raise for every option outside the ported slice BEFORE touching the
-    data: the model options, the encoder, the loss terms, the optimizer, the
-    train-step options and the initializations."""
-    check_model_supported(cfg)
+    data: the encoder, the loss terms, the optimizer, the train-step options
+    and the initializations."""
     encoder_channels(cfg.encoder)
     make_loss_fn(cfg.loss_str, cfg.type)
     check_optimizer(cfg)
