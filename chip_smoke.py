@@ -88,7 +88,23 @@ Phases, each of which fails the script (non-zero exit, no result line):
    its float32 eval step against the CPU.  Configuration C of phase 9 runs
    with ``--ppm``, config 4 as written (its tree held equal without it).
    Phase 3 also holds K1 at D's eight train launches;
-11. one JSON line listing every kernel, then the ``nvidia-smi`` line, then
+11. the recipe and score path: A from ``--pretrained_enc`` (a ResNeSt-200
+   release state dict drawn from a seed, converted by the port's converter;
+   ``main([... --exec_mode train --pretrained_enc ...])`` at batch 16 with
+   every grafted tensor held EQUAL to the ``.npz`` and the counters from 0),
+   then A's eval CLI; the ResNet-50 train step (batch 16, fused tail) under
+   each of the five other optimizers and each ``--remat`` mode (K2/K4/K5
+   launches a step, peak memory), each optimizer's float32 update on the
+   card against the CPU's, C under ``--remat full``, the running statistics
+   after one float32 step under each mode against the step without remat
+   (and the recomputed K2 EQUAL to the first forward's); ``--fold_eval_bn
+   0`` against the fold on the ResNet-50 and D eval steps (bfloat16 and
+   float32); the offline chain on the card's own dumps: A's localization
+   with B's and with C's damage dumps through ``post_process`` (plain and
+   ``--components --dilate``) and the scorer, printing the score JSON, and
+   ``convert2png`` on label JSONs replaying the holdout's draws, equal to
+   the eval's target PNGs;
+12. one JSON line listing every kernel, then the ``nvidia-smi`` line, then
    ``{"ok": true, "device": {...}}`` as the last line.
 """
 
@@ -1337,22 +1353,26 @@ def _time_eval_step(cfg, model, channels: int, profile: bool, tag: str) -> dict:
     ms = cuda_ms(lambda: step(f1, images, masks, valid), 3)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     logits = step(f1, images, masks, valid)[2].float()
-    log(f"eval step ({tag}, batch {VAL_BATCH} x 4 TTA of {TILE}^2, bf16): {ms:.2f} ms = "
+    log(f"eval step ({tag}, batch {VAL_BATCH} x 4 TTA of {TILE}^2, "
+        f"{'bf16' if cfg.precision == 16 else 'f32'}): {ms:.2f} ms = "
         f"{VAL_BATCH / ms * 1e3:.3f} tiles/s, peak memory {peak:.2f} GiB")
     if profile:
         profile_step(lambda: step(f1, images, masks, valid), f"eval step, {tag}")
     return {"ms": ms, "tiles_per_s": VAL_BATCH / ms * 1e3, "peak_gib": peak}, logits
 
 
-def _check_fused_vs_stock(outs: dict, tag: str) -> None:
+def _check_fused_vs_stock(outs: dict, tag: str, names=("fused", "stock")) -> None:
+    """The bf16 logits ``outs[True]`` against ``outs[False]`` (the fused and
+    the stock tail, or the two ``names`` given)."""
     ref, got = outs[False], outs[True]
     diff = (got - ref).abs().max().item()
     scale = ref.abs().max().item()
     agree = (got.argmax(-1) == ref.argmax(-1)).float().mean().item()
-    log(f"{tag} fused vs stock logits: max abs diff {diff:.4g}, max |logit| {scale:.4g}, "
-        f"argmax agreement {agree:.5f} (tolerance: diff <= 0.05*max|logit|, agreement >= 0.99)")
+    log(f"{tag} {names[0]} vs {names[1]} logits: max abs diff {diff:.4g}, max |logit| "
+        f"{scale:.4g}, argmax agreement {agree:.5f} (tolerance: diff <= 0.05*max|logit|, "
+        "agreement >= 0.99)")
     if not (math.isfinite(diff) and diff <= 0.05 * scale and agree >= 0.99):
-        raise AssertionError(f"{tag}: fused and stock eval paths disagree")
+        raise AssertionError(f"{tag}: {names[0]} and {names[1]} eval paths disagree")
 
 
 def run_eval_path(work: str, profile: bool):
@@ -1538,15 +1558,15 @@ def _time_train_step(cfg, images, masks, profile: bool, tag: str,
     if not all(math.isfinite(v) for v in vals):
         raise AssertionError(f"train step losses are not finite: {vals}")
     b = images.shape[0]
+    launches = _nonzero(_read_counters())
     log(f"train step ({tag}, batch {b} raw {TILE}^2 tiles -> {CROP}^2 crops, bf16, "
-        f"AdamW): {ms:.2f} ms = {b / ms * 1e3:.3f} tiles/s, peak memory {peak:.2f} "
-        f"GiB, losses {[round(v, 4) for v in vals]}, launches over 4 steps "
-        f"{ {k: v for k, v in _read_counters().items() if v} }")
+        f"{cfg.optimizer}): {ms:.2f} ms = {b / ms * 1e3:.3f} tiles/s, peak memory {peak:.2f} "
+        f"GiB, losses {[round(v, 4) for v in vals]}, launches over 4 steps {launches}")
     if profile:
         profile_step(one_step, f"train step, {tag}")
     del model, opt, state, step
     torch.cuda.empty_cache()
-    return {"ms": ms, "tiles_per_s": b / ms * 1e3, "peak_gib": peak}
+    return {"ms": ms, "tiles_per_s": b / ms * 1e3, "peak_gib": peak, "launches": launches}
 
 
 def run_train_path(work: str, profile: bool):
@@ -2310,6 +2330,442 @@ def run_decoder_options_path(work: str, profile: bool):
     return launches, rows
 
 
+# --------------------------------------------------------------- the recipe
+
+RECIPE_OPTIMIZERS = ("radam", "adabelief", "adabound", "adamp", "novograd")
+REMAT_MODES = ("none", "tail", "dots", "full")
+SUBTYPES = {1: "no-damage", 2: "minor-damage", 3: "major-damage", 4: "destroyed"}
+
+
+def release_encoder_pth(arch: str, path: str, seed: int) -> int:
+    """Write a ``.pth`` of ``arch``'s encoder in the release's key names,
+    drawn from ``seed`` (conv weights N(0, 1.1^2 / fan_in), BN statistics and
+    affines away from the identity); returns its number of tensors."""
+    import torch
+
+    from xview2_tpu_torch.config import Config
+    from xview2_tpu_torch.models.convert_weights import release_key
+    from xview2_tpu_torch.models.unet import build_model
+
+    with torch.device("meta"):
+        shapes = build_model(Config(type="pre", encoder=arch)).state_dict()
+    gen = torch.Generator().manual_seed(seed)
+    sd = {}
+    for k, t in shapes.items():
+        if not k.startswith("unet.enc_l"):
+            continue
+        if t.dim() == 4:
+            v = torch.randn(t.shape, generator=gen) * (1.1 / math.sqrt(math.prod(t.shape[1:])))
+        elif k.endswith("running_var") or k.endswith("weight"):
+            v = torch.rand(t.shape, generator=gen) + 0.5
+        else:
+            v = torch.randn(t.shape, generator=gen) * 0.1
+        sd[release_key(k[len("unet."):], arch)] = v
+    torch.save(sd, path)
+    return len(sd)
+
+
+def _eval_cli(work: str, results: str, ckpt: str, task: str, need: dict, tag: str) -> dict:
+    """``main([--exec_mode eval --eval_tta on ...])`` on the holdout split with
+    the counters from 0; its dumps are checked.  Returns the launch counts."""
+    import numpy as np
+    import torch
+
+    from xview2_tpu_torch.main import main as port_main
+
+    argv = ["--exec_mode", "eval", "--type", task, "--data", work, "--results", results,
+            "--ckpt", ckpt, "--val_batch_size", str(VAL_BATCH), "--num_workers", "8",
+            "--eval_tta", "on"]
+    _zero_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rc = port_main(argv, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = _read_counters()
+    if rc != 0:
+        raise AssertionError(f"main returned {rc}")
+    steps = N_TILES // VAL_BATCH
+    _need_launches(got, {k: n * steps for k, n in need.items()}, tag)
+    name = "localization" if task == "pre" else "damage"
+    probs = sorted(glob.glob(os.path.join(results, "probs", f"test_{name}_*.npy")))
+    if len(probs) != N_TILES or not all(np.isfinite(np.load(p)).all() for p in probs):
+        raise AssertionError(f"{tag}: expected {N_TILES} finite dumps, got {len(probs)}")
+    log(f"{tag} main path: main(--exec_mode eval --type {task} --eval_tta on, {N_TILES} "
+        f"tiles) {wall:.2f} s end to end; launches {_nonzero(got)}; {len(probs)} dumps")
+    return got
+
+
+def check_optimizers_on_card(names=RECIPE_OPTIMIZERS + ("adamw",), dev: str = "cuda") -> dict:
+    """Each optimizer's float32 update of the ResNet-50 UNetLoc's parameters
+    on the card against the CPU's, from the same two gradients (seeded, of
+    two scales); then the update alone by CUDA events (3 after 1 warm-up).
+    Tolerance: every leaf's movement within 1e-4 of its largest (sums and
+    divisions in another order) plus 4 float32 ulps of the leaf's largest
+    weight (the movement is read off the updated float32 weights, each
+    rounded on its own)."""
+    import torch
+
+    from xview2_tpu_torch.config import Config
+    from xview2_tpu_torch.train.optimizers import build_optimizer
+
+    model = seeded_model(Config(type="pre", encoder="resnet50", precision=32), seed=0)
+    start = [p.detach().clone() for p in model.parameters()]
+    gen = torch.Generator().manual_seed(31)
+    grads = [[torch.randn(p.shape, generator=gen) * scale for p in start]
+             for scale in (1e-2, 1e-3)]
+    rows = {}
+    for name in names:
+        cfg = Config(type="pre", encoder="resnet50", optimizer=name, weight_decay=1e-4)
+        moved = {}
+        for i, where in enumerate(("cpu", dev)):
+            ps = [torch.nn.Parameter(p.to(where, copy=True)) for p in start]
+            opt = build_optimizer(cfg, ps, cfg.lr)
+            for g in grads:
+                for p, gi in zip(ps, g):
+                    p.grad = gi.to(where)
+                opt.step()
+            moved[i] = [p.detach().cpu() - p0 for p, p0 in zip(ps, start)]
+        ms = cuda_ms(opt.step, 3)
+        ulp = torch.finfo(torch.float32).eps
+        err = max(float((a - b).abs().max()
+                        / (1e-4 * b.abs().max() + 4 * ulp * p0.abs().max()).clamp_min(1e-30))
+                  for a, b, p0 in zip(moved[1], moved[0], start))
+        rows[name] = {"update_ms": ms, "max_err_of_tolerance": err}
+        log(f"optimizer {name}: float32 update of {len(start)} tensors "
+            f"({sum(p.numel() for p in start) / 1e6:.1f} M parameters) on the card against the "
+            f"CPU, two updates: worst leaf at {err:.3g} of its tolerance (1e-4 of its movement "
+            f"+ 4 ulps of its weights); one update {ms:.3f} ms by CUDA events")
+        if not err <= 1.0:
+            raise AssertionError(f"optimizer {name}: the card's update differs from the CPU's")
+        del ps, opt, moved
+        torch.cuda.empty_cache()
+    return rows
+
+
+def check_remat_running_stats(dev: str = "cuda") -> str:
+    """float32 (TF32 off), ResNet-50 UNetLoc, 4 crops of 256^2, the fused
+    tail through the f32 kernels: one forward, loss and backward under each
+    remat mode from the same weights; every running statistic against the
+    run without remat (``tail`` against the stock tail it runs on), within
+    1e-3 of that run's own movement of the statistic (K2 adds its sums with
+    atomics, so two runs differ by float32 rounding; a second update would
+    move them by 0.9 of it).  Under ``dots`` and ``full`` the fused conv's
+    outputs in the recomputation must EQUAL the first forward's."""
+    import numpy as np
+    import torch
+
+    from xview2_tpu_torch.config import Config, apply_precision
+    from xview2_tpu_torch.models.layers import remat_tail_scope
+    from xview2_tpu_torch.ops import packed_fused_conv as pfc
+    from xview2_tpu_torch.ops.layout import relayout_standard
+    from xview2_tpu_torch.ops.losses import make_loss_fn, packed_loss_view_labels
+    from xview2_tpu_torch.parallel.steps import forward_loss, rematerialized
+
+    base = Config(type="pre", encoder="resnet50", precision=32, loss_str="focal+dice")
+    apply_precision(base)
+    rng = np.random.default_rng(19)
+    x = torch.from_numpy(rng.normal(size=(4, 256, 256, 3)).astype(np.float32)).to(dev)
+    y = relayout_standard(packed_loss_view_labels(torch.from_numpy(
+        (rng.random((4, 256, 256)) > 0.7).astype(np.int32)).to(dev)))
+    real = pfc._conv_bn_forward
+
+    def run(mode, fused):
+        cfg = base.replace(remat=mode, fused_tail=fused)
+        model = seeded_model(cfg, seed=0).to(dev)
+        before = {k: v.clone() for k, v in model.named_buffers()}
+        outs = []
+        pfc._conv_bn_forward = lambda *a: (lambda r: outs.append(r[0].clone()) or r)(real(*a))
+        try:
+            loss_of = rematerialized(
+                lambda *a: forward_loss(cfg, model, make_loss_fn(cfg.loss_str, cfg.type), *a),
+                mode)
+            with remat_tail_scope(mode == "tail"):
+                loss = loss_of(x, y, y)
+            loss.backward()
+        finally:
+            pfc._conv_bn_forward = real
+        return before, dict(model.named_buffers()), outs
+
+    ref = {fused: run("none", fused) for fused in (True, False)}
+    lines = []
+    for mode in REMAT_MODES[1:]:
+        fused = mode != "tail"
+        before, want, outs0 = ref[fused]
+        _, got, outs = run(mode, fused)
+        worst = max(float((got[k] - want[k]).abs().max()
+                          / (want[k] - before[k]).abs().max().clamp_min(1e-30)) for k in want)
+        n = len(outs0)
+        replay = all(torch.equal(a, b) for a, b in zip(outs[:n], outs[n:]))
+        lines.append(f"{mode}: {len(want)} statistics within {worst:.3g} of their movement"
+                     + (f", the fused conv launched {len(outs)} times for {n}, the recomputed "
+                        f"outputs {'EQUAL' if replay else 'NOT equal'} to the first forward's"
+                        if fused else ""))
+        if not worst <= 1e-3 or (fused and (len(outs) != 2 * n or n == 0 or not replay)):
+            raise AssertionError(f"--remat {mode}: running statistics or the recomputation "
+                                 f"differ from the step without remat ({lines[-1]})")
+    msg = "; ".join(lines)
+    log(f"--remat running statistics after one float32 step (ResNet-50, 4 x 256^2, the card): "
+        f"{msg}")
+    return msg
+
+
+def check_fold_eval_bn(cfg, tag: str, profile: bool) -> dict:
+    """``--fold_eval_bn 0`` against the fold on one seeded model of ``cfg``
+    (TTA, fused tail) and the eval step's batch: both bfloat16 steps by CUDA
+    events with peak memory, and the same weights in float32 (TF32 off),
+    where the two are one affine in another order.  Gates: in float32 the
+    two within 1e-4 of the logits' scale; the bfloat16 stock step against
+    the float32 one within the smoke's bf16 gates (max |diff| <= 0.05 *
+    max|logit|, argmax agreement >= 0.99) or, where the bfloat16 fold itself
+    is outside them (its distance from float32 is the model's bf16 noise:
+    D's seeded ResNeSt-50 with the gates reads about 0.29 of the scale and
+    98% argmax), no farther from float32 than 1.25 times the fold, in both
+    numbers.  The two bfloat16 steps against each other are printed: the
+    fold rounds to bf16 after each of its three ops, the stock normalize
+    once."""
+    import torch
+
+    from xview2_tpu_torch.config import apply_precision
+
+    rows, outs = {}, {}
+    model = seeded_model(cfg, seed=0).cuda()
+    for fold in (True, False):
+        rows[f"{tag} eval fold_eval_bn {int(fold)}"], outs[fold] = _time_eval_step(
+            cfg.replace(fold_eval_bn=fold), model, 3, profile,
+            f"{tag}, --fold_eval_bn {int(fold)}")
+    del model
+    torch.cuda.empty_cache()
+    f32 = cfg.replace(precision=32)
+    apply_precision(f32)
+    model = seeded_model(f32, seed=0).cuda()
+    ref = {fold: _time_eval_step(f32.replace(fold_eval_bn=fold), model, 3, False,
+                                 f"{tag} float32, --fold_eval_bn {int(fold)}")[1]
+           for fold in (True, False)}
+    del model
+    torch.cuda.empty_cache()
+
+    def dist(got, want):
+        scale = want.abs().max().item()
+        return ((got - want).abs().max().item() / scale,
+                (got.argmax(-1) == want.argmax(-1)).float().mean().item())
+
+    d32 = dist(ref[False], ref[True])
+    d_stock, d_fold, d_bf16 = dist(outs[False], ref[False]), dist(outs[True], ref[False]), \
+        dist(outs[False], outs[True])
+    log(f"{tag} eval step, --fold_eval_bn 0 against the fold: float32 max |diff| "
+        f"{d32[0]:.3g} of the scale, argmax {d32[1]:.5f} (gate 1e-4); against the float32 "
+        f"stock step, bf16 stock {d_stock[0]:.4g} of the scale, argmax {d_stock[1]:.5f}, bf16 "
+        f"fold {d_fold[0]:.4g}, argmax {d_fold[1]:.5f} (gates 0.05, 0.99); bf16 stock against "
+        f"bf16 fold {d_bf16[0]:.4g}, argmax {d_bf16[1]:.5f}")
+    plain = d_stock[0] <= 0.05 and d_stock[1] >= 0.99
+    floor = d_stock[0] <= 1.25 * d_fold[0] and 1 - d_stock[1] <= 1.25 * (1 - d_fold[1])
+    log(f"{tag}: " + ("the bf16 gates hold" if plain else "the fold's bf16 noise floor holds"
+                      if floor else "no gate holds"))
+    if not (d32[0] <= 1e-4 and (plain or floor)):
+        raise AssertionError(f"{tag}: --fold_eval_bn 0 disagrees with the fold")
+    rows[f"{tag} fold_eval_bn 0 against the fold"] = {
+        "f32": d32, "bf16_stock_vs_f32": d_stock, "bf16_fold_vs_f32": d_fold,
+        "bf16_stock_vs_bf16_fold": d_bf16}
+    return rows
+
+
+def synthetic_labels(root: str, split: str, n: int, seed: int, size: int = TILE) -> str:
+    """Label JSONs whose polygons rasterize to ``make_synthetic_split``'s
+    targets: its draws replayed, each building the rectangle it fills, later
+    ones over earlier ones.  Returns the split directory holding labels/."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    out = os.path.join(root, "labels")
+    os.makedirs(out, exist_ok=True)
+    for i in range(n):
+        rng.integers(0, 256, (size, size, 3), np.uint8)  # the images' draws
+        rng.integers(-20, 20)
+        feats = []
+        for _ in range(rng.integers(2, 6)):
+            h0, w0 = int(rng.integers(0, size - 64)), int(rng.integers(0, size - 64))
+            hh, ww = int(rng.integers(16, 64)), int(rng.integers(16, 64))
+            dmg = int(rng.integers(1, 5))
+            x1, y1 = w0 + ww - 1, h0 + hh - 1
+            feats.append({"wkt": f"POLYGON (({w0} {h0}, {x1} {h0}, {x1} {y1}, {w0} {y1}, "
+                                 f"{w0} {h0}))", "properties": {"subtype": SUBTYPES[dmg]}})
+        for mode in ("pre", "post"):
+            name = f"synth-{split}_{i:08d}_{mode}_disaster.json"
+            with open(os.path.join(out, name), "w") as f:
+                json.dump({"features": {"xy": feats}}, f)
+    return root
+
+
+def run_score_chain(work: str) -> dict:
+    """The offline chain on the card's own eval dumps: A's localization dumps
+    (``recipe_a``) with B's damage dumps (``dmg_b``) and with C's CORAL class
+    dumps (``dmg_c``), each through ``post_process`` plain and with
+    ``--components --dilate``, then the scorer, which writes the score JSON;
+    and ``convert2png`` on label JSONs replaying the holdout's draws, whose
+    masks must EQUAL the eval's target PNGs."""
+    import numpy as np
+    from PIL import Image
+
+    from xview2_tpu_torch.data import convert2png
+    from xview2_tpu_torch.utils import post_process, xview2_metrics
+
+    scores = {}
+    res_a = os.path.join(work, "recipe_a")
+    for tag, res_dmg in (("A+B", os.path.join(work, "dmg_b")),
+                         ("A+C", os.path.join(work, "dmg_c"))):
+        chain = os.path.join(work, f"score_{tag}")
+        for sub, task, res in (("probs", "localization", res_a), ("probs", "damage", res_dmg),
+                               ("targets", "localization", res_a),
+                               ("targets", "damage", res_dmg)):
+            os.makedirs(os.path.join(chain, sub), exist_ok=True)
+            files = sorted(glob.glob(os.path.join(res, sub, f"test_{task}_*")))
+            if len(files) != N_TILES:
+                raise AssertionError(f"score chain {tag}: {len(files)} {task} {sub} in {res}")
+            for p in files:
+                shutil.copy(p, os.path.join(chain, sub))
+        for flags in ([], ["--components", "--dilate"]):
+            t0 = time.perf_counter()
+            post_process.main(["--results", chain] + flags)
+            t1 = time.perf_counter()
+            out = os.path.join(chain, f"score{''.join(flags)}.json")
+            xview2_metrics.main([os.path.join(chain, "predictions"),
+                                 os.path.join(chain, "targets"), out])
+            with open(out) as f:
+                score = json.load(f)
+            key = f"{tag} {' '.join(flags) or 'plain'}"
+            scores[key] = score
+            log(f"score chain {key}: post_process {t1 - t0:.2f} s, scorer "
+                f"{time.perf_counter() - t1:.2f} s ({N_TILES} tiles); {json.dumps(score)}")
+            if sorted(score) != sorted(["score", "damage_f1", "localization_f1",
+                                        "damage_f1_no_damage", "damage_f1_minor_damage",
+                                        "damage_f1_major_damage", "damage_f1_destroyed"]) or \
+                    not all(0.0 <= v <= 1.0 for v in score.values()):
+                raise AssertionError(f"score chain {key}: bad score JSON {score}")
+    labels = synthetic_labels(os.path.join(work, "labels_holdout"), "holdout", N_TILES, seed=7)
+    convert2png.main(["--data", labels])
+    for task, mode, res in (("localization", "pre", res_a),
+                            ("damage", "post", os.path.join(work, "dmg_b"))):
+        got = sorted(glob.glob(os.path.join(labels, "targets", f"*_{mode}_disaster.png")))
+        want = sorted(glob.glob(os.path.join(res, "targets", f"test_{task}_*_target.png")))
+        differ = [os.path.basename(g) for g, w in zip(got, want)
+                  if not np.array_equal(np.array(Image.open(g)), np.array(Image.open(w)))]
+        log(f"convert2png: {len(got)} {mode} masks from label JSONs against the eval's "
+            f"{len(want)} {task} targets: {len(differ)} differ")
+        if len(got) != N_TILES or len(want) != N_TILES or differ:
+            raise AssertionError(f"convert2png: the {mode} masks differ from the targets: "
+                                 f"{differ}")
+    return scores
+
+
+def run_recipe_path(work: str, profile: bool, c_peak_gib=None):
+    """The reference's recipe and its score.  A from a converted
+    ``--pretrained_enc``: a ResNeSt-200 release state dict from a seed,
+    converted by ``python -m xview2_tpu_torch.models.convert_weights``'s
+    ``main``, then ``main([--exec_mode train --pretrained_enc ...])`` at batch
+    DMG_A_BATCH with every grafted tensor held EQUAL to the ``.npz`` (the
+    trainer's call watched), and A's eval CLI.  The five optimizers' ResNet-50
+    train steps (batch 16, 512^2 crops, fused tail) and each one's float32
+    update against the CPU; the four remat modes' steps (K2/K4/K5 per step),
+    C under ``--remat full`` (its peak beside ``c_peak_gib``, C's without
+    remat in this run) and the running statistics under each mode against
+    the step without it; the ResNet-50 and D eval steps with ``--fold_eval_bn
+    0`` against the fold; the score chain.  Returns ({path: launch counts},
+    rows)."""
+    import torch
+
+    from xview2_tpu_torch.config import Config
+    from xview2_tpu_torch.models.convert_weights import main as convert_main
+    from xview2_tpu_torch.models.pretrained import encoder_state
+    from xview2_tpu_torch.train import trainer
+
+    write_splits(work)
+    launches, rows = {}, {}
+    pth, npz = os.path.join(work, "resnest200.pth"), os.path.join(work, "resnest200.npz")
+    t0 = time.perf_counter()
+    n_release = release_encoder_pth("resnest200", pth, seed=5)
+    if convert_main(["--arch", "resnest200", "--pth", pth, "--out", npz]) != 0:
+        raise AssertionError("the converter failed")
+    want = encoder_state(npz)
+    log(f"recipe: a ResNeSt-200 release state dict of {n_release} tensors from a seed, "
+        f"converted in {time.perf_counter() - t0:.1f} s to {len(want)} encoder tensors")
+    seen = {}
+    real = trainer.apply_pretrained_encoder
+
+    def watched(model, path, variant):
+        copied = real(model, path, variant)
+        sd = model.state_dict()
+        seen["copied"] = copied
+        seen["differ"] = [k for k in want if not torch.equal(sd[k].cpu(), want[k])]
+        return copied
+
+    trainer.apply_pretrained_encoder = watched
+    try:
+        launches["A train"] = _drive_train_cli(
+            work, "recipe_a", ["--pretrained_enc", npz], {},
+            "A (ResNeSt-200 UNetLoc, --pretrained_enc) train", batch=DMG_A_BATCH)
+    finally:
+        trainer.apply_pretrained_encoder = real
+    log(f"A's --pretrained_enc: {len(seen.get('copied', []))} tensors grafted of {len(want)}; "
+        f"{len(seen.get('differ', want))} differ from the .npz before the first step")
+    if sorted(seen.get("copied", [])) != sorted(want) or seen["differ"]:
+        raise AssertionError("--pretrained_enc did not graft the converted encoder whole")
+    res_a = os.path.join(work, "recipe_a")
+    launches["A eval"] = _eval_cli(
+        work, res_a, os.path.join(res_a, "checkpoints", "best"), "pre",
+        {"relayout_cuda": 1, "conv_bn_fused": 6, "head_conv_fused": 1},
+        "A (--pretrained_enc) eval")
+    shutil.rmtree(os.path.join(res_a, "checkpoints"))
+    torch.cuda.empty_cache()
+
+    # the optimizers and the remat modes on the ResNet-50 step
+    base = Config(type="pre", encoder="resnet50", precision=16, loss_str="focal+dice",
+                  batch_size=TRAIN_BATCH, optimizer="adamw", fused_tail=True)
+    images, masks = _raw_train_batch()
+    launches["steps"] = dict.fromkeys(_read_counters(), 0)
+    for name in RECIPE_OPTIMIZERS:
+        rows[f"train {name}"] = _time_train_step(base.replace(optimizer=name), images, masks,
+                                                 profile, f"ResNet-50, {name}")
+    for mode in REMAT_MODES:
+        rows[f"train remat {mode}"] = r = _time_train_step(
+            base.replace(remat=mode), images, masks, profile, f"ResNet-50, --remat {mode}")
+        per_step = {k: r["launches"].get(k, 0) / 4 for k in ("conv_bn_fused", "conv_bn_wgrad",
+                                                              "conv_bn_dgrad")}
+        rows[f"train remat {mode}"]["k2_k4_k5_per_step"] = per_step
+        log(f"--remat {mode}: {r['ms']:.2f} ms a step, peak {r['peak_gib']:.2f} GiB, "
+            f"K2/K4/K5 launches a step {per_step}")
+    for r in rows.values():
+        for k, v in r["launches"].items():
+            launches["steps"][k] += v
+    del images, masks
+    torch.cuda.empty_cache()
+    rows["optimizer updates"] = check_optimizers_on_card()
+    c_cfg = Config(type="post", dmg_model="fused", encoder="resnest200", precision=16,
+                   loss_str="coral", batch_size=C_BATCH, optimizer="adamw", fused_tail=True,
+                   ppm=True, remat="full")
+    images, masks = _raw_train_batch(C_BATCH, 6)
+    rows["C train remat full"] = r = _time_train_step(
+        c_cfg, images, masks, profile, "C ResNeSt-200 fused + CORAL, --remat full",
+        kernel_scale=1.9)
+    for k, v in r["launches"].items():
+        launches["steps"][k] += v
+    log(f"C under --remat full: {r['ms']:.2f} ms a step, peak {r['peak_gib']:.2f} GiB against "
+        + (f"{c_peak_gib:.2f} GiB without remat in this run" if c_peak_gib else
+           "C without remat not measured in this call"))
+    del images, masks
+    torch.cuda.empty_cache()
+    rows["remat running statistics"] = check_remat_running_stats()
+    torch.cuda.empty_cache()
+
+    # --fold_eval_bn 0 against the fold: the ResNet-50 eval step and D's
+    for tag, cfg in (("ResNet-50", base.replace(tta=True)),
+                     ("D", Config(precision=16, loss_str="focal+dice", fused_tail=True,
+                                  tta=True, **D_BASE))):
+        rows.update(check_fold_eval_bn(cfg, tag, profile))
+    rows["score"] = run_score_chain(work)
+    return launches, rows
+
+
 def check_autoaugment_against_cpu(channels: int = 3) -> None:
     """The --autoaugment chain (crop, AutoAugment, normalize) on the card,
     through K6, against the same chain on the CPU, through the plain
@@ -2681,6 +3137,13 @@ def main(argv=None) -> int:
                                        for k in launches["eval"]}
         log(f"decoder options path done at {time.perf_counter() - t_start:.0f} s; steady state "
             f"{json.dumps(opt_rows)}")
+        torch.cuda.empty_cache()
+        rec_launches, rec_rows = run_recipe_path(
+            work, args.profile, var_rows.get("C train fused", {}).get("peak_gib"))
+        launches["recipe"] = {k: sum(d[k] for d in rec_launches.values())
+                              for k in launches["eval"]}
+        log(f"recipe and score path done at {time.perf_counter() - t_start:.0f} s; steady state "
+            f"{json.dumps(rec_rows)}")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -2701,11 +3164,12 @@ def main(argv=None) -> int:
         "small_conv_wgrad": ("small_conv_wgrad", src + "small_conv.cu",
                              "xview2_tpu/ops/pallas_conv.py:121"),
     }
-    # launches: the seven main paths' runs (eval CLI, train CLI, conv3x3_small,
+    # launches: the eight main paths' runs (eval CLI, train CLI, conv3x3_small,
     # --autoaugment train CLI, the damage path's A train, B train and B eval
     # CLIs, the variants path's C train and C eval CLIs and the six other
     # variants' steps, and the decoder options path's D train and D eval CLIs,
-    # the six option runs' steps and the --interpolate eval CLI), each counted
+    # the six option runs' steps and the --interpolate eval CLI, and the recipe
+    # path's A train and eval CLIs and its optimizer and remat steps), each counted
     # from 0; ds_train_ keys of K1: D's eight launches per train step; dmg_ keys of K1 and K3: the
     # damage shapes (K1 at n = 4, K3 at C = 256, Co = 16; dmg_train_: per
     # train step); coral_ and mse_ keys: K1 at n = 3 and 1, K3 at Co = 4 with
@@ -2733,6 +3197,7 @@ def main(argv=None) -> int:
                         "damage_path_launches": launches["damage"][counter],
                         "variants_path_launches": launches["variants"][counter],
                         "decoder_options_path_launches": launches["decoder_options"][counter],
+                        "recipe_path_launches": launches["recipe"][counter],
                         "max_abs_err": r["max_abs_err"],
                         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"],

@@ -12,7 +12,9 @@ backward (the gradient of every parameter and of every input by
 their scale, in train mode (batch statistics) and at eval (the folded BN).
 Trees equal by name and shape.  The eval steps as
 ``tests/test_torch_unet_eval.py`` holds the plain one: float32 logits at
-rtol = atol = 2e-4, the loss at rtol 1e-5, the F1 counts equal."""
+rtol = atol = 2e-4, the loss at rtol 1e-5, the F1 counts equal; their
+weights are the port's initial ones converted to flax variables
+(``torch_jax_variables``), which costs no flax init trace."""
 
 import jax
 import jax.numpy as jnp
@@ -21,8 +23,8 @@ import pytest
 import torch
 
 from test_torch_dmg_variants import _flax_shapes
-from test_torch_unet_eval import batch, perturbed_variables
-from torch_jax_variables import one_torch_thread  # noqa: F401
+from test_torch_unet_eval import batch
+from torch_jax_variables import center_head, jax_variables, one_torch_thread  # noqa: F401
 from xview2_tpu.config import Config as JaxConfig
 from xview2_tpu.models import layers as jl
 from xview2_tpu.models.unet import build_model as jax_build_model
@@ -380,7 +382,9 @@ def test_eval_step_with_options_matches_jax(case):
     are 1024^2 beside 64^2 images, as they are beside 1024^2 tiles."""
     kw = dict(type="pre", encoder="resnet50", precision=32, tta=True, fused_tail=True,
               **STEP_CASES[case])
-    variables = perturbed_variables(kw)
+    # the port's initial weights as flax variables (no flax init trace), BN
+    # statistics and affines drawn, the head centred on a probe
+    variables = center_head(kw, jax_variables(kw))
     images, masks, valid = batch()
     if case == "interpolate":
         masks = (np.random.default_rng(4).random((2, 1024, 1024)) > 0.8).astype(np.uint8)

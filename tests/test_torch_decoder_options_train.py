@@ -19,9 +19,11 @@ ResNeSt-50 ``UNetLoc``, no decoder option, 1.69) while the losses agree to
 1.2e-5, so no gradient tolerance below the float32 noise can hold (its
 modules are held in ``test_torch_resnest.py``).  A damage
 variant with deep supervision, ``--dec_interp`` and CORAL (fine tail, fine
-heads) is ``slow``.  Then ``make_train_step`` with deep supervision is its
-augmentation, both label views and the same loss, and the train and eval
-CLIs run with ``--attention --deep_supervision --ppm``."""
+heads) is ``slow``.  The ResNet-50 step is traced once and also serves
+AdamP's and NovoGrad's float64 updates from its gradients, against JAX's.
+Then ``make_train_step`` with deep supervision is its augmentation, both
+label views and the same loss, and the train and eval CLIs run with
+``--attention --deep_supervision --ppm``."""
 
 import json
 import os
@@ -29,6 +31,7 @@ import shutil
 
 import jax
 import numpy as np
+import optax
 import pytest
 import torch
 
@@ -43,6 +46,7 @@ from xview2_tpu.ops.layout import relayout_standard as jax_relayout
 from xview2_tpu.ops.losses import deep_supervision_loss as jax_ds_loss
 from xview2_tpu.ops.losses import make_loss_fn as jax_make_loss_fn
 from xview2_tpu.ops.losses import packed_loss_view_labels as jax_packed_labels
+from xview2_tpu.train.optimizers import build_optimizer as jax_build_optimizer
 from xview2_tpu_torch.config import Config
 from xview2_tpu_torch.data.synthetic import make_synthetic_dataset
 from xview2_tpu_torch.main import main
@@ -52,18 +56,22 @@ from xview2_tpu_torch.ops.losses import make_loss_fn, packed_loss_view_labels
 from xview2_tpu_torch.parallel import checkpoint as ckpt_lib
 from xview2_tpu_torch.parallel import steps as port_steps
 from xview2_tpu_torch.train.optimizers import build_optimizer
-from xview2_tpu_torch.weights import to_flax
+from xview2_tpu_torch.weights import from_flax, to_flax
 
 D_OPTIONS = dict(attention=True, deep_supervision=True, loss_str="focal+dice")
+ZOO_STEP = ("adamp", "novograd")
+OPT_KW = dict(weight_decay=1e-2, lr=3e-3)
 
 
-def jax_ds_grads(cfg_kw, variables, x, y):
+def jax_ds_grads(cfg_kw, variables, x, y, optimizers=()):
     """JAX's train-mode forward, loss and gradient of one batch, as its
     ``make_train_step`` computes them without the augmentation and the
     update: both label views relayouted when the main head emits the packed
     loss view and deep supervision is on, each output relayouted at the loss
     seam, ``deep_supervision_loss`` over the list.  Returns (loss, flat
-    gradients, flat new batch_stats)."""
+    gradients, flat new batch_stats, {optimizer: (flat params after its
+    update from those gradients, the gradients as a port ``state_dict``)}
+    for each of ``optimizers``, at ``OPT_KW``'s weight decay and rate)."""
     cfg = JaxConfig(**cfg_kw)
     model = jax_build_model(cfg)
     loss_fn = jax_make_loss_fn(cfg.loss_str, cfg.type)
@@ -89,15 +97,20 @@ def jax_ds_grads(cfg_kw, variables, x, y):
         return loss, grads, new_bs
 
     loss, grads, new_bs = step(variables["params"], variables["batch_stats"], x, y)
-    return float(loss), _flat(grads), _flat(new_bs)
+    updated = {}
+    for name in optimizers:
+        tx = jax_build_optimizer(JaxConfig(**dict(cfg_kw, optimizer=name, **OPT_KW)),
+                                 OPT_KW["lr"])
+        upd, _ = jax.jit(tx.update)(grads, tx.init(variables["params"]), variables["params"])
+        updated[name] = (_flat(optax.apply_updates(variables["params"], upd)),
+                         from_flax(jax.device_get(grads), {}))
+    return float(loss), _flat(grads), _flat(new_bs), updated
 
 
-def _ds_step_case(kw, tol, size=64, seed=3, kernel_scale=2.2):
+def _ds_step_run(kw, size=64, seed=3, kernel_scale=2.2, optimizers=()):
     """One float64 train step of ``kw`` in the port and in JAX on the same
-    weights and crop: the loss at rtol ``tol[0]``, every gradient leaf within
-    ``tol[1]`` of its scale, the running statistics at rtol ``tol[2]``; a
-    ``None`` tolerance prints the distance instead (relative L2 over all
-    leaves, the worst leaf's share of its scale).  Returns those."""
+    weights and crop, and JAX's update by each of ``optimizers``: what
+    :func:`_ds_step_check` and the optimizer tests read."""
     kw = dict(kw, precision=64, fused_tail=True, optimizer="adamw")
     cfg = Config(**kw)
     rng = np.random.default_rng(10)
@@ -109,8 +122,9 @@ def _ds_step_case(kw, tol, size=64, seed=3, kernel_scale=2.2):
         y = (rng.random((2, size, size)) > 0.7).astype(np.int32)
     model, variables = seeded_model(kw, seed=seed, kernel_scale=kernel_scale)
     with jax.enable_x64():
-        jloss, jgrads, jstats = jax_ds_grads(kw, variables, x, y)
-    stats0 = _flat(variables["batch_stats"])
+        jloss, jgrads, jstats, updated = jax_ds_grads(kw, variables, x, y, optimizers)
+    run = dict(kw=kw, jloss=jloss, jgrads=jgrads, jstats=jstats, updated=updated,
+               stats0=_flat(variables["batch_stats"]), params0=_flat(variables["params"]))
     del variables
 
     yt = torch.from_numpy(y)
@@ -120,19 +134,32 @@ def _ds_step_case(kw, tol, size=64, seed=3, kernel_scale=2.2):
     names, params = zip(*model.named_parameters())
     grads = [torch.zeros_like(p) if g is None else g
              for p, g in zip(params, torch.autograd.grad(loss, params, allow_unused=True))]
-    assert loss.item() == pytest.approx(jloss, rel=tol[0])
-    got = _flat(to_flax(dict(zip(names, grads)))[0])
+    run.update(loss=loss.item(), grads=dict(zip(names, grads)),
+               params={n: p.detach().clone() for n, p in zip(names, params)},
+               stats=_flat(to_flax({k: v for k, v in model.state_dict().items()
+                                    if "running" in k})[1]))
+    return run
+
+
+def _ds_step_check(run, tol):
+    """The loss at rtol ``tol[0]``, every gradient leaf within ``tol[1]`` of
+    its scale, the running statistics at rtol ``tol[2]``; a ``None``
+    tolerance prints the distance instead (relative L2 over all leaves, the
+    worst leaf's share of its scale).  Returns those."""
+    kw, jloss, jgrads, jstats = run["kw"], run["jloss"], run["jgrads"], run["jstats"]
+    assert run["loss"] == pytest.approx(jloss, rel=tol[0])
+    got = _flat(to_flax(run["grads"])[0])
     assert set(got) == set(jgrads)
     assert any("output_block_ds3" in k for k in got) and any("output_block_ds4" in k for k in got)
     assert all(np.isfinite(v).all() for v in got.values())
-    got_s = _flat(to_flax({k: v for k, v in model.state_dict().items() if "running" in k})[1])
+    got_s = run["stats"]
     assert set(got_s) == set(jstats)
     dist = {"grad_rel_l2": float(np.sqrt(sum(((got[k] - w) ** 2).sum() for k, w in jgrads.items())
                                          / sum((w ** 2).sum() for w in jgrads.values()))),
             "grad_worst_of_scale": max(float(np.abs(got[k] - w).max() / max(np.abs(w).max(),
                                                                             1e-12))
                                        for k, w in jgrads.items()),
-            "loss_rel": abs(loss.item() - jloss) / abs(jloss)}
+            "loss_rel": abs(run["loss"] - jloss) / abs(jloss)}
     print(f"train step {kw['encoder']}: {dist}")
     if tol[1] is not None:
         for key, want in jgrads.items():
@@ -140,16 +167,58 @@ def _ds_step_case(kw, tol, size=64, seed=3, kernel_scale=2.2):
     if tol[2] is not None:
         for key, want in jstats.items():
             np.testing.assert_allclose(got_s[key], want, rtol=tol[2], atol=1e-12, err_msg=key)
-            assert not np.array_equal(want, stats0[key])
+            assert not np.array_equal(want, run["stats0"][key])
     return dist
 
 
-def test_d_options_train_step_f64_matches_jax_resnet50():
+def _ds_step_case(kw, tol, **run_kw):
+    return _ds_step_check(_ds_step_run(kw, **run_kw), tol)
+
+
+@pytest.fixture(scope="module")
+def resnet50_d_step():
+    """The ResNet-50 step with D's options, JAX's traced once for the step's
+    test and the optimizers' (AdamP, NovoGrad) updates from its gradients."""
+    return _ds_step_run(dict(type="pre", encoder="resnet50", **D_OPTIONS),
+                        optimizers=ZOO_STEP)
+
+
+def test_d_options_train_step_f64_matches_jax_resnet50(resnet50_d_step):
     """D's model options (attention gates on the four skips, deep
     supervision) on a ResNet-50 encoder, fused tail: the main head through
     the fused head on the deferred dec5 fold, the DS heads on the activated
     dec4 and dec3."""
-    _ds_step_case(dict(type="pre", encoder="resnet50", **D_OPTIONS), (1e-9, 1e-6, 1e-9))
+    _ds_step_check(resnet50_d_step, (1e-9, 1e-6, 1e-9))
+
+
+@pytest.mark.parametrize("name", ZOO_STEP)
+def test_optimizer_update_of_the_step_f64_matches_jax(name, resnet50_d_step):
+    """AdamP and NovoGrad on that float64 ResNet-50 ``UNetLoc`` step (whose
+    gradients the step's test holds to JAX's): each updates every parameter
+    from JAX's gradients as JAX's update does (optax's NovoGrad, the JAX
+    package's AdamP), each leaf's movement within 1e-9 of its largest.
+    AdamP takes its channel view on the flax leaf and NovoGrad one second
+    moment per leaf, so a port parameter that is not one flax leaf in
+    another layout would show here.  (From the port's own gradients, 1e-12
+    from JAX's, AdamP's first update reads up to 1.2e-6 off on a leaf whose
+    gradient is orthogonal to its weight: g / (|g| + eps) amplifies the
+    gradients' last digits where |g| is near eps.)"""
+    run = resnet50_d_step
+    want_params, grads = run["updated"][name]
+    params = {n: torch.nn.Parameter(p.clone()) for n, p in run["params"].items()}
+    assert set(grads) == set(params)
+    for n, p in params.items():
+        p.grad = grads[n].clone()
+    opt = build_optimizer(Config(**dict(run["kw"], optimizer=name, **OPT_KW)),
+                          params.values(), OPT_KW["lr"])
+    opt.step()
+    got = _flat(to_flax({n: p.detach() for n, p in params.items()})[0])
+    old = run["params0"]
+    assert set(got) == set(want_params) == set(old)
+    for key, want in want_params.items():
+        moved = want - old[key]
+        np.testing.assert_allclose(got[key] - old[key], moved, rtol=0,
+                                   atol=1e-9 * max(np.abs(moved).max(), 1e-30), err_msg=key)
 
 
 def test_d_train_step_f64_matches_jax_resnest50():

@@ -113,18 +113,21 @@ def test_train_mode_raises(tmp_path):
     """Train mode is ported (tests/test_torch_train_cli.py); what it cannot do
     yet still raises, naming its ROADMAP item, before any data is read.  The
     decoder options, ``fused --ppm`` and ``--autoaugment --dec_interp`` on
-    pairs among them, are ported and pass the same checks."""
+    pairs among them, and the recipe's options (``--remat``, every
+    ``--optimizer``, ``--pretrained_enc``, ``--fold_eval_bn 0``) are ported
+    and pass the same checks."""
     base = ["--exec_mode", "train", "--type", "pre", "--encoder", "resnet50",
             "--results", str(tmp_path)]
-    for extra in (["--remat", "tail"], ["--optimizer", "radam"],
-                  ["--pretrained_enc", "enc.npz"], ["--gpus", "2"],
-                  ["--type", "post", "--loss_str", "coral", "--attention", "--remat", "dots"],
-                  ["--type", "post", "--dmg_model", "fused", "--ppm", "--fold_eval_bn", "0"]):
+    for extra in (["--gpus", "2"], ["--type", "post", "--gpus", "2", "--spatial_shards", "2"]):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             main(base + extra, device="cpu")
     for extra in (["--type", "post", "--dmg_model", "fused", "--ppm"], ["--interpolate"],
                   ["--deep_supervision"], ["--type", "post", "--loss_str", "coral",
                                            "--attention"],
-                  ["--type", "post", "--autoaugment", "--dec_interp"]):
+                  ["--type", "post", "--autoaugment", "--dec_interp"],
+                  ["--remat", "tail"], ["--optimizer", "radam"],
+                  ["--pretrained_enc", "enc.npz"],
+                  ["--type", "post", "--loss_str", "coral", "--attention", "--remat", "dots"],
+                  ["--type", "post", "--dmg_model", "fused", "--ppm", "--fold_eval_bn", "0"]):
         cfg = parse_args(base + extra)
         assert port_trainer._check_fit_supported(cfg) is None, extra

@@ -1,6 +1,7 @@
 """The port stands alone: every ``xview2_tpu_torch`` module and
-``chip_smoke.py`` import with ``jax``, ``flax``, ``optax``, ``orbax`` and the
-JAX package blocked, and asking for CUDA without a CUDA device raises."""
+``chip_smoke.py`` import with ``jax``, ``flax``, ``optax``, ``orbax``, the
+JAX package, ``cv2`` and ``joblib`` blocked (the card's machine has neither
+of the last two), and asking for CUDA without a CUDA device raises."""
 
 import os
 import subprocess
@@ -12,7 +13,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _BLOCKER = textwrap.dedent("""
     import importlib.abc, sys
 
-    BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "chex", "xview2_tpu")
+    BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "chex", "xview2_tpu", "cv2",
+               "joblib")
 
     class Block(importlib.abc.MetaPathFinder):
         def find_spec(self, name, path=None, target=None):
@@ -53,12 +55,12 @@ def test_every_port_module_imports_without_jax():
 
 def test_no_port_source_names_the_jax_stack():
     """A static read of every port source, chip_smoke.py and kernel_ab.py: no
-    import of jax, flax, optax, orbax, chex or the JAX package, lazy ones
-    included."""
+    import of jax, flax, optax, orbax, chex, the JAX package, cv2 or joblib,
+    lazy ones included."""
     import re
 
-    pat = re.compile(r"^\s*(?:import|from)\s+(jax|jaxlib|flax|optax|orbax|chex|xview2_tpu)\b",
-                     re.M)
+    pat = re.compile(r"^\s*(?:import|from)\s+(jax|jaxlib|flax|optax|orbax|chex|xview2_tpu|cv2|"
+                     r"joblib)\b", re.M)
     files = [os.path.join(ROOT, "chip_smoke.py"), os.path.join(ROOT, "kernel_ab.py")]
     for base, _, names in os.walk(os.path.join(ROOT, "xview2_tpu_torch")):
         files += [os.path.join(base, n) for n in names if n.endswith(".py")]
@@ -80,8 +82,11 @@ def test_options_left_out_raise_naming_a_roadmap_item():
     step; none returns numbers.  The decoder options (``--ppm``, ``--aspp``,
     ``--attention``, ``--deep_supervision``, ``--dec_interp``,
     ``--interpolate``, alone and together, for ``UNetLoc`` and the damage
-    variants, ``fused --ppm`` among them) are ported: the checks let them
-    through and ``build_model`` builds them."""
+    variants, ``fused --ppm`` among them) and the recipe's options
+    (``--pretrained_enc``, ``--remat``, ``--fold_eval_bn 0``, every
+    ``--optimizer``) are ported: the checks let them through and
+    ``build_model`` builds them.  What still raises: ``--gpus``,
+    ``--spatial_shards`` and ``make_train_multistep``."""
     proc = _run("""
         import torch
         from xview2_tpu_torch.config import Config
@@ -100,11 +105,7 @@ def test_options_left_out_raise_naming_a_roadmap_item():
 
         train = ["--exec_mode", "train", "--type", "pre", "--encoder", "resnet50",
                  "--results", "/nonexistent"]
-        cli = [["--pretrained_enc", "enc.npz"], ["--gpus", "2"],
-               ["--gpus", "2", "--spatial_shards", "2"], ["--remat", "tail"],
-               ["--remat", "dots"], ["--remat", "full"], ["--fold_eval_bn", "0"]]
-        cli += [["--optimizer", o] for o in ("radam", "adabelief", "adabound", "adamp",
-                                             "novograd")]
+        cli = [["--gpus", "2"], ["--gpus", "2", "--spatial_shards", "2"]]
         for extra in cli:
             raises(lambda: main(train + extra, device="cpu"), extra)
         raises(lambda: steps.make_train_multistep(None, None, None, 2), "make_train_multistep")
@@ -119,7 +120,11 @@ def test_options_left_out_raise_naming_a_roadmap_item():
                   dict(ppm=True), dict(aspp=True), dict(attention=True),
                   dict(deep_supervision=True), dict(dec_interp=True), dict(interpolate=True),
                   dict(type="post", loss_str="coral", aspp=True),
-                  dict(attention=True, deep_supervision=True, ppm=True, dec_interp=True)]
+                  dict(attention=True, deep_supervision=True, ppm=True, dec_interp=True),
+                  dict(pretrained_enc="enc.npz"), dict(remat="tail"), dict(remat="dots"),
+                  dict(remat="full"), dict(fold_eval_bn=False)]
+        ported += [dict(optimizer=o) for o in ("radam", "adabelief", "adabound", "adamp",
+                                               "novograd")]
         for kw in ported:
             cfg = Config(**{"encoder": "resnet50", **kw})
             assert trainer._check_fit_supported(cfg) is None, kw
@@ -129,7 +134,7 @@ def test_options_left_out_raise_naming_a_roadmap_item():
         print("checked", len(cli) + 1, "raising,", len(ported), "ported")
     """)
     assert proc.returncode == 0, proc.stderr + proc.stdout
-    assert proc.stdout.split()[-5:] == ["checked", "13", "raising,", "15", "ported"]
+    assert proc.stdout.split()[-5:] == ["checked", "3", "raising,", "25", "ported"]
 
 
 def test_cuda_request_without_a_device_raises():

@@ -125,15 +125,16 @@ def test_fused_and_stock_paths_agree_in_the_port():
 
 
 def test_unported_options_raise():
-    """What the eval path cannot do yet raises (``--fold_eval_bn 0``,
-    ``--gpus 2``, naming the ROADMAP); the decoder options that raised here
-    before they were ported now build and run, their logits the fine grid
-    at eval, the packed loss view (or the DS list) in train mode."""
+    """What the eval path cannot do yet raises (``--gpus 2``, naming the
+    ROADMAP); ``--fold_eval_bn 0`` and the decoder options that raised here
+    before they were ported pass the check and build and run, their logits
+    the fine grid at eval, the packed loss view (or the DS list) in train
+    mode."""
     from xview2_tpu_torch.train import trainer
 
-    for kw in (dict(fold_eval_bn=False), dict(gpus=2)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            trainer._check_supported(Config(encoder="resnet50", **kw))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        trainer._check_supported(Config(encoder="resnet50", gpus=2))
+    assert trainer._check_supported(Config(encoder="resnet50", fold_eval_bn=False)) is None
     x = torch.zeros(1, 32, 32, 3)
     for kw in (dict(ppm=True, attention=True), dict(deep_supervision=True),
                dict(dec_interp=True, aspp=True, dilation=2)):

@@ -4,7 +4,7 @@
 The host discovers files, decodes PNGs in a thread pool and assembles raw
 uint8 batches; every per-pixel transform (crop, zoom, flip, noise,
 normalize) runs on the device inside the train and eval steps.  The native
-C++ decoder is not ported (ROADMAP Queue 1, remaining CLI knobs).
+C++ decoder is not ported (ROADMAP Queue 1, the native PNG decoder).
 
 Semantics preserved:
  * directory layout ``{data}/{train,test,holdout}/{images,targets}`` with

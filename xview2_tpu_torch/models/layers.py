@@ -23,6 +23,17 @@ ASPP, the fine and ``--interpolate`` heads) are plain PyTorch, as they are
 plain XLA in the JAX package; their resizes and pools keep JAX's matmul
 form with (out, in) weight matrices rounded to the compute dtype.
 
+``--fold_eval_bn 0`` (:func:`fold_eval_bn_scope`, which the eval step
+sets) evaluates the stock call sites with flax's eval ``_normalize``
+instead: f32 arithmetic on the compute-dtype map, one cast at the end; the
+packed and fused tails keep their folds, as in JAX.  ``--remat tail``
+(:func:`remat_tail_scope`, which the train step sets) computes each stock
+ConvLayer's and ResNet BatchNorm's statistics outside a local
+``torch.utils.checkpoint`` region and normalizes inside it (JAX
+``_BNStats`` + ``remat_norm_act``), and turns the fused tail off.  Under a
+whole-step checkpoint (``--remat dots|full``) the recomputation runs inside
+:func:`frozen_running_stats`, so the running statistics update once a step.
+
 JAX counterparts merged here: ``TorchBatchNorm``/``_BNStats``/``_PackedBN``/
 ``_PackedBNSums`` share one variable tree, so they are one class,
 :class:`BatchNorm`, with one method per JAX module;
@@ -42,6 +53,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from xview2_tpu_torch.ops.packed_fused_conv import (Fold, conv3x3_nhwc, conv_bn_fused,
                                                     head_conv_fused, leaky_slope, stat_dtype,
@@ -49,6 +61,43 @@ from xview2_tpu_torch.ops.packed_fused_conv import (Fold, conv3x3_nhwc, conv_bn_
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.9  # flax momentum == 1 - torch momentum (torch default 0.1)
+
+_FOLD_EVAL_BN: contextvars.ContextVar = contextvars.ContextVar(
+    "xview2_torch_fold_eval_bn", default=True)
+_REMAT_TAIL: contextvars.ContextVar = contextvars.ContextVar(
+    "xview2_torch_remat_tail", default=False)
+_STATS_FROZEN: contextvars.ContextVar = contextvars.ContextVar(
+    "xview2_torch_stats_frozen", default=False)
+
+
+@contextlib.contextmanager
+def _scope(var: contextvars.ContextVar, value: bool):
+    tok = var.set(value)
+    try:
+        yield
+    finally:
+        var.reset(tok)
+
+
+def fold_eval_bn_scope(enabled: bool = True):
+    """Eval-mode BN of the stock call sites as the f32 fold (default) or,
+    disabled, as flax's stock eval normalize (``--fold_eval_bn 0``)."""
+    return _scope(_FOLD_EVAL_BN, enabled)
+
+
+def remat_tail_scope(enabled: bool = True):
+    """``--remat tail``: normalize+activate inside local checkpoints."""
+    return _scope(_REMAT_TAIL, enabled)
+
+
+def remat_tail_active() -> bool:
+    return _REMAT_TAIL.get()
+
+
+def frozen_running_stats(enabled: bool = True):
+    """Leave the BatchNorm running statistics alone (a checkpoint's
+    recomputation of a forward that already updated them)."""
+    return _scope(_STATS_FROZEN, enabled)
 
 
 def conv_nhwc(x: torch.Tensor, weight: torch.Tensor, stride: int = 1, padding: int = 0,
@@ -73,12 +122,27 @@ def norm_act(x: torch.Tensor, mean: torch.Tensor, mul: torch.Tensor, bias: torch
 
 
 def bn_act(bn: "BatchNorm", x: torch.Tensor, train: bool, act: str,
-           dtype: torch.dtype) -> torch.Tensor:
+           dtype: torch.dtype, remat_tail: bool = False) -> torch.Tensor:
     """BN + activation of a stock (unfused) call site: batch statistics in
-    train mode, the eval fold otherwise."""
+    train mode (with ``remat_tail``, the call sites JAX rematerializes, the
+    local checkpoint under :func:`remat_tail_scope`), the eval fold or,
+    outside :func:`fold_eval_bn_scope`, the stock eval normalize."""
     if train:
+        if remat_tail and remat_tail_active():
+            return remat_norm_act(x, bn.train_fold(x), act)
         return _activate(bn.normalize_train(x, dtype), act)
-    return norm_act(x, *bn.fold(), act=act)
+    if _FOLD_EVAL_BN.get():
+        return norm_act(x, *bn.fold(), act=act)
+    return _activate(bn.normalize_eval(x, dtype), act)
+
+
+def remat_norm_act(x: torch.Tensor, fold: Fold, act: str) -> torch.Tensor:
+    """:func:`norm_act` in a local non-reentrant checkpoint (JAX
+    ``remat_norm_act``, a nothing-saveable region): its only saved residual
+    is ``x``, the normalized and activated maps are recomputed in the
+    backward."""
+    return checkpoint(functools.partial(norm_act, act=act), x, *fold, use_reentrant=False,
+                      preserve_rng_state=False)
 
 
 def _activate(y: torch.Tensor, act: str) -> torch.Tensor:
@@ -183,11 +247,22 @@ class BatchNorm(nn.Module):
 
     @torch.no_grad()
     def _update_running(self, mean: torch.Tensor, var: torch.Tensor, n: int) -> None:
+        if _STATS_FROZEN.get():
+            return
         bessel = n / max(n - 1, 1)
         self.running_mean.mul_(BN_MOMENTUM).add_(mean.to(self.running_mean.dtype),
                                                  alpha=1 - BN_MOMENTUM)
         self.running_var.mul_(BN_MOMENTUM).add_((var * bessel).to(self.running_var.dtype),
                                                 alpha=1 - BN_MOMENTUM)
+
+    def _batch_stats(self, xf: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """flax ``_compute_stats``: mean and the fast variance, clamped at
+        0; updates the running statistics."""
+        dims = tuple(range(xf.dim() - 1))
+        mean = xf.mean(dim=dims)
+        var = torch.clamp((xf * xf).mean(dim=dims) - mean * mean, min=0.0)
+        self._update_running(mean, var, xf.numel() // xf.shape[-1])
+        return mean, var
 
     def normalize_train(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
         """Stock train-mode BN (JAX ``TorchBatchNorm``, i.e. flax's
@@ -195,18 +270,24 @@ class BatchNorm(nn.Module):
         itself in f32, ONE cast to ``dtype`` at the end (unlike the eval
         fold, which rounds after each op)."""
         xf = x.to(stat_dtype(x.dtype))
-        n = x.numel() // x.shape[-1]
-        dims = tuple(range(x.dim() - 1))
-        mean = xf.mean(dim=dims)
-        var = torch.clamp((xf * xf).mean(dim=dims) - mean * mean, min=0.0)
-        self._update_running(mean, var, n)
+        mean, var = self._batch_stats(xf)
         y = (xf - mean) * (torch.rsqrt(var + BN_EPS) * self.weight) + self.bias
         return y.to(dtype)
 
-    def normalize_train_packed(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-        """Train-mode BN over an s2d-packed map (JAX ``_PackedBN``): the sums
-        fold the four phase copies of each fine channel (always in f32), the
-        normalize runs in the compute dtype, rounding after each op."""
+    def normalize_eval(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        """Stock eval-mode BN (flax ``_normalize`` with the running
+        statistics, ``--fold_eval_bn 0``): f32 arithmetic, one cast."""
+        xf = x.to(stat_dtype(x.dtype))
+        y = (xf - self.running_mean) * (torch.rsqrt(self.running_var + BN_EPS) * self.weight)
+        return (y + self.bias).to(dtype)
+
+    def train_fold(self, x: torch.Tensor) -> Fold:
+        """The batch statistics of :meth:`normalize_train` as a fold (JAX
+        ``_BNStats`` in train mode, for ``--remat tail``)."""
+        mean, var = self._batch_stats(x.to(stat_dtype(x.dtype)))
+        return self._fold(mean, var, 1)
+
+    def _packed_stats(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         c = self.weight.shape[0]
         xf = x.to(torch.float32)
         n = x.shape[0] * x.shape[1] * x.shape[2] * 4
@@ -215,9 +296,25 @@ class BatchNorm(nn.Module):
         mean = s1 / n
         var = s2 / n - mean * mean
         self._update_running(mean, var, n)
+        return mean, var
+
+    def normalize_train_packed(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        """Train-mode BN over an s2d-packed map (JAX ``_PackedBN``): the sums
+        fold the four phase copies of each fine channel (always in f32), the
+        normalize runs in the compute dtype, rounding after each op."""
+        mean, var = self._packed_stats(x)
         mul = (torch.rsqrt(var + BN_EPS) * self.weight).to(dtype)
         y = (x - mean.to(dtype).repeat(4)) * mul.repeat(4) + self.bias.to(dtype).repeat(4)
         return y.to(dtype)
+
+    def train_fold_packed(self, x: torch.Tensor) -> Fold:
+        """:meth:`normalize_train_packed`'s statistics as a phase-tiled fold
+        (JAX ``_PackedBN(emit_fold=True)``, for ``--remat tail``), cast to
+        the compute dtype BEFORE the tiling, as the stock route casts: the
+        cotangents of the four phase copies then sum as they do there (JAX
+        tiles first and sums them in f32)."""
+        mean, mul, bias = self._fold(*self._packed_stats(x), 1)
+        return tuple(v.to(x.dtype).repeat(4) for v in (mean, mul, bias))
 
     def fold_from_sums(self, s1: torch.Tensor, s2: torch.Tensor, n: int, phases: int,
                        train: bool) -> Fold:
@@ -328,7 +425,7 @@ class ConvLayer(nn.Module):
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         x = conv_nhwc(x.to(self.dtype), self.Conv_0.weight, padding=1)
-        return bn_act(self.BatchNorm_0, x, train, "leaky", self.dtype)
+        return bn_act(self.BatchNorm_0, x, train, "leaky", self.dtype, remat_tail=True)
 
     def forward_fused(self, xprev: torch.Tensor, fold: Fold, has_fold: bool, n: int,
                       train: bool) -> Tuple[torch.Tensor, Fold]:
@@ -351,7 +448,7 @@ class ConvBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         fused, _ = fused_tail_state()
-        if fused:
+        if fused and not remat_tail_active():
             it = torch.finfo(self.dtype).bits // 8
             mid = (x.shape[0], x.shape[1], x.shape[2], self.features)
             # both-or-nothing, as in JAX (dec_l1's conv1 weights exceed the budget)
@@ -619,6 +716,8 @@ class PackedConvLayer(nn.Module):
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         x = conv3x3_nhwc(x.to(self.dtype), self.packed_kernel())
+        if train and remat_tail_active():
+            return remat_norm_act(x, self.BatchNorm_0.train_fold_packed(x), "leaky")
         if train:
             return _activate(self.BatchNorm_0.normalize_train_packed(x, self.dtype), "leaky")
         return norm_act(x, *self.BatchNorm_0.fold(4), act="leaky")
@@ -641,7 +740,7 @@ class PackedConvBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, train: bool = False):
         fused, outstanding = fused_tail_state()
-        if fused and supported(tuple(x.shape), 4 * self.features):
+        if fused and not remat_tail_active() and supported(tuple(x.shape), 4 * self.features):
             n = x.shape[0] * x.shape[1] * x.shape[2] * 4  # elements per FINE channel
             zero = _zero_fold(x.shape[-1], self.dtype, x.device)
             out1, fold1 = self.conv1.forward_fused(x, zero, False, n, train)
@@ -692,7 +791,8 @@ class FusionBlock(nn.Module):
         if self.packed_last and last_dec:
             fused, outstanding = fused_tail_state()
             raw_in = fmap.raw if isinstance(fmap, DeferredFold) else fmap
-            if fused and supported(tuple(raw_in.shape), 4 * self.features):
+            if fused and not remat_tail_active() and \
+                    supported(tuple(raw_in.shape), 4 * self.features):
                 raw_in, fold_in = consume_fold(fmap)
                 has_fold = fold_in is not None
                 if fold_in is None:

@@ -53,15 +53,15 @@ class Bottleneck(nn.Module):
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         x = x.to(self.dtype)
         dt = self.dtype
-        out = bn_act(self.bn1, conv_nhwc(x, self.conv1.weight), train, "relu", dt)
+        out = bn_act(self.bn1, conv_nhwc(x, self.conv1.weight), train, "relu", dt, remat_tail=True)
         out = conv_nhwc(out, self.conv2.weight, stride=self.stride, padding=self.dilation,
                         dilation=self.dilation)
-        out = bn_act(self.bn2, out, train, "relu", dt)
-        out = bn_act(self.bn3, conv_nhwc(out, self.conv3.weight), train, "none", dt)
+        out = bn_act(self.bn2, out, train, "relu", dt, remat_tail=True)
+        out = bn_act(self.bn3, conv_nhwc(out, self.conv3.weight), train, "none", dt, remat_tail=True)
         identity = x
         if self.downsample:
             identity = conv_nhwc(x, self.downsample_conv.weight, stride=self.stride)
-            identity = bn_act(self.downsample_bn, identity, train, "none", dt)
+            identity = bn_act(self.downsample_bn, identity, train, "none", dt, remat_tail=True)
         return F.relu(out + identity)
 
 
@@ -96,7 +96,7 @@ class ResNetStem(nn.Module):
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         x = conv_nhwc(x.to(self.dtype), self.conv1.weight, stride=2, padding=3)
-        return bn_act(self.bn1, x, train, "relu", self.dtype)
+        return bn_act(self.bn1, x, train, "relu", self.dtype, remat_tail=True)
 
 
 def max_pool_3x3_s2(x: torch.Tensor) -> torch.Tensor:

@@ -15,7 +15,11 @@ kernels: ``conv_bn_wgrad`` (dW as a float32 ``(9C, Co)`` matrix, the prologue
 applied to the raw input inline) and ``conv_bn_dgrad`` (dx with the
 prologue's gradient inline, plus the fold cotangents ``dbias``, ``dmul``).
 The backward of ``head_conv_fused`` is plain PyTorch, as it is plain XLA in
-the JAX module.
+the JAX module.  K2 adds s1/s2 with atomics, so a second run of the same
+forward may sum them in another order: under a whole-step checkpoint the
+train step records them in the forward and hands them back in the
+recomputation (:func:`sums_tape`), so every fold, and so every ``out``,
+is bit-equal to the first forward's.
 
 On a CUDA tensor each wrapper launches its hand-written kernel
 (``csrc/fused_conv.cu``, ``csrc/fused_conv_bwd.cu``, ``csrc/fused_head.cu``)
@@ -28,6 +32,7 @@ JAX package and ``chip_smoke.py`` holds the kernels against on the card.
 from __future__ import annotations
 
 import contextlib
+import contextvars
 import ctypes
 from typing import Optional, Tuple
 
@@ -351,6 +356,22 @@ def conv_bn_dgrad(g: torch.Tensor, k_flip: torch.Tensor, xprev: torch.Tensor, fo
 conv_bn_dgrad.launches = 0
 
 
+_SUMS_TAPE: contextvars.ContextVar = contextvars.ContextVar("xview2_torch_sums_tape",
+                                                             default=None)
+
+
+@contextlib.contextmanager
+def sums_tape(tape: list, replay: bool):
+    """Append the ``(s1, s2)`` of every ``conv_bn_fused`` call in this scope
+    to ``tape``, or, with ``replay``, return the recorded ones in the same
+    order in place of the kernel's."""
+    tok = _SUMS_TAPE.set((tape, replay, iter(tape) if replay else None))
+    try:
+        yield
+    finally:
+        _SUMS_TAPE.reset(tok)
+
+
 class _ConvBNFused(torch.autograd.Function):
     """``conv_bn_fused`` with the JAX module's custom VJP (``_vjp_fwd`` /
     ``_vjp_bwd`` with ``BWD_PALLAS``): forward K2, backward K4 and K5."""
@@ -358,6 +379,13 @@ class _ConvBNFused(torch.autograd.Function):
     @staticmethod
     def forward(ctx, xprev, kernel, mean, mul, bias, has_fold):
         out, s1, s2 = _conv_bn_forward(xprev, kernel, (mean, mul, bias) if has_fold else None)
+        taped = _SUMS_TAPE.get()
+        if taped is not None:
+            tape, replay, recorded = taped
+            if replay:
+                s1, s2 = next(recorded)
+            else:
+                tape.append((s1.clone(), s2.clone()))
         ctx.save_for_backward(xprev, kernel, mean, mul, bias, out)
         ctx.has_fold = has_fold
         return out, s1, s2

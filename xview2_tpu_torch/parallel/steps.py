@@ -13,23 +13,40 @@ the loss and the F1 state.
 The JAX step is a pure function of a donated state; here the model's
 parameters, its BatchNorm buffers and the optimizer state are updated IN
 PLACE and ``TrainState`` only carries the references and the step count.
+
+``--remat`` (JAX ``steps.py:150-177``): ``tail`` normalizes+activates each
+stock BatchNorm in a local checkpoint (``layers.remat_tail_scope``; the
+fused tail is off); ``full`` runs the forward and the loss under one
+non-reentrant ``torch.utils.checkpoint`` that saves nothing and recomputes
+everything in the backward; ``dots`` is the same checkpoint with a
+selective policy that saves the outputs of ``aten.convolution``, ``mm``,
+``addmm`` and ``bmm`` (JAX ``dots_saveable``) and recomputes the rest, the
+hand-written kernels included.  The recomputation leaves the BatchNorm
+running statistics alone and replays K2's per-channel sums, so the step
+updates the statistics once and the backward sees the first forward's
+folds bit for bit.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from xview2_tpu_torch.config import Config
-from xview2_tpu_torch.models.layers import fused_tail_scope
+from xview2_tpu_torch.models.layers import (fold_eval_bn_scope, frozen_running_stats,
+                                            fused_tail_scope, remat_tail_scope)
 from xview2_tpu_torch.models.unet import emits_packed_loss_view, fused_head_defer_ok
 from xview2_tpu_torch.ops.augment import augment_batch, eval_batch
 from xview2_tpu_torch.ops.layout import relayout_standard
 from xview2_tpu_torch.ops.losses import (deep_supervision_loss, make_loss_fn,
                                          packed_loss_view_labels)
 from xview2_tpu_torch.ops.metrics import F1State, update_f1_state
+from xview2_tpu_torch.ops.packed_fused_conv import sums_tape
 from xview2_tpu_torch.train.optimizers import LearningRate, lr_at
 
 
@@ -70,7 +87,8 @@ def make_eval_step(cfg: Config, model, device="cuda"):
         masks = torch.as_tensor(masks).to(dev, non_blocking=True)
         valid = torch.as_tensor(valid).to(dev, non_blocking=True)
         x = eval_batch(images, bgr=cfg.bgr)
-        with fused_tail_scope(bool(cfg.fused_tail), defer_head=defer):
+        with fold_eval_bn_scope(bool(cfg.fold_eval_bn)), \
+                fused_tail_scope(bool(cfg.fused_tail), defer_head=defer):
             logits = tta_forward(model, x, cfg.tta).to(torch.float32)
         logits = relayout_standard(logits)  # the model/loss seam, as in JAX
         loss = loss_fn(logits, masks.to(torch.int32), sample_valid=valid)
@@ -108,9 +126,6 @@ def step_generator(cfg: Config, global_step: int, device) -> torch.Generator:
 
 def check_train_supported(cfg: Config) -> None:
     """Raise for every train-step option outside the ported slice."""
-    if cfg.remat != "none":
-        raise NotImplementedError(f"--remat {cfg.remat} is not ported to xview2_tpu_torch yet "
-                                  "(ROADMAP Queue 1, remaining CLI knobs)")
     if cfg.gpus != 1 or cfg.spatial_shards != 1:
         raise NotImplementedError("--gpus/--spatial_shards > 1 are not ported yet "
                                   "(ROADMAP Queue 1, multi-GPU)")
@@ -131,6 +146,39 @@ def forward_loss(cfg: Config, model, loss_fn, x: torch.Tensor, y_main: torch.Ten
     return loss_fn(relayout_standard(outs), y_main)
 
 
+_DOTS = (torch.ops.aten.convolution.default, torch.ops.aten.mm.default,
+         torch.ops.aten.addmm.default, torch.ops.aten.bmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def rematerialized(fn: Callable, remat: str) -> Callable:
+    """``fn`` (a forward and loss) under ``--remat dots|full``: a
+    non-reentrant checkpoint whose recomputation runs with the running
+    statistics frozen and K2's sums replayed from the first run
+    (``packed_fused_conv.sums_tape``).  ``none`` and ``tail`` return ``fn``."""
+    if remat in ("none", "tail"):
+        return fn
+    context_fn = (functools.partial(create_selective_checkpoint_contexts, _dots_policy)
+                  if remat == "dots" else None)
+
+    def run(*args):
+        tape, runs = [], []
+
+        def body(*a):
+            replay = bool(runs)
+            runs.append(replay)
+            with frozen_running_stats(replay), sums_tape(tape, replay):
+                return fn(*a)
+
+        kw = {"context_fn": context_fn} if context_fn else {}
+        return checkpoint(body, *args, use_reentrant=False, preserve_rng_state=False, **kw)
+
+    return run
+
+
 def make_train_step(cfg: Config, model, opt: torch.optim.Optimizer, crop: int = 512,
                     device="cuda", learning_rate: LearningRate = None,
                     ) -> Callable[..., Tuple[TrainState, torch.Tensor]]:
@@ -145,6 +193,7 @@ def make_train_step(cfg: Config, model, opt: torch.optim.Optimizer, crop: int = 
     loss_fn = make_loss_fn(cfg.loss_str, cfg.type)
     packed_view = emits_packed_loss_view(cfg)
     lr = cfg.lr if learning_rate is None else learning_rate
+    loss_of = rematerialized(functools.partial(forward_loss, cfg, model, loss_fn), cfg.remat)
 
     def step_fn(state: TrainState, images, masks, rng: torch.Generator):
         images = torch.as_tensor(images).to(dev, non_blocking=True)
@@ -160,7 +209,8 @@ def make_train_step(cfg: Config, model, opt: torch.optim.Optimizer, crop: int = 
                 y = relayout_standard(y) if cfg.deep_supervision else y_main
             else:
                 y = y_main = relayout_standard(y)
-        loss = forward_loss(cfg, model, loss_fn, x, y_main, y)
+        with remat_tail_scope(cfg.remat == "tail"):
+            loss = loss_of(x, y_main, y)
         loss.backward()
         for group in opt.param_groups:
             group["lr"] = lr_at(lr, state.step)
@@ -176,4 +226,4 @@ def make_train_multistep(*args, **kwargs):
     """K fused train steps in one device program (JAX ``lax.scan``); an
     experiment of the JAX package that its trainer does not use."""
     raise NotImplementedError("make_train_multistep is not ported to xview2_tpu_torch yet "
-                              "(ROADMAP Queue 1, remaining CLI knobs)")
+                              "(ROADMAP Queue 1, make_train_multistep)")

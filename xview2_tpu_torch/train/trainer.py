@@ -5,9 +5,10 @@
 ``last`` checkpoints with the optimizer state, honours ``--patience`` and
 logs one JSON line per epoch; a run resumed from ``--ckpt`` repeats an
 unbroken one bit for bit (loader epoch, step count and per-step random
-streams are restored).  A damage run starts from the localization encoder
-of ``--ckpt_pre`` when that checkpoint exists (``--ckpt`` then overrides
-it).  ``test(cfg)`` restores a checkpoint, runs the holdout split through
+streams are restored).  The initialization's precedence is JAX's: the
+ImageNet encoder of ``--pretrained_enc`` (when the file exists) < the
+localization encoder of ``--ckpt_pre`` (a damage run, when that checkpoint
+exists) < the ``--ckpt`` resume.  ``test(cfg)`` restores a checkpoint, runs the holdout split through
 the eval step, dumps ``probs/*.npy`` and ``targets/*.png`` in the JAX
 package's format (localization: sigmoid of channel 1, ``(H, W)``; damage:
 the class softmax channel-first, ``(4, H, W)``; float32, filenames
@@ -29,6 +30,7 @@ from PIL import Image
 from xview2_tpu_torch.config import Config, apply_precision
 from xview2_tpu_torch.data.pipeline import Loader, make_test_loader, make_train_loaders
 from xview2_tpu_torch.models.encoder import encoder_channels
+from xview2_tpu_torch.models.pretrained import apply_pretrained_encoder
 from xview2_tpu_torch.models.unet import build_model
 from xview2_tpu_torch.ops.losses import make_loss_fn
 from xview2_tpu_torch.ops.metrics import compute_f1, init_f1_state
@@ -166,18 +168,12 @@ class Runner:
 
 def _check_fit_supported(cfg: Config) -> None:
     """Raise for every option outside the ported slice BEFORE touching the
-    data: the encoder, the loss terms, the optimizer, the train-step options
-    and the initializations."""
+    data: the encoder, the loss terms, the optimizer and the train-step
+    options."""
     encoder_channels(cfg.encoder)
     make_loss_fn(cfg.loss_str, cfg.type)
     check_optimizer(cfg)
     check_train_supported(cfg)
-    if cfg.pretrained_enc:
-        raise NotImplementedError("--pretrained_enc is not ported to xview2_tpu_torch yet "
-                                  "(ROADMAP Queue 1, models/pretrained.py)")
-    if not cfg.fold_eval_bn:
-        raise NotImplementedError("--fold_eval_bn 0 is not ported: eval BatchNorm always "
-                                  "runs folded (ROADMAP Queue 1, remaining CLI knobs)")
 
 
 def fit(cfg: Config, device="cuda") -> str:
@@ -188,6 +184,12 @@ def fit(cfg: Config, device="cuda") -> str:
     train_loader, val_loader = make_train_loaders(cfg)
     runner = Runner(cfg, len(train_loader), device=device)
     state: TrainState = runner.state
+
+    if cfg.pretrained_enc and os.path.exists(cfg.pretrained_enc):
+        variant = "siamese" if cfg.type == "pre" else cfg.dmg_model
+        copied = apply_pretrained_encoder(runner.model, cfg.pretrained_enc, variant)
+        print(f"loaded pretrained encoder from {cfg.pretrained_enc} ({len(copied)} tensors)",
+              flush=True)
 
     if cfg.type == "post" and ckpt_lib.checkpoint_exists(cfg.ckpt_pre):
         loc, _ = ckpt_lib.restore_raw(cfg.ckpt_pre)
@@ -272,9 +274,6 @@ def fit(cfg: Config, device="cuda") -> str:
 
 
 def _check_supported(cfg: Config) -> None:
-    if not cfg.fold_eval_bn:
-        raise NotImplementedError("--fold_eval_bn 0 is not ported: eval BatchNorm always "
-                                  "runs folded (ROADMAP Queue 1, remaining CLI knobs)")
     if cfg.gpus != 1 or cfg.spatial_shards != 1:
         raise NotImplementedError("--gpus/--spatial_shards > 1 are not ported yet "
                                   "(ROADMAP Queue 1, multi-GPU)")
