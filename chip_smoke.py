@@ -104,7 +104,21 @@ Phases, each of which fails the script (non-zero exit, no result line):
    ``--components --dilate``) and the scorer, printing the score JSON, and
    ``convert2png`` on label JSONs replaying the holdout's draws, equal to
    the eval's target PNGs;
-12. one JSON line listing every kernel, then the ``nvidia-smi`` line, then
+12. the data parallel path (``--gpus N``, one process per GPU): two ranks
+   on the one card over gloo (which carries the card's tensors through the
+   host; NCCL refuses two ranks on one device), the ResNet-50 UNetLoc at
+   full width, 512^2 crops of 1024^2 tiles, fused tail, global batch 16 = 2
+   x 8, against the one-process batch-16 step on the same generator: float32
+   within the float32 gates (loss 1e-4, gradients 5e-2 relative L2), bf16
+   parameters and buffers bit-equal across the ranks after two steps, K2, K4
+   and K5 six times per rank per step, collectives counted, the gloo step and
+   its gradient all-reduce timed (not a scaling number); then the production
+   NCCL path as a group of one rank (``torchrun``'s environment with
+   ``WORLD_SIZE=1``): the train and eval CLIs (collectives counted, the
+   checkpoint finite, moved and reloading, the metrics against the runs
+   without a group) with the counters from 0, and the train step under the
+   group against the plain one by CUDA events, in turns, with peak memory;
+13. one JSON line listing every kernel, then the ``nvidia-smi`` line, then
    ``{"ok": true, "device": {...}}`` as the last line.
 """
 
@@ -3012,6 +3026,327 @@ def check_f32_against_cpu(cfg=None, tag: str = "") -> None:
         raise AssertionError(f"float32 eval step{tag} on the card disagrees with the CPU path")
 
 
+# ---------------------------------------------------------- data parallel
+
+DP_WORLD = 2
+DP_ROWS = TRAIN_BATCH // DP_WORLD   # each rank's rows of the global batch of 16
+DP_NEED = {"conv_bn_fused": 6, "conv_bn_wgrad": 6, "conv_bn_dgrad": 6}  # per rank per step
+
+
+def _dp_steps(cfg, images, masks, n_steps: int, keep_grads: bool = False) -> dict:
+    """``n_steps`` train steps of ``cfg`` (the seeded ResNet-50 UNetLoc,
+    rank 0's weights broadcast as the trainer does) on ``images``/``masks``,
+    in or out of a group: the losses, the first step's gradients after the
+    all-reduce (``keep_grads``, on the host), a digest of the parameters and
+    buffers after the last step, each step's wall ms and the ms of each
+    gradient all-reduce, both with the card synchronised."""
+    import hashlib
+
+    import torch
+
+    from xview2_tpu_torch.config import apply_precision
+    from xview2_tpu_torch.parallel import mesh, steps
+    from xview2_tpu_torch.train.optimizers import build_optimizer
+
+    apply_precision(cfg)
+    model = seeded_model(cfg, seed=0).cuda()
+    mesh.broadcast_module(model)
+    opt = build_optimizer(cfg, model.parameters(), cfg.lr)
+    state = steps.init_train_state(model, opt, device="cuda")
+    step = steps.make_train_step(cfg, model, opt, crop=CROP, device="cuda")
+    out = {"losses": [], "step_ms": [], "allreduce_ms": []}
+    average, opt_step = mesh.average_gradients, opt.step
+
+    def timed_average(params):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        average(params)
+        torch.cuda.synchronize()
+        out["allreduce_ms"].append((time.perf_counter() - t0) * 1e3)
+
+    def step_keeping_grads(*a, **kw):
+        if keep_grads and "grads" not in out:
+            out["grads"] = {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
+        return opt_step(*a, **kw)
+
+    mesh.average_gradients, opt.step = timed_average, step_keeping_grads
+    try:
+        for _ in range(n_steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, loss = step(state, images, masks, steps.step_generator(cfg, state.step, "cuda"))
+            out["losses"].append(loss.item())
+            out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+    finally:
+        mesh.average_gradients = average
+    tensors = [t.detach().reshape(-1).float().cpu() for t in
+               list(model.parameters()) + list(model.buffers())]
+    out["digest"] = hashlib.sha256(torch.cat(tensors).numpy().tobytes()).hexdigest()
+    del model, opt, state, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def _dp_rank(rank: int, world: int, work: str) -> None:
+    """One rank of the two-rank job on the one card (gloo, which carries the
+    card's tensors through the host): its rows of the global batch of 16,
+    one float32 step (rank 0 keeps its gradients) and two bf16 steps with
+    the launch counters from 0; writes ``dp_rank{rank}.pt`` to ``work``."""
+    sys.path.insert(0, ROOT)
+    import torch
+
+    from xview2_tpu_torch.config import Config
+    from xview2_tpu_torch.parallel import mesh
+
+    mesh.init_data_parallel(world, rank, backend="gloo", device="cuda:0",
+                            init_method=f"file://{os.path.abspath(work)}/dp_rendezvous")
+    try:
+        images, masks = _raw_train_batch(TRAIN_BATCH)
+        rows = slice(rank * DP_ROWS, (rank + 1) * DP_ROWS)
+        base = Config(type="pre", encoder="resnet50", loss_str="focal+dice", optimizer="adamw",
+                      fused_tail=True, batch_size=DP_ROWS)
+        res = {"f32": _dp_steps(base.replace(precision=32), images[rows], masks[rows], 1,
+                                keep_grads=rank == 0)}
+        _zero_counters()
+        before = mesh.collective.calls
+        res["bf16"] = _dp_steps(base.replace(precision=16), images[rows], masks[rows], 2)
+        res["launches"] = _read_counters()
+        res["collectives"] = mesh.collective.calls - before
+        torch.save(res, os.path.join(work, f"dp_rank{rank}.pt"))
+    finally:
+        mesh.shutdown()
+
+
+def _rel_l2(got: dict, want: dict, names) -> float:
+    num = math.sqrt(sum(float(((got[k] - want[k]) ** 2).sum()) for k in names))
+    return num / max(math.sqrt(sum(float((want[k] ** 2).sum()) for k in names)), 1e-30)
+
+
+def run_two_ranks_on_one_card(work: str) -> dict:
+    """Phase 12 (i): the ResNet-50 UNetLoc at full width, 512^2 crops of
+    1024^2 tiles, fused tail, global batch 16 = 2 ranks x 8 on the one card
+    over gloo, against the one-process batch-16 step on the same generator:
+    float32 within the smoke's float32 gates (loss 1e-4 relative, gradients
+    5e-2 relative L2 over all leaves and at the worst fused-tail leaf); in
+    bf16 the parameters and buffers bit-equal across the ranks after two
+    steps, K2, K4 and K5 six times per rank per step, collectives counted.
+    Returns the ranks' launch counts, summed, and the gloo timings."""
+    import multiprocessing
+
+    import torch
+
+    from xview2_tpu_torch.config import Config
+    from xview2_tpu_torch.ops.augment import draw_augment
+
+    images, masks = _raw_train_batch(TRAIN_BATCH)
+    # a rank draws every per-sample value of the global batch, the noise too
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    draw_ms = {world: cuda_ms(lambda: draw_augment(gen, masks[:DP_ROWS], CROP, 3, 0, world), 10)
+               for world in (1, DP_WORLD)}
+    log(f"a rank's draws for its {DP_ROWS} rows (crop {CROP}^2, CUDA events over 10): "
+        f"{draw_ms[DP_WORLD]:.3f} ms for the global batch of {DP_ROWS * DP_WORLD}, "
+        f"{draw_ms[1]:.3f} ms for its rows alone")
+    ref = _dp_steps(Config(type="pre", encoder="resnet50", loss_str="focal+dice",
+                           optimizer="adamw", fused_tail=True, batch_size=TRAIN_BATCH,
+                           precision=32), images, masks, 1, keep_grads=True)
+    del images, masks
+    torch.cuda.empty_cache()
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=_dp_rank, args=(r, DP_WORLD, work)) for r in range(DP_WORLD)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + 600
+    for p in procs:
+        p.join(max(deadline - time.monotonic(), 0.0))
+    hung = [p for p in procs if p.is_alive()]
+    for p in hung:
+        p.kill()
+        p.join(10)
+    codes = [p.exitcode for p in procs]
+    if hung or any(codes):
+        raise AssertionError(f"two-rank job: exit codes {codes}, {len(hung)} hung")
+    wall = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(work, f"dp_rank{r}.pt")) for r in range(DP_WORLD)]
+
+    got = ranks[0]["f32"]
+    names = list(ref["grads"])
+    tail = [k for k in names if _kernel_leaf(k)]
+    err_all = _rel_l2(got["grads"], ref["grads"], names)
+    err_tail = max(_rel_l2(got["grads"], ref["grads"], [k]) for k in tail)
+    loss_err = abs(got["losses"][0] - ref["losses"][0]) / abs(ref["losses"][0])
+    same_f32 = all(r["f32"]["losses"] == got["losses"] for r in ranks)
+    log(f"two ranks x {DP_ROWS} on one card (gloo) against one process x {TRAIN_BATCH}, "
+        f"float32 step: loss {got['losses'][0]:.6f} vs {ref['losses'][0]:.6f} (relative "
+        f"{loss_err:.3g}, tolerance 1e-4), gradients relative L2 {err_all:.3g} over all "
+        f"{len(names)} leaves, worst of the {len(tail)} fused-tail leaves {err_tail:.3g} "
+        f"(tolerance 5e-2); the same loss on both ranks: {same_f32}")
+    digests = {r["bf16"]["digest"] for r in ranks}
+    launches = [r["launches"] for r in ranks]
+    per_rank = {k: [ln[k] for ln in launches] for k in DP_NEED}
+    collectives = [r["collectives"] for r in ranks]
+    log(f"two ranks, bf16, two steps: parameters and buffers bit-equal across the ranks: "
+        f"{len(digests) == 1}; losses {[r['bf16']['losses'] for r in ranks]}; K2/K4/K5 "
+        f"launches per rank {per_rank} (need {2 * 6} each); collectives per rank "
+        f"{collectives}")
+    timing = {"gloo_step_ms": [r["bf16"]["step_ms"][-1] for r in ranks],
+              "gloo_allreduce_ms": [r["bf16"]["allreduce_ms"][-1] for r in ranks],
+              "job_wall_s": wall}
+    log(f"two ranks, bf16, second step on one card over gloo (host-staged collectives, both "
+        f"ranks sharing the card: not a scaling number): step ms {timing['gloo_step_ms']}, "
+        f"of it the gradient all-reduce (41 M float32 through the host) ms "
+        f"{timing['gloo_allreduce_ms']}; the job {wall:.1f} s with process start and build")
+    if not (loss_err <= 1e-4 and err_all <= 5e-2 and err_tail <= 5e-2 and same_f32):
+        raise AssertionError("two ranks disagree with the one-process step in float32")
+    if len(digests) != 1:
+        raise AssertionError("the ranks' bf16 parameters and buffers differ")
+    for k, counts in per_rank.items():
+        if any(c != 2 * DP_NEED[k] for c in counts):
+            raise AssertionError(f"{k} launched {counts} times on the ranks, expected "
+                                 f"{2 * DP_NEED[k]} each")
+    if not all(c > 0 for c in collectives):
+        raise AssertionError(f"no collective on a rank: {collectives}")
+    total = {k: sum(ln[k] for ln in launches) for k in launches[0]}
+    return total, dict(timing, f32_loss_rel_err=loss_err, f32_grad_rel_l2=err_all,
+                       f32_grad_rel_l2_tail=err_tail, draw_global_ms=draw_ms[DP_WORLD],
+                       draw_own_rows_ms=draw_ms[1])
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+class _LauncherEnv:
+    """The environment ``torchrun`` gives one process of a one-rank job."""
+
+    def __enter__(self):
+        self.env = {"WORLD_SIZE": "1", "RANK": "0", "LOCAL_RANK": "0",
+                    "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(_free_port())}
+        self.saved = {k: os.environ.get(k) for k in self.env}
+        os.environ.update(self.env)
+        return self
+
+    def __exit__(self, *exc):
+        for k, v in self.saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _last_log(results: str) -> dict:
+    with open(os.path.join(results, "logs.json")) as f:
+        return json.loads(f.readlines()[-1])["data"]
+
+
+def run_nccl_one_rank(work: str, profile: bool):
+    """Phase 12 (ii) and (iii): the train and eval CLIs under a one-rank
+    NCCL group (``torchrun``'s environment, ``WORLD_SIZE=1``): collectives
+    counted, the train checkpoint finite, moved and reloading
+    (``_drive_train_cli``), the epoch's metrics within tolerance of the run
+    without a group, the eval's F1 EQUAL to the eval of the same checkpoint
+    without a group and its dumps within 1e-3; then the train step under the
+    group against the plain one by CUDA events, in turns (plain, NCCL, NCCL,
+    plain), with peak memory and the collectives a step, and the host
+    microseconds of one ``global_sum`` beside the ``cat`` and ``split`` in it."""
+    import numpy as np
+    import torch
+
+    from xview2_tpu_torch.config import Config
+    from xview2_tpu_torch.parallel import mesh
+
+    write_splits(work)
+    plain = os.path.join(work, "train_results")
+    if not os.path.exists(os.path.join(plain, "logs.json")):  # this phase alone
+        _drive_train_cli(work, "train_results", ["--encoder", "resnet50"], {}, "train")
+    launches = {}
+    with _LauncherEnv():
+        before = mesh.collective.calls
+        launches["train"] = _drive_train_cli(work, "dp_nccl_train", ["--encoder", "resnet50"],
+                                             {}, "one-rank NCCL train")
+        train_calls = mesh.collective.calls - before
+        ckpt = os.path.join(work, "dp_nccl_train", "checkpoints", "best")
+        before = mesh.collective.calls
+        launches["eval"] = _eval_cli(work, os.path.join(work, "dp_nccl_eval"), ckpt, "pre",
+                                     {"conv_bn_fused": 6, "head_conv_fused": 1},
+                                     "one-rank NCCL eval")
+        eval_calls = mesh.collective.calls - before
+    if mesh.active() is not None:
+        raise AssertionError("the CLI left its process group behind")
+    _eval_cli(work, os.path.join(work, "dp_plain_eval"), ckpt, "pre", {}, "eval without a group")
+    got, want = _last_log(os.path.join(work, "dp_nccl_train")), _last_log(plain)
+    e_got, e_want = (_last_log(os.path.join(work, d)) for d in ("dp_nccl_eval", "dp_plain_eval"))
+    dump_diff = max(float(np.abs(np.load(p) - np.load(p.replace("dp_nccl_eval",
+                                                                 "dp_plain_eval"))).max())
+                    for p in glob.glob(os.path.join(work, "dp_nccl_eval", "probs", "*.npy")))
+    log(f"one-rank NCCL CLIs: {train_calls} collectives in the train run, {eval_calls} in "
+        f"the eval run; train epoch under the group {got} vs without {want} (tolerance: "
+        f"val_loss 5e-2 relative, f1 2.0); eval F1 {e_got} vs without a group {e_want} "
+        f"(EQUAL), dumps max abs diff {dump_diff:.3g} (tolerance 1e-3)")
+    if not (train_calls > 0 and eval_calls > 0):
+        raise AssertionError("the one-rank NCCL CLIs ran no collective")
+    if not (abs(got["val_loss"] - want["val_loss"]) <= 5e-2 * abs(want["val_loss"])
+            and abs(got["f1"] - want["f1"]) <= 2.0):
+        raise AssertionError("the one-rank NCCL train run's metrics are off the run without")
+    if e_got != e_want or not dump_diff <= 1e-3:
+        raise AssertionError("the one-rank NCCL eval differs from the eval without a group")
+
+    images, masks = _raw_train_batch(TRAIN_BATCH)
+    cfg = Config(type="pre", encoder="resnet50", precision=16, loss_str="focal+dice",
+                 batch_size=TRAIN_BATCH, optimizer="adamw", fused_tail=True)
+    rows = {}
+    for kind in ("plain", "nccl", "nccl", "plain"):
+        profiled = profile and kind not in rows
+        if kind == "nccl":
+            with _LauncherEnv():
+                mesh.init_data_parallel(1, 0, backend="nccl", device="cuda:0",
+                                        init_method="env://")
+                try:
+                    before = mesh.collective.calls
+                    row = _time_train_step(cfg, images, masks, profiled, "one-rank NCCL group")
+                    # 1 warm-up and 3 timed steps, and 2 more under the profiler
+                    row["collectives_per_step"] = (mesh.collective.calls - before) / (
+                        6 if profiled else 4)
+                    if "host_us" not in rows:
+                        v = torch.zeros(256, device=images.device)
+                        rows["host_us"] = host_us({
+                            "global_sum": lambda: mesh.global_sum(v, v),
+                            "cat_and_split": lambda: torch.split(torch.cat([v, v]), [256, 256])},
+                            1000)
+                finally:
+                    mesh.shutdown()
+        else:
+            row = _time_train_step(cfg, images, masks, profiled, "no group")
+        rows.setdefault(kind, []).append(row)
+    ms = {k: [r["ms"] for r in rows[k]] for k in ("plain", "nccl")}
+    log(f"ResNet-50 train step (batch {TRAIN_BATCH}, fused tail, bf16) in turns: without a "
+        f"group {ms['plain']} ms, under a one-rank NCCL group {ms['nccl']} ms "
+        f"({rows['nccl'][0]['collectives_per_step']:.0f} collectives a step), peak "
+        f"{rows['plain'][0]['peak_gib']:.2f} vs {rows['nccl'][0]['peak_gib']:.2f} GiB; host "
+        f"us per call under the group (perf_counter over 1000 calls): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in rows["host_us"].items()))
+    total = {k: launches["train"][k] + launches["eval"][k] for k in launches["train"]}
+    return total, {"nccl_step_ms": ms["nccl"], "plain_step_ms": ms["plain"],
+                   "nccl_collectives_per_step": rows["nccl"][0]["collectives_per_step"],
+                   "nccl_peak_gib": rows["nccl"][0]["peak_gib"],
+                   "plain_peak_gib": rows["plain"][0]["peak_gib"],
+                   "nccl_global_sum_host_us": rows["host_us"]["global_sum"]}
+
+
+def run_data_parallel_path(work: str, profile: bool):
+    """Phase 12: ``--gpus N``, two ranks on the one card over gloo, then the
+    production NCCL path as a process group of one rank."""
+    os.makedirs(work, exist_ok=True)
+    two, rows = run_two_ranks_on_one_card(work)
+    one, nccl_rows = run_nccl_one_rank(work, profile)
+    rows.update(nccl_rows)
+    return {k: two.get(k, 0) + one[k] for k in one}, rows
+
+
 # kernel-name fragments -> category of a step's breakdown
 _CATEGORIES = (("K6 row_shift", ("row_shift_kernel",)),
                ("K7 small_conv_fwd", ("small_fwd_mma_kernel", "small_fwd_f32_kernel")),
@@ -3144,6 +3479,10 @@ def main(argv=None) -> int:
                               for k in launches["eval"]}
         log(f"recipe and score path done at {time.perf_counter() - t_start:.0f} s; steady state "
             f"{json.dumps(rec_rows)}")
+        torch.cuda.empty_cache()
+        launches["data_parallel"], dp_rows = run_data_parallel_path(work, args.profile)
+        log(f"data parallel path done at {time.perf_counter() - t_start:.0f} s; "
+            f"{json.dumps(dp_rows)}")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -3169,8 +3508,9 @@ def main(argv=None) -> int:
     # CLIs, the variants path's C train and C eval CLIs and the six other
     # variants' steps, and the decoder options path's D train and D eval CLIs,
     # the six option runs' steps and the --interpolate eval CLI, and the recipe
-    # path's A train and eval CLIs and its optimizer and remat steps), each counted
-    # from 0; ds_train_ keys of K1: D's eight launches per train step; dmg_ keys of K1 and K3: the
+    # path's A train and eval CLIs and its optimizer and remat steps, and the data
+    # parallel path's two ranks' bf16 steps and its one-rank NCCL train and eval
+    # CLIs), each counted from 0; ds_train_ keys of K1: D's eight launches per train step; dmg_ keys of K1 and K3: the
     # damage shapes (K1 at n = 4, K3 at C = 256, Co = 16; dmg_train_: per
     # train step); coral_ and mse_ keys: K1 at n = 3 and 1, K3 at Co = 4 with
     # C = 256 (C's head) and 128 (cat's MSE head); fusion_ keys of K2, K4 and
@@ -3198,6 +3538,7 @@ def main(argv=None) -> int:
                         "variants_path_launches": launches["variants"][counter],
                         "decoder_options_path_launches": launches["decoder_options"][counter],
                         "recipe_path_launches": launches["recipe"][counter],
+                        "data_parallel_path_launches": launches["data_parallel"][counter],
                         "max_abs_err": r["max_abs_err"],
                         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"],

@@ -723,3 +723,25 @@ def test_conv3x3_small_backward_runs_the_kernels():
         assert bool(((got.detach().float().cpu() - want).abs() <= tol).all())
     with pytest.raises(ValueError):
         sc.small_conv_fwd(torch.zeros((1, 8, 8, 12), device="cuda"), torch.zeros((108, 8)))
+
+
+def test_fold_from_sums_of_k2_over_two_ranks_on_one_card(tmp_path):
+    """Two ranks on the one card in a gloo group (gloo carries the card's
+    tensors through the host; NCCL refuses two ranks on one device): each
+    runs K2 on its half of a bf16 batch and ``fold_from_sums`` sums K2's
+    ``s1``/``s2`` over the ranks.  The fold and the running statistics are
+    EQUAL on both ranks and within 1e-5 of their scale of one process's on
+    the whole batch (K2's float32 sums in another order)."""
+    import torch_data_parallel_jobs as jobs
+
+    ranks = jobs.join(jobs.start("fold_on_card", 2, tmp_path), tmp_path, timeout=300)
+    want = jobs.fold_on_card_job(0, 1)
+    for r in ranks:
+        assert r["launches"] == 1
+    for key in ("running_mean", "running_var"):
+        assert torch.equal(ranks[0][key], ranks[1][key])
+        scale = want[key].abs().max()
+        assert float((ranks[0][key] - want[key]).abs().max()) <= 1e-5 * float(scale), key
+    for got0, got1, w in zip(ranks[0]["fold"], ranks[1]["fold"], want["fold"]):
+        assert torch.equal(got0, got1)
+        assert float((got0 - w).abs().max()) <= 1e-5 * float(w.abs().max())

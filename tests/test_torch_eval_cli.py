@@ -111,14 +111,16 @@ def test_f1_equal(evaluated):
 
 def test_train_mode_raises(tmp_path):
     """Train mode is ported (tests/test_torch_train_cli.py); what it cannot do
-    yet still raises, naming its ROADMAP item, before any data is read.  The
-    decoder options, ``fused --ppm`` and ``--autoaugment --dec_interp`` on
-    pairs among them, and the recipe's options (``--remat``, every
-    ``--optimizer``, ``--pretrained_enc``, ``--fold_eval_bn 0``) are ported
+    yet still raises, naming its ROADMAP item, before any data is read or
+    any rank is spawned (``--spatial_shards``).  The decoder options, ``fused
+    --ppm`` and ``--autoaugment --dec_interp`` on pairs among them, the
+    recipe's options (``--remat``, every ``--optimizer``,
+    ``--pretrained_enc``, ``--fold_eval_bn 0``) and ``--gpus`` are ported
     and pass the same checks."""
     base = ["--exec_mode", "train", "--type", "pre", "--encoder", "resnet50",
             "--results", str(tmp_path)]
-    for extra in (["--gpus", "2"], ["--type", "post", "--gpus", "2", "--spatial_shards", "2"]):
+    for extra in (["--gpus", "4", "--spatial_shards", "2"],
+                  ["--type", "post", "--gpus", "2", "--spatial_shards", "2"]):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             main(base + extra, device="cpu")
     for extra in (["--type", "post", "--dmg_model", "fused", "--ppm"], ["--interpolate"],
@@ -128,6 +130,7 @@ def test_train_mode_raises(tmp_path):
                   ["--remat", "tail"], ["--optimizer", "radam"],
                   ["--pretrained_enc", "enc.npz"],
                   ["--type", "post", "--loss_str", "coral", "--attention", "--remat", "dots"],
-                  ["--type", "post", "--dmg_model", "fused", "--ppm", "--fold_eval_bn", "0"]):
+                  ["--type", "post", "--dmg_model", "fused", "--ppm", "--fold_eval_bn", "0"],
+                  ["--gpus", "2"]):
         cfg = parse_args(base + extra)
         assert port_trainer._check_fit_supported(cfg) is None, extra

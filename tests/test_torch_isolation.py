@@ -71,7 +71,7 @@ def test_no_port_source_names_the_jax_stack():
     expected = {"data/index.py", "data/exclude_list.py", "train/optimizers.py",
                 "train/scheduler.py", "csrc/fused_conv_bwd.cu", "csrc/conv_tile.cuh",
                 "ops/rowshift.py", "ops/autoaugment.py", "ops/small_conv.py",
-                "csrc/rowshift.cu", "csrc/small_conv.cu"}
+                "csrc/rowshift.cu", "csrc/small_conv.cu", "parallel/mesh.py"}
     for rel in expected:
         assert os.path.exists(os.path.join(ROOT, "xview2_tpu_torch", rel)), rel
 
@@ -84,9 +84,9 @@ def test_options_left_out_raise_naming_a_roadmap_item():
     ``--interpolate``, alone and together, for ``UNetLoc`` and the damage
     variants, ``fused --ppm`` among them) and the recipe's options
     (``--pretrained_enc``, ``--remat``, ``--fold_eval_bn 0``, every
-    ``--optimizer``) are ported: the checks let them through and
-    ``build_model`` builds them.  What still raises: ``--gpus``,
-    ``--spatial_shards`` and ``make_train_multistep``."""
+    ``--optimizer``) and ``--gpus`` are ported: the checks let them through
+    and ``build_model`` builds them.  What still raises: ``--spatial_shards``
+    (before ``main`` spawns a rank) and ``make_train_multistep``."""
     proc = _run("""
         import torch
         from xview2_tpu_torch.config import Config
@@ -105,7 +105,7 @@ def test_options_left_out_raise_naming_a_roadmap_item():
 
         train = ["--exec_mode", "train", "--type", "pre", "--encoder", "resnet50",
                  "--results", "/nonexistent"]
-        cli = [["--gpus", "2"], ["--gpus", "2", "--spatial_shards", "2"]]
+        cli = [["--gpus", "2", "--spatial_shards", "2"], ["--gpus", "4", "--spatial_shards", "2"]]
         for extra in cli:
             raises(lambda: main(train + extra, device="cpu"), extra)
         raises(lambda: steps.make_train_multistep(None, None, None, 2), "make_train_multistep")
@@ -122,7 +122,7 @@ def test_options_left_out_raise_naming_a_roadmap_item():
                   dict(type="post", loss_str="coral", aspp=True),
                   dict(attention=True, deep_supervision=True, ppm=True, dec_interp=True),
                   dict(pretrained_enc="enc.npz"), dict(remat="tail"), dict(remat="dots"),
-                  dict(remat="full"), dict(fold_eval_bn=False)]
+                  dict(remat="full"), dict(fold_eval_bn=False), dict(gpus=2)]
         ported += [dict(optimizer=o) for o in ("radam", "adabelief", "adabound", "adamp",
                                                "novograd")]
         for kw in ported:
@@ -134,7 +134,7 @@ def test_options_left_out_raise_naming_a_roadmap_item():
         print("checked", len(cli) + 1, "raising,", len(ported), "ported")
     """)
     assert proc.returncode == 0, proc.stderr + proc.stdout
-    assert proc.stdout.split()[-5:] == ["checked", "3", "raising,", "25", "ported"]
+    assert proc.stdout.split()[-5:] == ["checked", "3", "raising,", "26", "ported"]
 
 
 def test_cuda_request_without_a_device_raises():

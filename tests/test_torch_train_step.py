@@ -215,7 +215,7 @@ def test_k_step_sgd_trajectory_matches_jax(monkeypatch):
     opt = build_optimizer(cfg, model.parameters(), cfg.lr)
     state = port_steps.init_train_state(model, opt, device="cpu")
     feed = iter(batches)
-    monkeypatch.setattr(port_steps, "augment_batch", lambda gen, images, masks, crop, bgr: tuple(
+    monkeypatch.setattr(port_steps, "augment_batch", lambda gen, images, masks, crop, bgr, **_: tuple(
         torch.from_numpy(a) for a in next(feed)))
     step = port_steps.make_train_step(cfg, model, opt, crop=size, device="cpu")
     flat0 = _flat(variables["params"])

@@ -125,15 +125,17 @@ def test_fused_and_stock_paths_agree_in_the_port():
 
 
 def test_unported_options_raise():
-    """What the eval path cannot do yet raises (``--gpus 2``, naming the
-    ROADMAP); ``--fold_eval_bn 0`` and the decoder options that raised here
+    """What the eval path cannot do yet raises (``--spatial_shards 2``,
+    naming the ROADMAP; ``--gpus 2`` is ported); ``--fold_eval_bn 0`` and
+    the decoder options that raised here
     before they were ported pass the check and build and run, their logits
     the fine grid at eval, the packed loss view (or the DS list) in train
     mode."""
     from xview2_tpu_torch.train import trainer
 
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        trainer._check_supported(Config(encoder="resnet50", gpus=2))
+        trainer._check_supported(Config(encoder="resnet50", gpus=2, spatial_shards=2))
+    assert trainer._check_supported(Config(encoder="resnet50", gpus=2)) is None
     assert trainer._check_supported(Config(encoder="resnet50", fold_eval_bn=False)) is None
     x = torch.zeros(1, 32, 32, 3)
     for kw in (dict(ppm=True, attention=True), dict(deep_supervision=True),

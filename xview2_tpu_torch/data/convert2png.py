@@ -10,11 +10,11 @@ non-antialiased polygons, ``shift = 0``): the edges drawn as 8-connected
 Bresenham lines from left to right (clipped to the image), then the
 interior spans between pairs of active edges, x in 16.16 fixed point, the
 edge slopes truncated toward zero (an edge that leaves the image runs along
-its clipped segment), the span from ``ceil(x1)`` to ``floor(x2)``.  It
-equals OpenCV's fill on simple polygons inside the image; ROADMAP Queue 3
-counts the pixels where polygons that cross the right or bottom border, or
-cross themselves, still differ.  PNGs are written by PIL and the labels converted
-on a thread pool.
+its clipped integer end points, upright at the clipped column where the
+clipped segment is flat), the span from ``ceil(x1)`` to ``floor(x2)``.  It
+equals OpenCV's fill on polygons inside the image, on polygons that reach
+or cross its border and on polygons that cross themselves.  PNGs are
+written by PIL and the labels converted on a thread pool.
 
 ``python -m xview2_tpu_torch.data.convert2png --data SPLIT_DIR``
 """
@@ -148,13 +148,16 @@ def fill_poly(img: np.ndarray, ring: np.ndarray, color: int) -> None:
         x <<= XY_SHIFT
         t0x, t1x = (px + (XY_ONE >> 1)) >> XY_SHIFT, (x + (XY_ONE >> 1)) >> XY_SHIFT
         _line(img, t0x, py, t1x, y, color)
-        # an edge that leaves the image runs along its clipped segment
+        # an edge that leaves the image runs through its clipped integer
+        # end points; where the clipped segment is flat it keeps the
+        # original rows, so it stands upright at the clipped column
         c0x, c0y, c1x, c1y = px, py, x, y
         if not (0 <= t0x < w and 0 <= t1x < w and 0 <= py < h and 0 <= y < h):
             clipped = _clip_line(w, h, t0x, py, t1x, y)
-            if clipped is not None and clipped[1] != clipped[3]:
-                c0x, c0y = clipped[0] << XY_SHIFT, clipped[1]
-                c1x, c1y = clipped[2] << XY_SHIFT, clipped[3]
+            if clipped is not None:
+                c0x, c1x = clipped[0] << XY_SHIFT, clipped[2] << XY_SHIFT
+                if clipped[1] != clipped[3]:
+                    c0y, c1y = clipped[1], clipped[3]
         if py != y:
             dx = _tdiv(c1x - c0x, c1y - c0y)
             if py < y:

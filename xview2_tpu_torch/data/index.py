@@ -23,6 +23,7 @@ import numpy as np
 from PIL import Image
 
 from xview2_tpu_torch.data.exclude_list import default_excluded
+from xview2_tpu_torch.parallel import mesh
 
 COLUMNS = ("idx", "1", "2", "3", "4")
 
@@ -115,13 +116,17 @@ def ensure_index(cfg) -> str:
     with the same foreground-bbox filter (threshold scaled to the tile size)
     and class-presence flags.  Exclusion precedence: an explicit
     ``--exclude`` JSON file, else ``{data}/train/exclude.txt`` when present,
-    else the bundled reference list (applied only on xBD-shaped trees)."""
+    else the bundled reference list (applied only on xBD-shaped trees).
+    Under ``--gpus N`` rank 0 writes it and every rank waits for it."""
     if cfg.index_csv:
         if not os.path.exists(cfg.index_csv):
             raise FileNotFoundError(f"--index_csv {cfg.index_csv} does not exist")
         return cfg.index_csv
     out_csv = os.path.join(cfg.results, "index.csv")
-    if not os.path.exists(out_csv):
+
+    def write():
+        if os.path.exists(out_csv):
+            return
         exclude = cfg.exclude
         if exclude and not os.path.exists(exclude):
             raise FileNotFoundError(f"--exclude {exclude} does not exist")
@@ -132,4 +137,6 @@ def ensure_index(cfg) -> str:
         print(f"generating train index {out_csv} (no --index_csv given)", flush=True)
         generate_index(train_dir, out_csv, exclude_path=exclude, n_jobs=cfg.num_workers,
                        min_size=None)
+
+    mesh.run_on_main(write)
     return out_csv

@@ -14,6 +14,11 @@ Semantics preserved:
  * train batches shuffled by a seed keyed on the loader's ``epoch``,
    ``drop_last``; eval batches sequential, last partial batch kept
    (``data_module.py:16-29``) and padded with a validity mask.
+
+Under ``--gpus N`` every rank computes the same order and the same global
+batches of ``N * batch_size`` samples (JAX's global batch); a rank loads and
+decodes only its own ``batch_size`` rows of each, and ``drop_last`` and the
+padding apply to the global batch.
 """
 
 from __future__ import annotations
@@ -59,6 +64,7 @@ class Batch:
     image: np.ndarray  # uint8 (B, H, W, 3|6)
     mask: np.ndarray   # uint8 (B, H, W)
     valid: np.ndarray  # float32 (B,)
+    start: int = 0     # the position of row 0 in the loader's order (eval dump names)
 
 
 class XView2Dataset:
@@ -123,12 +129,15 @@ class Loader:
     """Threaded batch loader with background prefetch.
 
     Train mode: per-epoch shuffle (seeded), drop_last.  Eval mode: sequential,
-    final partial batch zero-padded with ``valid`` mask.
+    final partial batch zero-padded with ``valid`` mask.  With ``world`` ranks
+    a batch is rank ``rank``'s ``batch_size`` rows of the global batch of
+    ``world * batch_size`` (a rank past the data gets a batch of padding),
+    and ``len`` counts global batches.
     """
 
     def __init__(self, dataset: XView2Dataset, batch_size: int, *,
                  shuffle: bool, drop_last: bool, num_workers: int = 8,
-                 seed: int = 0, prefetch: int = 2):
+                 seed: int = 0, prefetch: int = 2, rank: int = 0, world: int = 1):
         self.ds = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -136,13 +145,15 @@ class Loader:
         self.num_workers = max(num_workers, 1)
         self.seed = seed
         self.prefetch = prefetch
+        self.rank = rank
+        self.world = world
         self.epoch = 0
 
     def __len__(self) -> int:
-        n = len(self.ds)
+        n, g = len(self.ds), self.batch_size * self.world
         if self.drop_last:
-            return n // self.batch_size
-        return -(-n // self.batch_size)
+            return n // g
+        return -(-n // g)
 
     def _order(self) -> np.ndarray:
         order = np.arange(len(self.ds))
@@ -160,17 +171,21 @@ class Loader:
 
         pool = ThreadPoolExecutor(max_workers=self.num_workers)
 
-        def assemble(batch_ids: Sequence[int]) -> Batch:
-            items = list(pool.map(self.ds.load_item, batch_ids))
-            imgs = np.stack([it[0] for it in items])
-            msks = np.stack([it[1] for it in items])
+        def assemble(global_ids: Sequence[int], start: int) -> Batch:
+            batch_ids = global_ids[self.rank * self.batch_size:][:self.batch_size]
+            # a rank past the data decodes the global batch's first sample
+            # for the shapes alone
+            items = list(pool.map(self.ds.load_item, batch_ids if len(batch_ids)
+                                  else global_ids[:1]))
+            imgs = np.stack([it[0] for it in items])[:len(batch_ids)]
+            msks = np.stack([it[1] for it in items])[:len(batch_ids)]
             valid = np.ones((len(batch_ids),), np.float32)
             pad = self.batch_size - len(batch_ids)
             if pad > 0:
                 imgs = np.concatenate([imgs, np.zeros((pad,) + imgs.shape[1:], imgs.dtype)])
                 msks = np.concatenate([msks, np.zeros((pad,) + msks.shape[1:], msks.dtype)])
                 valid = np.concatenate([valid, np.zeros((pad,), np.float32)])
-            return Batch(image=imgs, mask=msks, valid=valid)
+            return Batch(image=imgs, mask=msks, valid=valid, start=start)
 
         def put_or_stop(item) -> bool:
             """Bounded put that aborts when the consumer abandons the iterator.
@@ -189,11 +204,12 @@ class Loader:
 
         def producer():
             try:
+                g = self.batch_size * self.world
                 for b in range(n_batches):
                     if stop.is_set():
                         return
-                    ids = order[b * self.batch_size:(b + 1) * self.batch_size]
-                    if not put_or_stop(assemble(ids)):
+                    start = b * g + self.rank * self.batch_size
+                    if not put_or_stop(assemble(order[b * g:(b + 1) * g], start)):
                         return
             finally:
                 put_or_stop(None)
@@ -217,27 +233,27 @@ class Loader:
             t.join(timeout=30.0)
 
 
-def make_test_loader(cfg) -> Loader:
+def make_test_loader(cfg, rank: int = 0, world: int = 1) -> Loader:
     """The holdout loader of eval mode (reference data_module.py): sequential,
-    last partial batch kept and padded."""
+    last partial batch kept and padded; ``rank``'s rows of each global batch."""
     test_ds = XView2Dataset(os.path.join(cfg.data, "holdout"), cfg.type,
                             cache_dir=cfg.raw_cache)
     return Loader(test_ds, cfg.val_batch_size, shuffle=False, drop_last=False,
-                  num_workers=cfg.num_workers)
+                  num_workers=cfg.num_workers, rank=rank, world=world)
 
 
-def make_train_loaders(cfg) -> Tuple[Loader, Loader]:
+def make_train_loaders(cfg, rank: int = 0, world: int = 1) -> Tuple[Loader, Loader]:
     """The train and validation loaders of train mode (the ``train`` and
-    ``test`` splits).  Training is ALWAYS index-restricted, as in the
-    reference: without ``--index_csv`` the index is generated once under
-    ``--results`` (``data/index.ensure_index``)."""
+    ``test`` splits), ``rank``'s rows of each global batch.  Training is
+    ALWAYS index-restricted, as in the reference: without ``--index_csv`` the
+    index is generated once under ``--results`` (``data/index.ensure_index``)."""
     from xview2_tpu_torch.data.index import ensure_index
 
     train_ds = XView2Dataset(os.path.join(cfg.data, "train"), cfg.type, True,
                              index_csv=ensure_index(cfg), cache_dir=cfg.raw_cache)
     val_ds = XView2Dataset(os.path.join(cfg.data, "test"), cfg.type, cache_dir=cfg.raw_cache)
     train = Loader(train_ds, cfg.batch_size, shuffle=True, drop_last=True,
-                   num_workers=cfg.num_workers, seed=cfg.seed)
+                   num_workers=cfg.num_workers, seed=cfg.seed, rank=rank, world=world)
     val = Loader(val_ds, cfg.val_batch_size, shuffle=False, drop_last=False,
-                 num_workers=cfg.num_workers)
+                 num_workers=cfg.num_workers, rank=rank, world=world)
     return train, val

@@ -33,6 +33,10 @@ ConvLayer's and ResNet BatchNorm's statistics outside a local
 ``_BNStats`` + ``remat_norm_act``), and turns the fused tail off.  Under a
 whole-step checkpoint (``--remat dots|full``) the recomputation runs inside
 :func:`frozen_running_stats`, so the running statistics update once a step.
+Under a data-parallel group (``--gpus N``, ``parallel/mesh.py``) BatchNorm
+is sync-BN, as GSPMD makes it in JAX: each statistics point sends its local
+sums through ONE ``mesh.global_sum`` and takes the mean, the variance and
+Bessel's factor from the global sums over the global count.
 
 JAX counterparts merged here: ``TorchBatchNorm``/``_BNStats``/``_PackedBN``/
 ``_PackedBNSums`` share one variable tree, so they are one class,
@@ -58,6 +62,7 @@ from torch.utils.checkpoint import checkpoint
 from xview2_tpu_torch.ops.packed_fused_conv import (Fold, conv3x3_nhwc, conv_bn_fused,
                                                     head_conv_fused, leaky_slope, stat_dtype,
                                                     supported)
+from xview2_tpu_torch.parallel import mesh
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.9  # flax momentum == 1 - torch momentum (torch default 0.1)
@@ -246,10 +251,12 @@ class BatchNorm(nn.Module):
         return tuple(v.repeat(phases) for v in vecs) if phases > 1 else vecs
 
     @torch.no_grad()
-    def _update_running(self, mean: torch.Tensor, var: torch.Tensor, n: int) -> None:
+    def _update_running(self, mean: torch.Tensor, var: torch.Tensor, n) -> None:
+        """``n``: the count of the statistics, an int or (sync-BN) a
+        one-element tensor of the global count."""
         if _STATS_FROZEN.get():
             return
-        bessel = n / max(n - 1, 1)
+        bessel = n / (n - 1).clamp(min=1) if torch.is_tensor(n) else n / max(n - 1, 1)
         self.running_mean.mul_(BN_MOMENTUM).add_(mean.to(self.running_mean.dtype),
                                                  alpha=1 - BN_MOMENTUM)
         self.running_var.mul_(BN_MOMENTUM).add_((var * bessel).to(self.running_var.dtype),
@@ -257,11 +264,19 @@ class BatchNorm(nn.Module):
 
     def _batch_stats(self, xf: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """flax ``_compute_stats``: mean and the fast variance, clamped at
-        0; updates the running statistics."""
+        0; updates the running statistics.  Under a group the sum, the sum
+        of squares and the count are global."""
         dims = tuple(range(xf.dim() - 1))
-        mean = xf.mean(dim=dims)
-        var = torch.clamp((xf * xf).mean(dim=dims) - mean * mean, min=0.0)
-        self._update_running(mean, var, xf.numel() // xf.shape[-1])
+        n = xf.numel() // xf.shape[-1]
+        if mesh.active() is None:  # flax's mean(), as before data parallelism
+            mean = xf.mean(dim=dims)
+            var = torch.clamp((xf * xf).mean(dim=dims) - mean * mean, min=0.0)
+        else:
+            count = torch.full((1,), n, dtype=xf.dtype, device=xf.device)
+            s1, s2, n = mesh.global_sum(xf.sum(dim=dims), (xf * xf).sum(dim=dims), count)
+            mean = s1 / n
+            var = torch.clamp(s2 / n - mean * mean, min=0.0)
+        self._update_running(mean, var, n)
         return mean, var
 
     def normalize_train(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -290,9 +305,9 @@ class BatchNorm(nn.Module):
     def _packed_stats(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         c = self.weight.shape[0]
         xf = x.to(torch.float32)
-        n = x.shape[0] * x.shape[1] * x.shape[2] * 4
-        s1 = xf.sum(dim=(0, 1, 2)).reshape(4, c).sum(0)
-        s2 = (xf * xf).sum(dim=(0, 1, 2)).reshape(4, c).sum(0)
+        n = x.shape[0] * x.shape[1] * x.shape[2] * 4 * mesh.world_size()
+        s1, s2 = mesh.global_sum(xf.sum(dim=(0, 1, 2)).reshape(4, c).sum(0),
+                                 (xf * xf).sum(dim=(0, 1, 2)).reshape(4, c).sum(0))
         mean = s1 / n
         var = s2 / n - mean * mean
         self._update_running(mean, var, n)
@@ -320,9 +335,13 @@ class BatchNorm(nn.Module):
                        train: bool) -> Fold:
         """The fold of a fused-chain layer (JAX ``_PackedBNSums``): in train
         mode from the fused kernel's per-channel sums ``(s1, s2)`` over ``n``
-        elements per fine channel, else from the running statistics."""
+        elements per fine channel, else from the running statistics.  Under
+        a group the sums are summed over the ranks first (JAX's ``psum`` of
+        K2's sums under ``shard_map``) and ``n`` is global."""
         if not train:
             return self.fold(phases)
+        s1, s2 = mesh.global_sum(s1, s2)
+        n = n * mesh.world_size()
         c = self.weight.shape[0]
         mean = s1.reshape(phases, c).sum(0) / n
         var = s2.reshape(phases, c).sum(0) / n - mean * mean

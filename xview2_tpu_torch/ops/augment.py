@@ -24,7 +24,11 @@ albumentations calls would be (reference pytorch_loader.py:45-50).
 
 DRAWING the random numbers (:func:`draw_augment`, from a ``torch.Generator``
 on the device) is split from APPLYING them (:func:`apply_augment`), so a test
-can hand the JAX package's own draws to the port.
+can hand the JAX package's own draws to the port.  Every per-sample value is
+drawn for the GLOBAL batch of a data-parallel step (``world`` ranks of ``B``
+rows each), and each rank keeps its own ``B`` rows: a sample's draws do not
+depend on how the batch is split, so N ranks reproduce the single-device
+step on the global batch.
 
 With ``--autoaugment`` the chain is the other branch of JAX
 ``augment_sample``: the non-empty-mask crop WITHOUT the zoom, one ImageNet
@@ -102,39 +106,50 @@ class AugmentDraws:
 
 
 def sample_nonzero_pixel(masks: torch.Tensor,
-                         gen: torch.Generator) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per sample, a uniformly drawn non-zero mask pixel ``(row, col)``;
-    uniform over the whole tile where the mask is empty."""
+                         u: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per sample, a uniformly drawn non-zero mask pixel ``(row, col)`` by
+    the inverse CDF: sample i takes the ``floor(u[i] * count_i)``-th
+    non-zero pixel of its own mask in row-major order (``u``: (B,) uniforms
+    in [0, 1); the product is exact in float64), found in an integer
+    cumulative sum; uniform over the whole tile where the mask is empty."""
     b, h, w = masks.shape
-    weights = (masks.reshape(b, h * w) > 0).to(torch.float32)
-    empty = weights.sum(dim=1, keepdim=True) == 0
-    weights = torch.where(empty, torch.ones_like(weights), weights)
-    idx = torch.multinomial(weights, 1, generator=gen)[:, 0]
+    nonzero = masks.reshape(b, h * w) > 0
+    count = nonzero.sum(dim=1)
+    empty = count == 0
+    nonzero = nonzero | empty[:, None]
+    count = torch.where(empty, torch.full_like(count, h * w), count)
+    k = torch.floor(u.to(torch.float64) * count).to(torch.int32)
+    cumsum = torch.cumsum(nonzero, dim=1, dtype=torch.int32)
+    idx = torch.searchsorted(cumsum, k[:, None], right=True)[:, 0]
     return idx // w, idx % w
 
 
 def draw_augment(gen: torch.Generator, masks: torch.Tensor, crop: int = CROP,
-                 channels: int = 3) -> AugmentDraws:
+                 channels: int = 3, rank: int = 0, world: int = 1) -> AugmentDraws:
     """Draw one batch's random numbers on ``masks``'s device from ``gen``;
-    ``channels=6`` also draws the post half's intensity chain."""
+    ``channels=6`` also draws the post half's intensity chain.  ``masks``
+    holds this rank's ``B`` rows of a global batch of ``world * B``: every
+    value is drawn for the global batch and the rank keeps rows ``rank * B``
+    to ``rank * B + B - 1``."""
     b, dev = masks.shape[0], masks.device
+    g, own = b * world, slice(rank * b, rank * b + b)
 
     def uniform(lo: float = 0.0, hi: float = 1.0) -> torch.Tensor:
-        return torch.rand((b,), generator=gen, device=dev) * (hi - lo) + lo
+        return torch.rand((g,), generator=gen, device=dev)[own] * (hi - lo) + lo
 
     def bernoulli(p: float) -> torch.Tensor:
         return uniform() < p
 
     def intensity() -> IntensityDraws:
         noise_do, noise_var = bernoulli(0.1), uniform(10.0, 50.0)
-        noise = torch.randn((b, crop, crop, 3), generator=gen, device=dev)
+        noise = torch.randn((g, crop, crop, 3), generator=gen, device=dev)[own]
         return IntensityDraws(noise_do, noise_var, noise, bernoulli(0.2), uniform(0.8, 1.2),
                               uniform(-0.2, 0.2))
 
     do_zoom, zoom_u = bernoulli(0.2), uniform()
-    pix_y, pix_x = sample_nonzero_pixel(masks, gen)
-    off_y = torch.randint(0, crop, (b,), generator=gen, device=dev)
-    off_x = torch.randint(0, crop, (b,), generator=gen, device=dev)
+    pix_y, pix_x = sample_nonzero_pixel(masks, uniform())
+    off_y, off_x = (torch.randint(0, crop, (g,), generator=gen, device=dev)[own]
+                    for _ in range(2))
     flip_h, flip_v = bernoulli(0.33), bernoulli(0.33)
     pre = intensity()
     return AugmentDraws(do_zoom, zoom_u, pix_y, pix_x, off_y, off_x, flip_h, flip_v, pre,
@@ -246,15 +261,19 @@ class AutoAugmentBranchDraws:
     aa: autoaugment.AutoAugmentDraws
 
 
-def draw_augment_autoaugment(gen: torch.Generator, masks: torch.Tensor,
-                             crop: int = CROP) -> AutoAugmentBranchDraws:
-    """Draw one batch's ``--autoaugment`` numbers on ``masks``'s device."""
+def draw_augment_autoaugment(gen: torch.Generator, masks: torch.Tensor, crop: int = CROP,
+                             rank: int = 0, world: int = 1) -> AutoAugmentBranchDraws:
+    """Draw one batch's ``--autoaugment`` numbers on ``masks``'s device, for
+    the global batch as :func:`draw_augment` draws them."""
     b, dev = masks.shape[0], masks.device
-    pix_y, pix_x = sample_nonzero_pixel(masks, gen)
-    off_y = torch.randint(0, crop, (b,), generator=gen, device=dev)
-    off_x = torch.randint(0, crop, (b,), generator=gen, device=dev)
-    return AutoAugmentBranchDraws(pix_y, pix_x, off_y, off_x,
-                                  autoaugment.draw_autoaugment(gen, b, dev))
+    g, own = b * world, slice(rank * b, rank * b + b)
+    pix_y, pix_x = sample_nonzero_pixel(masks, torch.rand((g,), generator=gen, device=dev)[own])
+    off_y, off_x = (torch.randint(0, crop, (g,), generator=gen, device=dev)[own]
+                    for _ in range(2))
+    aa = autoaugment.draw_autoaugment(gen, g, dev)
+    aa = dataclasses.replace(aa, **{f.name: getattr(aa, f.name)[own]
+                                    for f in dataclasses.fields(aa)})
+    return AutoAugmentBranchDraws(pix_y, pix_x, off_y, off_x, aa)
 
 
 def _crop_noscale(images: torch.Tensor, masks: torch.Tensor, d: AutoAugmentBranchDraws,
@@ -283,11 +302,12 @@ def apply_augment_autoaugment(images: torch.Tensor, masks: torch.Tensor,
 
 
 def augment_batch(gen: torch.Generator, images: torch.Tensor, masks: torch.Tensor,
-                  crop: int = CROP, bgr: bool = False,
-                  use_autoaugment: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Draw and apply: the train step's augmentation of a batch of raw tiles."""
+                  crop: int = CROP, bgr: bool = False, use_autoaugment: bool = False,
+                  rank: int = 0, world: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Draw and apply: the train step's augmentation of a batch of raw tiles
+    (this rank's rows of a global batch of ``world`` ranks)."""
     if use_autoaugment:
-        return apply_augment_autoaugment(images, masks,
-                                         draw_augment_autoaugment(gen, masks, crop), crop, bgr)
-    return apply_augment(images, masks, draw_augment(gen, masks, crop, images.shape[-1]), crop,
-                         bgr)
+        d = draw_augment_autoaugment(gen, masks, crop, rank, world)
+        return apply_augment_autoaugment(images, masks, d, crop, bgr)
+    d = draw_augment(gen, masks, crop, images.shape[-1], rank, world)
+    return apply_augment(images, masks, d, crop, bgr)

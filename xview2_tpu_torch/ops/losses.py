@@ -8,6 +8,11 @@ batch=True, smooth 1e-5) and FocalLoss(gamma=2) with its mean-over-classes
 normalization; reductions are mask-weighted sums.  OHEM is the intended
 per-image hard-negative top-k, as a rank mask.  Logits are NHWC ``(B, H, W,
 C)``, labels ``(B, H, W)`` integers.
+
+Every reduction over the batch is global: under a data-parallel group each
+loss sends its numerator and denominator through ONE ``mesh.global_sum``,
+so every rank computes the loss of the global batch (JAX's GSPMD sums); the
+identity without one.
 """
 
 from __future__ import annotations
@@ -15,6 +20,8 @@ from __future__ import annotations
 from typing import Callable, Optional, Sequence
 
 import torch
+
+from xview2_tpu_torch.parallel import mesh
 
 _SMOOTH_NR = 1e-5  # monai 0.4.0 DiceLoss defaults
 _SMOOTH_DR = 1e-5
@@ -37,6 +44,12 @@ def _one_hot(labels: torch.Tensor, n_class: int, dtype=torch.float32) -> torch.T
     return (labels[..., None] == classes).to(dtype)
 
 
+def _global_mean(total: torch.Tensor, count: torch.Tensor) -> torch.Tensor:
+    """``total / max(count, 1)`` of the global batch."""
+    total, count = mesh.global_sum(total, count)
+    return total / torch.clamp(count, min=1.0)
+
+
 def dice_loss(logits: torch.Tensor, labels: torch.Tensor,
               mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Soft Dice over softmax probabilities; background excluded iff the
@@ -49,9 +62,9 @@ def dice_loss(logits: torch.Tensor, labels: torch.Tensor,
         probs = probs[..., 1:]
         onehot = onehot[..., 1:]
     w_ = w[..., None]
-    intersection = torch.sum(w_ * probs * onehot, dim=(0, 1, 2))
-    pred_o = torch.sum(w_ * probs, dim=(0, 1, 2))
-    ground_o = torch.sum(w_ * onehot, dim=(0, 1, 2))
+    intersection, pred_o, ground_o = mesh.global_sum(
+        torch.sum(w_ * probs * onehot, dim=(0, 1, 2)), torch.sum(w_ * probs, dim=(0, 1, 2)),
+        torch.sum(w_ * onehot, dim=(0, 1, 2)))
     f = 1.0 - (2.0 * intersection + _SMOOTH_NR) / (ground_o + pred_o + _SMOOTH_DR)
     return torch.mean(f)
 
@@ -73,9 +86,8 @@ def focal_loss(logits: torch.Tensor, labels: torch.Tensor,
     logpt = _true_class_logp(torch.log_softmax(_acc(logits), dim=-1), labels)
     pt = torch.exp(logpt)
     per_pixel = -((1.0 - pt) ** gamma) * logpt
-    total = torch.sum(w * per_pixel)
-    count = torch.clamp(torch.sum(w), min=1.0)
-    return total / (count * n_class)
+    total, count = mesh.global_sum(torch.sum(w * per_pixel), torch.sum(w))
+    return total / (torch.clamp(count, min=1.0) * n_class)
 
 
 def ce_loss(logits: torch.Tensor, labels: torch.Tensor,
@@ -83,7 +95,7 @@ def ce_loss(logits: torch.Tensor, labels: torch.Tensor,
     """Masked mean cross-entropy (torch ``nn.CrossEntropyLoss`` semantics)."""
     w = _ensure_mask(labels, mask)
     nll = -_true_class_logp(torch.log_softmax(_acc(logits), dim=-1), labels)
-    return torch.sum(w * nll) / torch.clamp(torch.sum(w), min=1.0)
+    return _global_mean(torch.sum(w * nll), torch.sum(w))
 
 
 def ohem_loss(logits: torch.Tensor, labels: torch.Tensor,
@@ -112,7 +124,7 @@ def ohem_loss(logits: torch.Tensor, labels: torch.Tensor,
     ranks.scatter_(1, order, torch.arange(order.shape[1], device=order.device).expand_as(order))
     keep = pos | (~pos & (ranks < budget[:, None]))
     total = torch.sum(torch.where(keep, nll, torch.zeros_like(nll)))
-    return total / torch.clamp(keep.sum(), min=1).to(nll.dtype)
+    return _global_mean(total, keep.sum().to(nll.dtype))
 
 
 def mse_loss(logits: torch.Tensor, labels: torch.Tensor,
@@ -122,7 +134,7 @@ def mse_loss(logits: torch.Tensor, labels: torch.Tensor,
     w = _ensure_mask(labels, mask)
     pred = torch.relu(_acc(logits)[..., 0])
     err = (pred - labels.to(torch.float32)) ** 2
-    return torch.sum(w * err) / torch.clamp(torch.sum(w), min=1.0)
+    return _global_mean(torch.sum(w * err), torch.sum(w))
 
 
 # CORAL cumulative-level targets of the 4 ordinal damage classes (reference
@@ -142,7 +154,7 @@ def coral_loss(logits: torch.Tensor, labels: torch.Tensor,
     levels = _one_hot(labels.clamp(0, 3), 4) @ table
     logpt = torch.nn.functional.logsigmoid(x)
     per_pixel = torch.sum(logpt * levels + (logpt - x) * (1.0 - levels), dim=-1)
-    return -torch.sum(w * per_pixel) / torch.clamp(torch.sum(w), min=1.0)
+    return -_global_mean(torch.sum(w * per_pixel), torch.sum(w))
 
 
 _LOSS_FNS = {"dice": dice_loss, "focal": focal_loss, "ce": ce_loss, "ohem": ohem_loss,

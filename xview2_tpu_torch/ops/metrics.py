@@ -3,7 +3,11 @@
 Per-class tp/fp/fn counters as f32 tensors on the device, updated by the eval
 step (reference ``utils/f1.py``): label conversion per head type,
 post-task restriction to building pixels, ``f1 = 200*tp/(2tp+fp+fn)`` and
-the damage aggregate as a harmonic mean with the 1e-6 guard.
+the damage aggregate as a harmonic mean with the 1e-6 guard.  Under a
+data-parallel group each batch's increments are summed over the ranks (one
+``mesh.global_sum``) before they are added, so the counts accumulate in
+JAX's order: batch by batch over the global batch (float32 counts pass
+2^24 on a real holdout, so the order matters).
 """
 
 from __future__ import annotations
@@ -12,6 +16,8 @@ from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+
+from xview2_tpu_torch.parallel import mesh
 
 
 class F1State(NamedTuple):
@@ -56,8 +62,8 @@ def update_f1_state(state: F1State, logits: torch.Tensor, targets: torch.Tensor,
         tps.append(torch.sum(valid * (p & t)))
         fns.append(torch.sum(valid * (~p & t)))
         fps.append(torch.sum(valid * (p & ~t)))
-    return F1State(tp=state.tp + torch.stack(tps), fp=state.fp + torch.stack(fps),
-                   fn=state.fn + torch.stack(fns))
+    tp, fp, fn = mesh.global_sum(torch.stack(tps), torch.stack(fps), torch.stack(fns))
+    return F1State(tp=state.tp + tp, fp=state.fp + fp, fn=state.fn + fn)
 
 
 def compute_f1(state: F1State, n_class: int) -> Tuple[float, Optional[np.ndarray]]:

@@ -364,7 +364,10 @@ _SUMS_TAPE: contextvars.ContextVar = contextvars.ContextVar("xview2_torch_sums_t
 def sums_tape(tape: list, replay: bool):
     """Append the ``(s1, s2)`` of every ``conv_bn_fused`` call in this scope
     to ``tape``, or, with ``replay``, return the recorded ones in the same
-    order in place of the kernel's."""
+    order in place of the kernel's.  The tape holds a rank's LOCAL sums:
+    under a data-parallel group the replay's all-reduce in
+    ``BatchNorm.fold_from_sums`` runs again (on the autograd thread, in the
+    same order on every rank), so the recomputed fold equals the first."""
     tok = _SUMS_TAPE.set((tape, replay, iter(tape) if replay else None))
     try:
         yield

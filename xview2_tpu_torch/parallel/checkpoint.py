@@ -8,7 +8,8 @@ the torch modules.  A training checkpoint also holds the optimizer state
 (``opt_state/<parameter name>/<buffer>``, e.g. ``exp_avg``) and the step
 count (``train/step``), so a resumed run repeats an unbroken one; optimizer
 state is the port's own and is not carried across packages.  Checkpoints
-without them (eval-only, converted from JAX) load as before.
+without them (eval-only, converted from JAX) load as before.  Under ``--gpus
+N`` rank 0 alone writes (:func:`save_on_main`) and every rank restores.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 
 from xview2_tpu_torch.config import Config
+from xview2_tpu_torch.parallel import mesh
 from xview2_tpu_torch.weights import flatten_tree
 
 _STATE = "state.npz"
@@ -46,6 +48,17 @@ def save_checkpoint(path: str, params: dict, batch_stats: dict, *, epoch: int,
             "config": json.loads(cfg.to_json())}
     with open(os.path.join(path, "meta.json"), "w") as f:
         json.dump(meta, f, indent=2)
+
+
+def save_on_main(path: str, arrays, **meta) -> None:
+    """:func:`save_checkpoint` on rank 0 alone, then a barrier, so every
+    rank finds the checkpoint; ``arrays()`` gives ``(params, batch_stats,
+    opt_state)`` and runs on rank 0 only (the copies to the host)."""
+    def write():
+        params, batch_stats, opt_state = arrays()
+        save_checkpoint(path, params, batch_stats, opt_state=opt_state, **meta)
+
+    mesh.run_on_main(write)
 
 
 def load_metadata(path: str) -> Dict[str, Any]:

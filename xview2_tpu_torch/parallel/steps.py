@@ -25,6 +25,14 @@ hand-written kernels included.  The recomputation leaves the BatchNorm
 running statistics alone and replays K2's per-channel sums, so the step
 updates the statistics once and the backward sees the first forward's
 folds bit for bit.
+
+``--gpus N`` (``parallel/mesh.py``): each rank runs these steps on its B
+rows of the global batch of N*B.  The augmentation draws for the global
+batch and keeps the rank's rows, BatchNorm, the losses and the F1 counts
+reduce over the ranks, and the gradients are averaged between the backward
+and the update, so every rank computes the single-device step on the global
+batch and holds the same parameters.  Without a group nothing of this
+sends a collective.
 """
 
 from __future__ import annotations
@@ -47,6 +55,7 @@ from xview2_tpu_torch.ops.losses import (deep_supervision_loss, make_loss_fn,
                                          packed_loss_view_labels)
 from xview2_tpu_torch.ops.metrics import F1State, update_f1_state
 from xview2_tpu_torch.ops.packed_fused_conv import sums_tape
+from xview2_tpu_torch.parallel import mesh
 from xview2_tpu_torch.train.optimizers import LearningRate, lr_at
 
 
@@ -118,17 +127,18 @@ def init_train_state(model: torch.nn.Module, opt: torch.optim.Optimizer,
 
 def step_generator(cfg: Config, global_step: int, device) -> torch.Generator:
     """The random stream of one train step: a function of ``(cfg.seed ^
-    0x5EED, global_step)`` only, so a resumed run repeats an unbroken one."""
+    0x5EED, global_step)`` only, so a resumed run repeats an unbroken one
+    and every rank of a data-parallel step holds the same stream."""
     gen = torch.Generator(device=resolve_device(device))
     gen.manual_seed((((cfg.seed ^ 0x5EED) & 0xFFFFFFFF) << 31) ^ global_step)
     return gen
 
 
 def check_train_supported(cfg: Config) -> None:
-    """Raise for every train-step option outside the ported slice."""
-    if cfg.gpus != 1 or cfg.spatial_shards != 1:
-        raise NotImplementedError("--gpus/--spatial_shards > 1 are not ported yet "
-                                  "(ROADMAP Queue 1, multi-GPU)")
+    """Raise for every train-step option outside the ported slices."""
+    if cfg.spatial_shards != 1:
+        raise NotImplementedError("--spatial_shards > 1 is not ported yet "
+                                  "(ROADMAP Queue 1, --spatial_shards)")
 
 
 def forward_loss(cfg: Config, model, loss_fn, x: torch.Tensor, y_main: torch.Tensor,
@@ -200,7 +210,8 @@ def make_train_step(cfg: Config, model, opt: torch.optim.Optimizer, crop: int = 
         masks = torch.as_tensor(masks).to(dev, non_blocking=True)
         with torch.no_grad():
             x, y = augment_batch(rng, images, masks, crop=crop, bgr=cfg.bgr,
-                                 use_autoaugment=cfg.autoaugment)
+                                 use_autoaugment=cfg.autoaugment, rank=mesh.rank(),
+                                 world=mesh.world_size())
             # the packed head emits train logits as a (B, H/2, 2W, n) pixel
             # permutation; pair it with the same permutation of the labels.
             # The fine labels are read only by the deep-supervision heads.
@@ -212,6 +223,7 @@ def make_train_step(cfg: Config, model, opt: torch.optim.Optimizer, crop: int = 
         with remat_tail_scope(cfg.remat == "tail"):
             loss = loss_of(x, y_main, y)
         loss.backward()
+        mesh.average_gradients(model.parameters())
         for group in opt.param_groups:
             group["lr"] = lr_at(lr, state.step)
         opt.step()

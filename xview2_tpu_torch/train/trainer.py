@@ -14,6 +14,14 @@ package's format (localization: sigmoid of channel 1, ``(H, W)``; damage:
 the class softmax channel-first, ``(4, H, W)``; float32, filenames
 ``test_{localization|damage}_{idx:05d}.npy`` and ``..._target.png``) and
 logs the F1.
+
+``--gpus N`` (one process per GPU, ``parallel/mesh.py``; ``main`` joins or
+spawns the ranks): every rank loads its rows of each global batch of
+``N * batch_size``, rank 0's model is broadcast after each initialization,
+the steps compute the single-device step on the global batch, so the F1 and
+the early-stopping decision are the same on every rank; rank 0 writes the
+index, the checkpoints and the log, and each rank the eval dumps of its own
+rows under their global index, so the file set is the single-device run's.
 """
 
 from __future__ import annotations
@@ -35,6 +43,7 @@ from xview2_tpu_torch.models.unet import build_model
 from xview2_tpu_torch.ops.losses import make_loss_fn
 from xview2_tpu_torch.ops.metrics import compute_f1, init_f1_state
 from xview2_tpu_torch.parallel import checkpoint as ckpt_lib
+from xview2_tpu_torch.parallel import mesh
 from xview2_tpu_torch.parallel.steps import (TrainState, check_train_supported,
                                              init_train_state, make_eval_step,
                                              make_train_step, resolve_device, step_generator)
@@ -135,6 +144,7 @@ class Runner:
             self.learning_rate = cfg.lr
         self.opt = build_optimizer(cfg, self.model.parameters(), self.learning_rate)
         self.state = init_train_state(self.model, self.opt, device=self.device)
+        mesh.broadcast_module(self.model)
         self.train_step = make_train_step(cfg, self.model, self.opt, crop=cfg.train_crop,
                                           device=self.device, learning_rate=self.learning_rate)
         self.eval_step = make_eval_step(cfg, self.model, device=self.device)
@@ -150,10 +160,12 @@ class Runner:
         return meta
 
     def save(self, path: str, *, epoch: int, best_f1: float, best_epoch: int) -> None:
-        ckpt_lib.save_checkpoint(path, *to_flax(self.model.state_dict()), epoch=epoch,
-                                 best_f1=best_f1, best_epoch=best_epoch, cfg=self.cfg,
-                                 opt_state=ckpt_lib.optimizer_arrays(self.model, self.opt),
-                                 step=self.state.step)
+        def arrays():
+            return (*to_flax(self.model.state_dict()),
+                    ckpt_lib.optimizer_arrays(self.model, self.opt))
+
+        ckpt_lib.save_on_main(path, arrays, epoch=epoch, best_f1=best_f1,
+                              best_epoch=best_epoch, cfg=self.cfg, step=self.state.step)
 
     def run_eval(self, loader: Loader):
         f1_state = init_f1_state(self.cfg.n_metric_class, device=self.device)
@@ -176,27 +188,35 @@ def _check_fit_supported(cfg: Config) -> None:
     check_train_supported(cfg)
 
 
+def _say(msg: str) -> None:
+    """Print on rank 0 (every rank has the same to say)."""
+    if mesh.is_main():
+        print(msg, flush=True)
+
+
 def fit(cfg: Config, device="cuda") -> str:
     """Train with per-epoch validation; returns the best checkpoint path.
-    Runs on ``device``, CUDA by default."""
+    Runs on ``device``, CUDA by default; under a process group of
+    ``--gpus`` ranks, on this rank's rows."""
     resolve_device(device)
     _check_fit_supported(cfg)
-    train_loader, val_loader = make_train_loaders(cfg)
+    mesh.check_world(cfg.gpus)
+    train_loader, val_loader = make_train_loaders(cfg, mesh.rank(), mesh.world_size())
     runner = Runner(cfg, len(train_loader), device=device)
     state: TrainState = runner.state
 
     if cfg.pretrained_enc and os.path.exists(cfg.pretrained_enc):
         variant = "siamese" if cfg.type == "pre" else cfg.dmg_model
         copied = apply_pretrained_encoder(runner.model, cfg.pretrained_enc, variant)
-        print(f"loaded pretrained encoder from {cfg.pretrained_enc} ({len(copied)} tensors)",
-              flush=True)
+        mesh.broadcast_module(runner.model)
+        _say(f"loaded pretrained encoder from {cfg.pretrained_enc} ({len(copied)} tensors)")
 
     if cfg.type == "post" and ckpt_lib.checkpoint_exists(cfg.ckpt_pre):
         loc, _ = ckpt_lib.restore_raw(cfg.ckpt_pre)
         copied = transplant_encoder(cfg.dmg_model, runner.model,
                                     from_flax(loc["params"], loc["batch_stats"]))
-        print(f"transplanted localization encoder from {cfg.ckpt_pre} ({len(copied)} "
-              "tensors)", flush=True)
+        mesh.broadcast_module(runner.model)
+        _say(f"transplanted localization encoder from {cfg.ckpt_pre} ({len(copied)} tensors)")
 
     start_epoch = 0
     best_f1, best_epoch = 0.0, 0
@@ -208,15 +228,15 @@ def fit(cfg: Config, device="cuda") -> str:
         # starts at 0 for every fresh Loader: restore it, or a resumed run
         # replays epoch 0's sample order instead of epoch E's
         train_loader.epoch = start_epoch
-        print(f"resumed from {cfg.ckpt} at epoch {start_epoch}", flush=True)
+        _say(f"resumed from {cfg.ckpt} at epoch {start_epoch}")
 
-    logger = MetricsLogger(cfg.results, cfg.logname)
+    logger = MetricsLogger(cfg.results, cfg.logname) if mesh.is_main() else None
     best_path = os.path.join(cfg.results, "checkpoints", "best")
     last_path = os.path.join(cfg.results, "checkpoints", "last")
     patience_left = cfg.patience
 
     prof = None
-    if cfg.profile:
+    if cfg.profile and mesh.is_main():
         from torch.profiler import ProfilerActivity, profile
 
         acts = [ProfilerActivity.CPU]
@@ -241,15 +261,16 @@ def fit(cfg: Config, device="cuda") -> str:
         for batch in train_loader:
             rng = step_generator(cfg, state.step, runner.device)
             state, _ = runner.train_step(state, batch.image, batch.mask, rng)
-            n_imgs += batch.image.shape[0]
+            n_imgs += batch.image.shape[0] * mesh.world_size()  # the global batch
             if prof is not None and state.step >= profile_stop_at:
                 stop_profile()
         if runner.device.type == "cuda":
             torch.cuda.synchronize(runner.device)
         train_time = time.time() - t0
 
-        f1, per_class, val_loss = runner.run_eval(val_loader)
-        _warn_nan_f1(f1, per_class, epoch, patience_left)
+        f1, per_class, val_loss = runner.run_eval(val_loader)  # global: the same on every rank
+        if mesh.is_main():
+            _warn_nan_f1(f1, per_class, epoch, patience_left)
         if _is_improvement(f1, best_f1, ckpt_lib.checkpoint_exists(best_path)):
             if not math.isnan(f1):  # never poison best_f1 with NaN
                 best_f1, best_epoch = f1, epoch
@@ -261,29 +282,38 @@ def fit(cfg: Config, device="cuda") -> str:
 
         data = epoch_metrics(f1, val_loss, best_f1, per_class)
         data["imgs_per_sec"] = round(n_imgs / max(train_time, 1e-9), 2)
-        logger.log(epoch, data)
+        if logger is not None:
+            logger.log(epoch, data)
 
         if patience_left <= 0:
-            print(f"early stopping at epoch {epoch} (patience {cfg.patience})", flush=True)
+            _say(f"early stopping at epoch {epoch} (patience {cfg.patience})")
             break
 
     if prof is not None:  # run shorter than the 6-step window
         stop_profile()
-    logger.close()
+    if logger is not None:
+        logger.close()
     return best_path
 
 
 def _check_supported(cfg: Config) -> None:
-    if cfg.gpus != 1 or cfg.spatial_shards != 1:
-        raise NotImplementedError("--gpus/--spatial_shards > 1 are not ported yet "
-                                  "(ROADMAP Queue 1, multi-GPU)")
+    """Raise for a run option outside the ported slices, before any rank
+    starts: ``--spatial_shards``, and for training everything
+    :func:`_check_fit_supported` checks."""
+    if cfg.exec_mode == "train":
+        _check_fit_supported(cfg)
+    elif cfg.spatial_shards != 1:
+        raise NotImplementedError("--spatial_shards > 1 is not ported yet "
+                                  "(ROADMAP Queue 1, --spatial_shards)")
 
 
 def test(cfg: Config, device="cuda") -> dict:
     """Eval mode: restore the checkpoint, run the holdout, dump artifacts and
     metrics (reference main.py:113-122 eval branch).  Runs on ``device``,
-    CUDA by default."""
+    CUDA by default; under a process group of ``--gpus`` ranks, on this
+    rank's rows of each global batch."""
     dev = resolve_device(device)
+    mesh.check_world(cfg.gpus)
     if not ckpt_lib.checkpoint_exists(cfg.ckpt):
         raise FileNotFoundError(f"no checkpoint found for evaluation at {cfg.ckpt!r}")
     # model hyperparameters come from the checkpoint; TTA and the fused tail
@@ -304,17 +334,18 @@ def test(cfg: Config, device="cuda") -> dict:
     model.load_state_dict(from_flax(payload["params"], payload["batch_stats"]), strict=True)
     model.to(dev)
 
-    _clear_task_artifacts(cfg)
-    loader = make_test_loader(cfg)
+    mesh.run_on_main(_clear_task_artifacts, cfg)
+    loader = make_test_loader(cfg, mesh.rank(), mesh.world_size())
     eval_step = make_eval_step(cfg, model, device=dev)
     f1_state = init_f1_state(cfg.n_metric_class, device=dev)
-    idx = 0
     for batch in loader:
         f1_state, _, logits = eval_step(f1_state, batch.image, batch.mask, batch.valid)
-        idx = _save_predictions(cfg, logits, batch.mask, batch.valid, idx)
+        _save_predictions(cfg, logits, batch.mask, batch.valid, batch.start)
+    mesh.barrier()  # every rank's dumps are written
     f1, per_class = compute_f1(f1_state, cfg.n_metric_class)
-    logger = MetricsLogger(cfg.results, cfg.logname)
     data = test_metrics(f1, per_class)
-    logger.log((), data)
-    logger.close()
+    if mesh.is_main():
+        logger = MetricsLogger(cfg.results, cfg.logname)
+        logger.log((), data)
+        logger.close()
     return data
