@@ -138,13 +138,33 @@ Phases, each of which fails the script (non-zero exit, no result line):
    mode at every variant and pad against its plain version and the
    whole-height K2, K4/K5 on the padded cotangent, and times a band of the
    headline's dec_l5 beside cuDNN's conv, wgrad and dgrad on it;
-14. one JSON line listing every kernel, then the ``nvidia-smi`` line, then
+14. the spatial options path (``--gpus 2 --spatial_shards 2`` with every
+   other option, ``run_spatial_options_path``): configurations C
+   (ResNeSt-200 ``fused`` + CORAL + ``--ppm``, the packed cross-fusion's K2
+   in band mode at C = 256; its residual branches at a fifth, without
+   which its random weights make its gradients and logits chaotic) and D
+   (ResNeSt-50 with the gates, deep supervision and ``--autoaugment``) at
+   full width, two ranks on the one card over gloo against one process:
+   the parity step within phase 12's gates (C in float64 at batch 4 of
+   256^2 crops on the stock tail, D in float32 at 16), the bf16 ranks
+   bit-equal after two steps (C at batch 8, D at 16), K1-K6 per rank as in
+   one process, each rank's peak memory, the TTA eval of 4 tiles with the
+   fused tail (float32 logits within 2e-5, the bf16 argmax agreement);
+   phase 10's six option runs and ``--remat none|tail|full`` in float64
+   with their peak memory; C's train and eval CLIs (the encoder cut to
+   ResNeSt-50) in the ranks against ``main`` alone.  Phase 3 also holds K2, K4 and K5 in band mode at the
+   cross-fusion's C = 256 at every K2 variant and both path shapes against
+   their plain versions (K2 bit-equal to the whole-height K2's rows) and
+   times them beside cuDNN and the bound (``check_conv_bn_band`` with the
+   cross-fusion's cases);
+15. one JSON line listing every kernel, then the ``nvidia-smi`` line, then
    ``{"ok": true, "device": {...}}`` as the last line.
 """
 
 from __future__ import annotations
 
 import argparse
+import gc
 import glob
 import json
 import math
@@ -779,13 +799,31 @@ def check_conv_bn_backward():
 
 
 # --spatial_shards (band mode of K2, the zero-padded cotangent of K4/K5).
-# The headline's packed dec_l5 conv at --gpus 2 --spatial_shards 2: a rank's
-# band of the train step's 16 crops of 512^2 (the whole map 16 x 256 x 256)
-BAND_PATH = ("dec_l5.conv2", 16, CROP // 4, CROP // 2, 128, 128)
-# (B, Hb, W, C, Co): Hb output rows of a band; that band, then every K2
-# variant (the 4 x 64, 8 x 32 and 16 x 16 tiles, the wmma row tile at Co = 192)
-BAND_CASES = [BAND_PATH[1:], (2, 64, 64, 256, 128), (3, 37, 200, 128, 256),
-              (2, 9, 7, 64, 128), (1, 24, 136, 384, 192)]
+# (B, Hb, W, C, Co): Hb output rows of a band.  The headline's packed dec_l5
+# conv at --gpus 2 --spatial_shards 2 (a rank's band of the train step's 16
+# crops of 512^2, the whole map 16 x 256 x 256), then every K2 variant (the 4
+# x 64, 8 x 32 and 16 x 16 tiles, the wmma row tile at Co = 192), then one
+# float32 case
+BAND_CASES = [((16, CROP // 4, CROP // 2, 128, 128), "bfloat16"),
+              ((2, 64, 64, 256, 128), "bfloat16"), ((3, 37, 200, 128, 256), "bfloat16"),
+              ((2, 9, 7, 64, 128), "bfloat16"), ((1, 24, 136, 384, 192), "bfloat16"),
+              ((2, 32, 64, 128, 128), "float32")]
+# (name, keys, B, Hb, W, C, Co, backward): the band shapes of a path, checked
+# at pads (1, 0) and (0, 1) and timed at (1, 0); ``keys``: the prefix of
+# their numbers in the kernels line
+BAND_PATHS = [("dec_l5.conv2", "band_", 16, CROP // 4, CROP // 2, 128, 128, True)]
+# the packed cross-fusion of configuration C on a band at --spatial_shards 2
+# (each rank's half of the packed rows, one halo row): C = 256 at the widths
+# (and a Co) that the dispatch hands to each K2 variant, then one float32
+# case; the path shapes: the train step's 8 crops of 512^2 and the TTA eval
+# step's 16 images of 1024^2
+FUSION_BAND_CASES = [((2, 16, w, 256, 128), "bfloat16") for w in (256, 64, 32, 16)] + [
+    ((2, 9, 7, 256, 128), "bfloat16"), ((1, 24, 136, 256, 192), "bfloat16"),
+    ((2, 16, 64, 256, 128), "float32")]
+FUSION_BAND_PATHS = [
+    ("cross-fusion train", "fusion_band_", 8, CROP // 4, CROP // 2, 256, 128, True),
+    ("cross-fusion eval", "fusion_band_eval_", 4 * VAL_BATCH, TILE // 4, TILE // 2, 256, 128,
+     False)]
 BAND_PADS = ((1, 0), (0, 1), (0, 0))   # top band, bottom band, a middle band (S > 2)
 
 
@@ -796,67 +834,89 @@ def _band_ext(x, pads):
     return x[:, pt:x.shape[1] - pb]
 
 
-def check_conv_bn_band() -> dict:
+def check_conv_bn_band(cases=BAND_CASES, paths=BAND_PATHS, kernel=None, prefix="band_",
+                       seed=400) -> dict:
     """K2 in band mode and the K4/K5 band path (``--spatial_shards``).  For
-    each pair of pads, K2 on a band (input rows with their halo rows)
-    against its plain version (``reference_conv_bn`` with the pads) and
-    against the whole-height K2 on the same rows, sliced (``out`` within the
-    K2 tolerance; bit-equality printed), at the headline's band of dec_l5
-    and at every variant, fold on and off; K4 and K5 on the cotangent zero-padded to the input's rows against
-    their plain versions, and through ``conv_bn_fused``'s backward (its
-    launches counted).  Then at the headline's band of dec_l5 (16 x 128 x 256
-    x 128 -> 128 bf16, pads (1, 0)): K2's band time against the whole map's
-    per output row, the plain version, cuDNN on the activated band and the
-    bound; K4's and K5's band times likewise.  Returns the ``band_`` keys of
-    the three kernels' rows."""
+    each case and pair of pads in BAND_PADS, fold on and off: K2 on a band
+    (input rows with their halo rows) within its tolerance of its plain
+    version (``reference_conv_bn`` with the pads), its ``out`` bit-equal to
+    the whole-height K2's rows; K4 and K5 on the cotangent zero-padded to
+    the input's rows within theirs.  The cases must reach every K2 variant.
+    ``kernel(seed)``: the conv kernel of the cases with Co = 128 (the
+    path's own, such as the cross-fusion's group-major packed kernel), else
+    a random one.  Then the band's backward through ``conv_bn_fused``
+    launches K4 and K5.  Then each of ``paths`` at pads (1, 0) and (0, 1),
+    the same checks (K4/K5 where the path trains), the pipelined ``wgmma``
+    kernels required, and its times at pads (1, 0): K2 (and per output row
+    against the whole map's), K4 and K5, against the plain versions, cuDNN
+    on the activated band and the bound over the rows that carry work.
+    Returns ``{kernel: row}``: ``prefix + "max_abs_err"`` and each path's
+    keys."""
     import torch
     import torch.nn.functional as F
 
     from xview2_tpu_torch.ops import packed_fused_conv as pfc
 
-    rows = {k: {"band_max_abs_err": 0.0} for k in ("conv_bn_fused", "conv_bn_wgrad",
-                                                   "conv_bn_dgrad")}
-    cases = [(c, torch.bfloat16) for c in BAND_CASES] + [((2, 32, 64, 128, 128), torch.float32)]
-    for i, ((b, h, w, c, co), dt) in enumerate(cases):
-        x, k, fold = _k2_case(b, h + 2, w, c, co, dt, seed=400 + i)
-        gen = torch.Generator(device="cuda").manual_seed(500 + i)
-        g = torch.randn((b, h, w, co), generator=gen, device="cuda").to(dt)
-        variant = pfc.kernel_variant("conv_bn_fused", h, w, c, co, dt)
-        for pads in BAND_PADS:
+    rows = {k: {prefix + "max_abs_err": 0.0} for k in ("conv_bn_fused", "conv_bn_wgrad",
+                                                       "conv_bn_dgrad")}
+    seen, bit_equal = set(), 0
+
+    def check(x, k, fold, g, pads_list, tag, backward=True):
+        nonlocal bit_equal
+        b, hin, w, c = x.shape
+        h = hin - 2
+        variant = pfc.kernel_variant("conv_bn_fused", h, w, c, k.shape[3], x.dtype)
+        seen.add(variant)
+        kf = pfc.flip_kernel(k)
+        for pads in pads_list:
             xe = _band_ext(x, pads).contiguous()
+            gp = F.pad(g, (0, 0, 0, 0, 1 - pads[0], 1 - pads[1])).contiguous()
             for hf in (True, False):
                 f = fold if hf else None
+                t = f"{tag} pads={pads} fold={hf}"
                 with pfc.full_precision():
                     got = pfc.conv_bn_fused(xe, k, fold, hf, *pads)
                     want = pfc.reference_conv_bn(xe, k, f, *pads)
                     whole = pfc.conv_bn_fused(xe, k, fold, hf)[0][:, 1 - pads[0]:][:, :h]
                     torch.cuda.synchronize()
-                tag = f"K2 band {(b, h, w, c)}->{co} {str(dt)[6:]} pads={pads} fold={hf}"
-                err, rel = _compare_conv(got, want, tag)
-                _compare_conv((whole,) + want[1:], want, tag + " (whole height, sliced)")
-                rows["conv_bn_fused"]["band_max_abs_err"] = max(
-                    rows["conv_bn_fused"]["band_max_abs_err"], err)
-                # K4/K5 on the cotangent zero-padded to the input's rows
-                gp = F.pad(g, (0, 0, 0, 0, 1 - pads[0], 1 - pads[1])).contiguous()
-                kf = pfc.flip_kernel(k)
-                with pfc.full_precision():
-                    e4, _ = _compare_wgrad(pfc.conv_bn_wgrad(xe, gp, fold, hf),
-                                           pfc.reference_wgrad(xe, gp, f), tag + " K4")
-                    msg = (f"{tag} [{variant}]: out max abs err {err:.4g}, max rel err "
-                           f"{rel:.4g}, bit-equal to the whole-height K2's rows: "
-                           f"{torch.equal(got[0], whole)}; K4 dW max abs err {e4:.4g}")
-                    rows["conv_bn_wgrad"]["band_max_abs_err"] = max(
-                        rows["conv_bn_wgrad"]["band_max_abs_err"], e4)
-                    if c % 64 == 0:  # K5 tiles the channels it produces by 64 at least
-                        e5 = _compare_dgrad(pfc.conv_bn_dgrad(gp, kf, xe, fold, hf),
-                                            pfc.reference_dgrad(gp, kf, xe, f), tag + " K5")
-                        rows["conv_bn_dgrad"]["band_max_abs_err"] = max(
-                            rows["conv_bn_dgrad"]["band_max_abs_err"], e5)
-                        msg += f", K5 dx max abs err {e5:.4g}"
-                log(msg)
-        del x, k, fold, g
+                    err, rel = _compare_conv(got, want, t)
+                    if not torch.equal(got[0], whole):
+                        raise AssertionError(f"{t}: the band's out is not bit-equal to the "
+                                             "whole-height K2's rows")
+                    bit_equal += 1
+                    errs = {"conv_bn_fused": err}
+                    if backward:
+                        errs["conv_bn_wgrad"] = _compare_wgrad(
+                            pfc.conv_bn_wgrad(xe, gp, fold, hf), pfc.reference_wgrad(xe, gp, f),
+                            t + " K4")[0]
+                    if backward and c % 64 == 0:  # K5 tiles the channels it makes by 64
+                        errs["conv_bn_dgrad"] = _compare_dgrad(
+                            pfc.conv_bn_dgrad(gp, kf, xe, fold, hf),
+                            pfc.reference_dgrad(gp, kf, xe, f), t + " K5")
+                for kern, e in errs.items():
+                    rows[kern][prefix + "max_abs_err"] = max(rows[kern][prefix + "max_abs_err"], e)
+                log(f"{t} [{variant}]: K2 out max abs err {err:.4g} (max rel {rel:.4g}), "
+                    f"bit-equal to the whole-height K2's rows" + "".join(
+                        f"; {n} {errs[kern]:.4g}" for kern, n in (("conv_bn_wgrad", "K4 dW"),
+                                                                   ("conv_bn_dgrad", "K5 dx"))
+                        if kern in errs))
+        return variant
+
+    for i, ((b, h, w, c, co), dt) in enumerate(cases):
+        dt = getattr(torch, dt)
+        x, g, k, fold = bwd_case(b, h + 2, w, c, co, dt, seed=seed + i)
+        g = g[:, :h].contiguous()
+        if kernel is not None and co == 128:
+            k = kernel(seed + 20 + i).to(dt)
+        check(x, k, fold, g, BAND_PADS, f"K2 band {(b, h, w, c)}->{co} {str(dt)[6:]}")
+        del x, g, k, fold
+    names = set(pfc._VARIANTS["conv_bn_fused"][1].values())
+    if seen != names:
+        raise AssertionError(f"K2 in band mode reached {sorted(seen)}, not every variant "
+                             f"{sorted(names)}")
+
     # the backward of a band through conv_bn_fused launches K4 and K5
-    x, k, fold = _k2_case(2, 18, 64, 128, 128, torch.bfloat16, seed=450)
+    x, k, fold = _k2_case(2, 18, 64, 128, 128, torch.bfloat16, seed=seed + 50)
     xe, kk = _band_ext(x, (1, 0)).contiguous().requires_grad_(), k.clone().requires_grad_()
     before = (pfc.conv_bn_wgrad.launches, pfc.conv_bn_dgrad.launches)
     out, s1, s2 = pfc.conv_bn_fused(xe, kk, fold, True, 1, 0)
@@ -868,61 +928,67 @@ def check_conv_bn_band() -> dict:
         f"{tuple(dx.shape)} (the halo row's part included)")
     del x, k, fold, xe, kk, out, dx, dk
 
-    # timing at the headline's band of dec_l5
-    name, b, h, w, c, co = BAND_PATH
-    x, k, fold = _k2_case(b, 2 * h, w, c, co, torch.bfloat16, seed=460)
-    xe = x[:, :h + 1].contiguous()  # the top band: its own rows and one below
-    gen = torch.Generator(device="cuda").manual_seed(461)
-    g = torch.randn((b, h, w, co), generator=gen, device="cuda").to(torch.bfloat16)
-    gp = F.pad(g, (0, 0, 0, 0, 0, 1)).contiguous()
-    kf = pfc.flip_kernel(k)
-    band = cuda_ms(lambda: pfc.conv_bn_fused(xe, k, fold, True, 1, 0), 10)
-    whole = cuda_ms(lambda: pfc.conv_bn_fused(x, k, fold, True), 10)
-    plain = cuda_ms(lambda: pfc.reference_conv_bn(xe, k, fold, 1, 0), 3)
-    a = F.pad(pfc.prologue(xe, fold), (0, 0, 0, 0, 1, 0)).permute(0, 3, 1, 2)
-    kc = k.permute(3, 2, 0, 1).contiguous()
-    lib = cuda_ms(lambda: F.conv2d(a, kc, padding=(0, 1)), 10)
-    flops = 2.0 * b * h * w * 9 * c * co
-    nbytes = (b * (h + 1) * w * c + b * h * w * co + 9 * c * co) * 2 + (3 * c + 2 * co) * 4
-    bnd, by = bound_ms(nbytes, flops, "bfloat16")
-    variant = pfc.kernel_variant("conv_bn_fused", h, w, c, co, torch.bfloat16)
-    rows["conv_bn_fused"].update(band_ms=band, band_plain_ms=plain, band_library_ms=lib,
-                                 band_bound_ms=bnd, band_bound_by=by,
-                                 band_ms_per_row=band / h, whole_ms_per_row=whole / (2 * h))
-    log(f"K2 band {name} {(b, h + 1, w, c)}->{co} bf16 pads (1, 0) [{variant}]: kernel "
-        f"{band:.3f} ms ({flops / band / 1e9:.1f} TFLOP/s), plain {plain:.3f} ms, library "
-        f"(cuDNN conv) {lib:.3f} ms, bound {bnd:.3f} ms ({by}); per output row "
-        f"{1e3 * band / h:.3f} us against {1e3 * whole / (2 * h):.3f} us for the whole "
-        f"{(b, 2 * h, w, c)} map ({whole:.3f} ms)")
-    # K4/K5: the bound and the library's calls count the h rows that carry
-    # cotangent (the band's own), not the zero row the padding adds: the
-    # activated band with its halo row read once, the cotangent's h rows,
-    # dW (f32) or dx of the band and its halo row and the fold cotangents
-    gn = g.permute(0, 3, 1, 2)
-    act_in = b * (h + 1) * w * c * 2
-    for kern, fn, plain_fn, lib_fn, lib_name, nbytes in (
-            ("conv_bn_wgrad", lambda: pfc.conv_bn_wgrad(xe, gp, fold, True),
-             lambda: pfc.reference_wgrad(xe, gp, fold),
-             lambda: torch.nn.grad.conv2d_weight(a, kc.shape, gn, padding=(0, 1)),
-             "cuDNN wgrad", act_in + b * h * w * co * 2 + 9 * c * co * 4 + 3 * c * 4),
-            ("conv_bn_dgrad", lambda: pfc.conv_bn_dgrad(gp, kf, xe, fold, True),
-             lambda: pfc.reference_dgrad(gp, kf, xe, fold),
-             lambda: torch.nn.grad.conv2d_input(a.shape, kc, gn, padding=(0, 1)),
-             "cuDNN dgrad", 2 * act_in + (b * h * w * co + 9 * c * co) * 2 + 5 * c * 4)):
-        ms = cuda_ms(fn, 10)
-        pms = cuda_ms(plain_fn, 3)
-        lms = cuda_ms(lib_fn, 10)
-        bnd, by = bound_ms(nbytes, flops, "bfloat16")
-        rows[kern].update(band_ms=ms, band_plain_ms=pms, band_library_ms=lms,
-                          band_bound_ms=bnd, band_bound_by=by)
-        variant = pfc.kernel_variant(kern, h + 1, w, c, co, torch.bfloat16)
-        log(f"{'K4' if kern.endswith('wgrad') else 'K5'} band {name} {(b, h + 1, w, c)} "
-            f"(cotangent zero-padded by one row) [{variant}]: kernel {ms:.3f} ms "
-            f"({flops / ms / 1e9:.1f} TFLOP/s over the band's {h} rows), plain {pms:.3f} ms, "
-            f"library ({lib_name} on the activated band) {lms:.3f} ms, bound {bnd:.3f} ms "
-            f"({by}, the {h} rows that carry cotangent)")
-    del x, xe, k, fold, g, gp, gn, kf, a, kc
-    torch.cuda.empty_cache()
+    for i, (name, key, b, h, w, c, co, backward) in enumerate(paths):
+        x, g, k, fold = bwd_case(b, h + 2, w, c, co, torch.bfloat16, seed=seed + 60 + i)
+        g = g[:, :h].contiguous()
+        if kernel is not None:
+            k = kernel(seed + 70 + i)
+        tag = f"K2 band {name} {(b, h + 1, w, c)}->{co} bf16"
+        variant = check(x, k, fold, g, ((1, 0), (0, 1)), tag, backward=backward)
+        if "pipelined" not in variant:
+            raise AssertionError(f"{tag}: the path shape took '{variant}'")
+        whole = cuda_ms(lambda: pfc.conv_bn_fused(x, k, fold, True), 10)
+        xe = x[:, :h + 1].contiguous()  # the top band: its own rows and one below
+        del x
+        torch.cuda.empty_cache()
+        gp = F.pad(g, (0, 0, 0, 0, 0, 1)).contiguous()
+        kf = pfc.flip_kernel(k)
+        a = F.pad(pfc.prologue(xe, fold), (0, 0, 0, 0, 1, 0)).permute(0, 3, 1, 2)
+        kc = k.permute(3, 2, 0, 1).contiguous()
+        gn = g.permute(0, 3, 1, 2)
+        flops = 2.0 * b * h * w * 9 * c * co
+        # K4/K5: the bound and the library's calls count the h rows that carry
+        # cotangent (the band's own), not the zero row the padding adds: the
+        # activated band with its halo row read once, the cotangent's h rows,
+        # dW (f32) or dx of the band and its halo row and the fold cotangents
+        act_in = b * (h + 1) * w * c * 2
+        kerns = [("conv_bn_fused", "K2", lambda: pfc.conv_bn_fused(xe, k, fold, True, 1, 0),
+                  lambda: pfc.reference_conv_bn(xe, k, fold, 1, 0),
+                  lambda: F.conv2d(a, kc, padding=(0, 1)), "cuDNN conv",
+                  act_in + b * h * w * co * 2 + 9 * c * co * 2 + (3 * c + 2 * co) * 4)]
+        if backward:
+            kerns += [
+                ("conv_bn_wgrad", "K4", lambda: pfc.conv_bn_wgrad(xe, gp, fold, True),
+                 lambda: pfc.reference_wgrad(xe, gp, fold),
+                 lambda: torch.nn.grad.conv2d_weight(a, kc.shape, gn, padding=(0, 1)),
+                 "cuDNN wgrad", act_in + b * h * w * co * 2 + 9 * c * co * 4 + 3 * c * 4),
+                ("conv_bn_dgrad", "K5", lambda: pfc.conv_bn_dgrad(gp, kf, xe, fold, True),
+                 lambda: pfc.reference_dgrad(gp, kf, xe, fold),
+                 lambda: torch.nn.grad.conv2d_input(a.shape, kc, gn, padding=(0, 1)),
+                 "cuDNN dgrad", 2 * act_in + (b * h * w * co + 9 * c * co) * 2 + 5 * c * 4)]
+        for kern, short, fn, plain_fn, lib_fn, lib_name, nbytes in kerns:
+            ms = cuda_ms(fn, 10)
+            pms = cuda_ms(plain_fn, 2)
+            lms = cuda_ms(lib_fn, 10)
+            bnd, by = bound_ms(nbytes, flops, "bfloat16")
+            variant = pfc.kernel_variant(kern, h + 1, w, c, co, torch.bfloat16)
+            rows[kern].update({f"{key}ms": ms, f"{key}plain_ms": pms, f"{key}library_ms": lms,
+                               f"{key}bound_ms": bnd, f"{key}bound_by": by,
+                               f"{key}variant": variant})
+            per_row = ""
+            if kern == "conv_bn_fused":
+                rows[kern].update({f"{key}ms_per_row": ms / h,
+                                   f"{key}whole_ms_per_row": whole / (h + 2)})
+                per_row = (f"; per output row {1e3 * ms / h:.3f} us against "
+                           f"{1e3 * whole / (h + 2):.3f} us for the whole {(b, h + 2, w, c)} map")
+            log(f"{short} band {name} {(b, h + 1, w, c)}->{co} bf16 pads (1, 0) [{variant}]: "
+                f"kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s over the band's {h} rows), "
+                f"plain {pms:.3f} ms, library ({lib_name} on the activated band) {lms:.3f} ms, "
+                f"bound {bnd:.3f} ms ({by}){per_row}")
+        del xe, g, gp, k, kf, fold, a, kc, gn
+        torch.cuda.empty_cache()
+    log(f"K2 band mode ({prefix}): {len(seen)} variants reached, {bit_equal} band outputs "
+        f"bit-equal to the whole-height K2's rows")
     return rows
 
 
@@ -1456,20 +1522,24 @@ def check_small_conv():
 
 # --------------------------------------------------------------- main path
 
-def seeded_model(cfg, seed: int, kernel_scale: float = 2.2):
+def seeded_model(cfg, seed: int, kernel_scale: float = 2.2, device: str = "cpu"):
     """The port's model with random weights from ``seed``: torch's default
     conv init scaled by ``kernel_scale`` so activations stay O(1) (1.9 for
     the 66 blocks of ResNeSt-200), BN statistics and affines drawn away
     from the identity so the folds do real work, and each CORAL head's
     ordinal bias its initial [1, 0, -1] plus N(0, 0.1) noise, as the CPU
     tests draw it: levels drawn near each other would tie in bfloat16 and
-    make the logits' argmax a coin toss between two equal channels."""
+    make the logits' argmax a coin toss between two equal channels.
+    ``device``: where the model is built and initialized (the card builds
+    ResNeSt-200's 385 M parameters in a fraction of the host's time; the
+    draws differ from the host's, the same in every process)."""
     import torch
 
     from xview2_tpu_torch.models.unet import build_model
 
     torch.manual_seed(seed)
-    model = build_model(cfg)
+    with torch.device(device):
+        model = build_model(cfg)
     gen = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for name, t in model.state_dict().items():
@@ -1738,15 +1808,23 @@ TRAIN_NEED = {"relayout_cuda": 3, "conv_bn_fused": 6, "head_conv_fused": 1, "con
               "conv_bn_dgrad": 6}   # launches per train step
 
 
-def _raw_train_batch(batch: int = TRAIN_BATCH, channels: int = 3):
+def _raw_train_batch(batch: int = TRAIN_BATCH, channels: int = 3, spread: bool = False):
     """A device-resident batch of raw tiles (pre/post pairs with damage
     labels 1..4 on 10% of the pixels for 6 channels) for the steady-state
-    timings."""
+    timings.  ``spread``: each tile its own contrast and brightness, as real
+    tiles have: a BatchNorm over a few pooled values per channel (PPM's
+    bins, the split attention) normalizes values that, for tiles of one
+    distribution, differ by little more than float32 rounding."""
     import numpy as np
     import torch
 
     rng = np.random.default_rng(13)
-    images = torch.from_numpy(rng.integers(0, 256, (batch, TILE, TILE, channels), np.uint8))
+    raw = rng.integers(0, 256, (batch, TILE, TILE, channels), np.uint8)
+    if spread:
+        contrast = rng.uniform(0.2, 1.0, (batch, 1, 1, 1))
+        brightness = rng.uniform(-80.0, 80.0, (batch, 1, 1, 1))
+        raw = np.clip(128.0 + contrast * (raw - 128.0) + brightness, 0, 255).astype(np.uint8)
+    images = torch.from_numpy(raw)
     fg = rng.random((batch, TILE, TILE)) > 0.9
     labels = rng.integers(1, 5, fg.shape) if channels == 6 else 1
     masks = torch.from_numpy((fg * labels).astype(np.uint8))
@@ -3253,13 +3331,31 @@ DP_ROWS = TRAIN_BATCH // DP_WORLD   # each rank's rows of the global batch of 16
 DP_NEED = {"conv_bn_fused": 6, "conv_bn_wgrad": 6, "conv_bn_dgrad": 6}  # per rank per step
 
 
-def _dp_steps(cfg, images, masks, n_steps: int, keep_grads: bool = False) -> dict:
-    """``n_steps`` train steps of ``cfg`` (the seeded ResNet-50 UNetLoc,
-    rank 0's weights broadcast as the trainer does) on ``images``/``masks``,
-    in or out of a group: the losses, the first step's gradients after the
-    all-reduce (``keep_grads``, on the host), a digest of the parameters and
-    buffers after the last step, each step's wall ms and the ms of each
-    gradient all-reduce, both with the card synchronised."""
+def _model_of(cfg, state=None):
+    """The seeded model of ``cfg`` on the card, or (``state``, a state dict
+    on the host) a model of ``cfg`` holding ``state``: one draw serves both
+    precisions and every step of a configuration."""
+    import torch
+
+    from xview2_tpu_torch.models.unet import build_model
+
+    if state is None:
+        return seeded_model(cfg, seed=0).cuda()
+    with torch.device("cuda"):
+        model = build_model(cfg)
+    model.load_state_dict(state)
+    return model.double() if cfg.precision == 64 else model
+
+
+def _dp_steps(cfg, images, masks, n_steps: int, keep_grads: bool = False,
+              state=None, crop: int = CROP) -> dict:
+    """``n_steps`` train steps of ``cfg`` (the seeded ResNet-50 UNetLoc, or
+    the model of ``cfg`` holding ``state``; rank 0's weights broadcast as the
+    trainer does) on ``images``/``masks``, in or out of a group: the losses,
+    the first step's gradients after the all-reduce (``keep_grads``, on the
+    host), a digest of the parameters and buffers after the last step, each
+    step's wall ms and the ms of each gradient all-reduce, both with the
+    card synchronised."""
     import hashlib
 
     import torch
@@ -3269,11 +3365,11 @@ def _dp_steps(cfg, images, masks, n_steps: int, keep_grads: bool = False) -> dic
     from xview2_tpu_torch.train.optimizers import build_optimizer
 
     apply_precision(cfg)
-    model = seeded_model(cfg, seed=0).cuda()
+    model = _model_of(cfg, state)
     mesh.broadcast_module(model)
     opt = build_optimizer(cfg, model.parameters(), cfg.lr)
     state = steps.init_train_state(model, opt, device="cuda")
-    step = steps.make_train_step(cfg, model, opt, crop=CROP, device="cuda")
+    step = steps.make_train_step(cfg, model, opt, crop=crop, device="cuda")
     out = {"losses": [], "step_ms": [], "allreduce_ms": []}
     average, opt_step = mesh.average_gradients, opt.step
 
@@ -3580,23 +3676,25 @@ def _sp_config(precision: int, **kw):
                   fused_tail=True, batch_size=TRAIN_BATCH, precision=precision, **kw)
 
 
-def _sp_eval_batch():
+def _sp_eval_batch(channels: int = 3):
     import numpy as np
     import torch
 
     rng = np.random.default_rng(3)
-    images = torch.from_numpy(rng.integers(0, 256, (VAL_BATCH, TILE, TILE, 3), np.uint8))
-    masks = torch.from_numpy((rng.random((VAL_BATCH, TILE, TILE)) > 0.9).astype(np.uint8))
+    images = torch.from_numpy(rng.integers(0, 256, (VAL_BATCH, TILE, TILE, channels), np.uint8))
+    fg = rng.random((VAL_BATCH, TILE, TILE)) > 0.9
+    labels = rng.integers(1, 5, fg.shape) if channels == 6 else 1
+    masks = torch.from_numpy((fg * labels).astype(np.uint8))
     return images.cuda(), masks.cuda(), torch.ones(VAL_BATCH, device="cuda")
 
 
-def _sp_eval(cfg, keep_logits: bool = False) -> dict:
+def _sp_eval(cfg, keep_logits: bool = False, state=None) -> dict:
     """One eval step with 4-flip TTA on VAL_BATCH tiles of 1024^2 (the
-    seeded ResNet-50 UNetLoc, fused tail, ``cfg``'s precision), in or out of
-    a space group: the argmax of the whole tiles' logits (the bands
-    gathered), with ``keep_logits`` the logits themselves in float32 on the
-    host, the loss, the F1 counts, the peak memory and the launches and
-    space collectives of the step itself."""
+    seeded ResNet-50 UNetLoc, or the model of ``cfg`` holding ``state``;
+    ``cfg``'s precision), in or out of a space group: the argmax of the
+    whole tiles' logits (the bands gathered), with ``keep_logits`` the
+    logits themselves in float32 on the host, the loss, the F1 counts, the
+    peak memory and the launches and space collectives of the step itself."""
     import torch
 
     from xview2_tpu_torch.config import apply_precision
@@ -3605,8 +3703,8 @@ def _sp_eval(cfg, keep_logits: bool = False) -> dict:
     from xview2_tpu_torch.parallel.steps import make_eval_step
 
     apply_precision(cfg)
-    images, masks, valid = _sp_eval_batch()
-    model = seeded_model(cfg, seed=0).cuda()
+    images, masks, valid = _sp_eval_batch(cfg.in_channels)
+    model = _model_of(cfg, state)
     step = make_eval_step(cfg, model, device="cuda")
     f1 = init_f1_state(cfg.n_metric_class, device="cuda")
     torch.cuda.synchronize()
@@ -3723,7 +3821,6 @@ def run_spatial_path(work: str) -> dict:
 
     import numpy as np
     import torch
-    from PIL import Image
 
     write_splits(work)
     images, masks = _raw_train_batch(TRAIN_BATCH)
@@ -3831,22 +3928,12 @@ def run_spatial_path(work: str) -> dict:
     t_got, t_want = (_last_log(os.path.join(work, d)) for d in ("sp_cli_train", "sp_one_train"))
     e_got, e_want = (_last_log(os.path.join(work, d)) for d in ("sp_cli_eval", "sp_one_eval"))
 
-    def dumps(d):  # probs/*.npy and targets/*.png
-        root = os.path.join(work, d)
-        return sorted(os.path.relpath(p, root) for p in glob.glob(os.path.join(root, "*", "*.*")))
-
-    def read(d, f):
-        path = os.path.join(work, d, f)
-        if f.endswith(".npy"):
-            return np.load(path)
-        with Image.open(path) as im:
-            return np.asarray(im)
-
-    files = dumps("sp_cli_eval")
+    sharded_dir, one_dir = (os.path.join(work, d) for d in ("sp_cli_eval", "sp_one_eval"))
+    files = _dumps(sharded_dir)
     probs = [f for f in files if f.endswith(".npy")]
-    dump_diff = max(float(np.abs(read("sp_cli_eval", f) - read("sp_one_eval", f)).max())
+    dump_diff = max(float(np.abs(_read_dump(sharded_dir, f) - _read_dump(one_dir, f)).max())
                     for f in probs)
-    targets_equal = all(np.array_equal(read("sp_cli_eval", f), read("sp_one_eval", f))
+    targets_equal = all(np.array_equal(_read_dump(sharded_dir, f), _read_dump(one_dir, f))
                         for f in files if f.endswith(".png"))
     same_launches = [r["cli"]["train_launches"] == one_train
                      and r["cli"]["eval_launches"] == one_evalc for r in ranks]
@@ -3854,7 +3941,7 @@ def run_spatial_path(work: str) -> dict:
         f"against main in one process: train epoch {t_got} vs {t_want} (tolerance: val_loss "
         f"1e-2 relative, f1 1.0); eval of the ranks' best checkpoint {e_got} vs {e_want} "
         f"(f1 within 0.01), {len(probs)} probability dumps and {len(files) - len(probs)} "
-        f"targets, the same files: {files == dumps('sp_one_eval')}, probabilities max abs "
+        f"targets, the same files: {files == _dumps(one_dir)}, probabilities max abs "
         f"diff {dump_diff:.4g} (tolerance 1e-3), targets equal: {targets_equal}; each rank's "
         f"launches equal to the "
         f"one process's: {same_launches} (train {_nonzero(sharded['train_launches'])}, eval "
@@ -3863,7 +3950,7 @@ def run_spatial_path(work: str) -> dict:
     if not (abs(t_got["val_loss"] - t_want["val_loss"]) <= 1e-2 * abs(t_want["val_loss"])
             and abs(t_got["f1"] - t_want["f1"]) <= 1.0):
         raise AssertionError("the bands' train CLI is off the one-process run")
-    if not (len(probs) == N_TILES and files == dumps("sp_one_eval") and dump_diff <= 1e-3
+    if not (len(probs) == N_TILES and files == _dumps(one_dir) and dump_diff <= 1e-3
             and targets_equal
             and abs(e_got["f1"] - e_want["f1"]) <= 0.01
             and all(r["cli"]["metrics"] == e_got for r in ranks)):
@@ -3883,6 +3970,479 @@ def run_spatial_path(work: str) -> dict:
                        cli_dump_max_abs_diff=dump_diff,
                        space_collectives_per_step=space, space_mib_per_step=space_mib,
                        collectives_per_step=coll, job_wall_s=wall)
+
+
+# ------------------------------------------------ spatial shards with every option
+
+# configurations C (BASELINE config 4) and D (config 2) as phases 9 and 10 run
+# them, now on two bands: (Config kwargs, train batch, input channels, kernel
+# scale, launches per step and rank, the scale of every bottleneck's residual
+# branch at its last BatchNorm, the parity step's precision, batch and crop).
+# With the residual branches at full scale ResNeSt-200's gradients are a
+# chaotic function of its random weights: one float32 rounding of them moves
+# its gradients by 0.2-1.4 relative L2 in float32 (1.41 at batch 2, where a
+# BatchNorm normalizes two pooled values per channel), by 0.68 and 0.17 in
+# float64, and its TTA logits by 0.022 (rounding_witness.py).  With C's
+# branches at a fifth its parity step runs in float64 on the stock tail (the
+# kernels take bf16 and float32) at batch 4 of 256^2 crops (float32 C at
+# batch 8 does not fit on the card twice), where that rounding moves the
+# gradients by 0.015, and its logits by 1e-7.
+SPO_CONFIGS = {
+    "C": (dict(type="post", dmg_model="fused", loss_str="coral", encoder="resnest200", ppm=True,
+               optimizer="adamw", fused_tail=True), C_BATCH, 6, 1.9, C_NEED, 0.2,
+          (64, 4, CROP // 2)),
+    "D": (dict(type="pre", encoder="resnest50", attention=True, deep_supervision=True,
+               autoaugment=True, loss_str="focal+dice", optimizer="adamw", fused_tail=True),
+          TRAIN_BATCH, 3, 2.2, D_NEED, 1.0, (32, TRAIN_BATCH, CROP)),
+}
+# the parity steps' gates: the loss (relative) and the gradients (relative
+# L2 over all leaves and at the worst fused-tail leaf); C's and D's are
+# phase 12's, the option runs' (float64) those of a float64 step whose
+# stock packed BatchNorm sums run in float32
+PARITY_GATES = {"C": (1e-4, 5e-2), "D": (1e-4, 5e-2), "options": (1e-7, 1e-5)}
+# the float32 TTA eval's gates: the logits (relative L2) and the loss
+# (relative), phase 13's
+EVAL_GATES = (2e-5, 1e-6)
+# phase 10's six option runs and --remat none, tail and full (ResNet-50,
+# SPO_OPTION_BATCH tiles or pairs), in float64 on the stock tail: the fused
+# variant's float32 gradients move by 0.06 under one rounding of its weights
+# at this size, above float32's gate: (tag, Config kwargs, crop)
+SPO_OPTION_RUNS = tuple((tag, dict(kw, encoder="resnet50"), crop)
+                        for tag, kw, crop, _, _ in OPTION_RUNS) + tuple(
+    (f"--remat {mode}", dict(type="pre", encoder="resnet50", remat=mode), VARIANT_CROP)
+    for mode in ("none", "tail", "full"))
+SPO_OPTION_BATCH = 4
+# C's CLIs in the ranks against main alone: float32 at batch 2 (C at batch 8
+# in float32 does not fit twice) on a split of their own, 2 train tiles (one
+# step), 2 validation tiles, 4 holdout tiles.  Depth cut: the encoder is
+# ResNeSt-50 (the CLIs' plumbing, fit and test in the ranks, checkpoints and
+# dumps, does not depend on it; at ResNeSt-200 they add about 80 s, which
+# the smoke's time limit, shared by every phase, cannot spare); the steps
+# and evals above drive C at full depth on the bands
+SPO_CLI = ["--type", "post", "--dmg_model", "fused", "--loss_str", "coral", "--encoder",
+           "resnest50", "--ppm", "--precision", "32"]
+SPO_CLI_BATCH = 2
+
+
+def _spo_cfg(name: str, precision: int, batch: int, **kw):
+    from xview2_tpu_torch.config import Config
+
+    return Config(**dict(SPO_CONFIGS[name][0], **kw), batch_size=batch, precision=precision)
+
+
+def _residual_scaled(state: dict, scale: float) -> dict:
+    """``state`` with the last BatchNorm's affine of every bottleneck
+    (``bn3``: the scale and the shift of the residual branch's output)
+    times ``scale``."""
+    return {k: v * scale if ".bn3." in k and k.endswith(("weight", "bias")) else v
+            for k, v in state.items()}
+
+
+def _spo_state(name: str, work: str) -> str:
+    """Configuration ``name``'s seeded weights on the card with its
+    residual branches scaled (``_residual_scaled``), saved under ``work``
+    for the ranks and the one-process references to load alike.  Returns
+    the file's path."""
+    import torch
+
+    _, batch, _, scale, _, residual, _ = SPO_CONFIGS[name]
+    state = seeded_model(_spo_cfg(name, 32, batch), seed=0, kernel_scale=scale,
+                         device="cuda").state_dict()
+    path = os.path.join(work, f"spo_{name}.pt")
+    torch.save(_residual_scaled(state, residual), path)
+    del state
+    torch.cuda.empty_cache()
+    return path
+
+
+def _spo_runs(name: str, work: str, keep: bool, **group) -> dict:
+    """Configuration ``name`` (C or D) in this process, in or out of a space
+    group (``group``: ``gpus`` and ``spatial_shards``), on its weights of
+    ``_spo_state``: the parity step at its precision and batch (the
+    gradients kept with ``keep``), two bf16 steps at its batch with the
+    launch counters, the collectives and the peak memory from 0, the bf16
+    and the float32 TTA eval steps of VAL_BATCH tiles (the float32 logits
+    kept with ``keep``), and the seconds of each."""
+    import torch
+
+    from xview2_tpu_torch.parallel import mesh
+
+    _, batch, channels, _, _, _, (p_prec, p_batch, p_crop) = SPO_CONFIGS[name]
+    state = torch.load(os.path.join(work, f"spo_{name}.pt"), map_location="cuda")
+    images, masks = _raw_train_batch(batch, channels, spread=True)
+    t0 = time.perf_counter()
+    parity = _spo_cfg(name, p_prec, p_batch, fused_tail=p_prec != 64, **group)
+    out = {"parity": _dp_steps(parity, images[:p_batch], masks[:p_batch], 1, keep_grads=keep,
+                               state=state, crop=p_crop)}
+    t1 = time.perf_counter()
+    gc.collect()  # the steps' closures hold their models in cycles
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counters()
+    calls, space_calls, space_bytes = (mesh.collective.calls, mesh.collective.space_calls,
+                                       mesh.collective.space_bytes)
+    out["bf16"] = _dp_steps(_spo_cfg(name, 16, batch, **group), images, masks, 2, state=state,
+                            crop=CROP)
+    out["launches"] = _read_counters()
+    out["collectives"] = mesh.collective.calls - calls
+    out["space_collectives"] = mesh.collective.space_calls - space_calls
+    out["space_bytes"] = mesh.collective.space_bytes - space_bytes
+    out["train_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    del images, masks
+    torch.cuda.empty_cache()
+    t2 = time.perf_counter()
+    out["eval"] = _sp_eval(_spo_cfg(name, 16, VAL_BATCH, tta=True, **group), state=state)
+    out["eval_f32"] = _sp_eval(_spo_cfg(name, 32, VAL_BATCH, tta=True, **group),
+                               keep_logits=keep, state=state)
+    del state
+    torch.cuda.empty_cache()
+    out["seconds"] = {"parity": t1 - t0, "bf16": t2 - t1, "evals": time.perf_counter() - t2}
+    return out
+
+
+def _spo_options(keep: bool, **group) -> dict:
+    """Each of SPO_OPTION_RUNS: one float64 step on the stock tail (the
+    gradients kept with ``keep``) with its launches, peak memory and
+    seconds, in or out of a space group."""
+    import torch
+
+    from xview2_tpu_torch.config import Config
+
+    out = {}
+    for tag, kw, crop in SPO_OPTION_RUNS:
+        t0 = time.perf_counter()
+        cfg = Config(**kw, batch_size=SPO_OPTION_BATCH, precision=64, optimizer="adamw", **group)
+        images, masks = _raw_train_batch(SPO_OPTION_BATCH, cfg.in_channels, spread=True)
+        state = seeded_model(cfg, seed=0, device="cuda").state_dict()
+        gc.collect()  # the earlier runs' closures hold their models in cycles
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counters()
+        out[tag] = _dp_steps(cfg, images, masks, 1, keep_grads=keep, state=state, crop=crop)
+        out[tag]["launches"] = _read_counters()
+        out[tag]["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        del state, images, masks
+        torch.cuda.empty_cache()
+        out[tag]["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def _spo_split(work: str) -> str:
+    """The CLIs' own small tree (one step's train tiles, two validation and
+    VAL_BATCH holdout tiles of 1024^2)."""
+    from xview2_tpu_torch.data.synthetic import make_synthetic_split
+
+    root = os.path.join(work, "spo_data")
+    for split, n, seed in (("train", SPO_CLI_BATCH, 31), ("test", 2, 32),
+                           ("holdout", VAL_BATCH, 33)):
+        if not os.path.isdir(os.path.join(root, split)):
+            make_synthetic_split(root, split, n, size=TILE, seed=seed)
+    return root
+
+
+def _spo_cli_argv(work: str, world: int):
+    """The train and eval CLIs' arguments of C on the small tree, with
+    ``--gpus world --spatial_shards 2`` where ``world`` > 1, and their
+    results directories; both evals read the ranks' best checkpoint."""
+    root = _spo_split(work)
+    sharded = ["--gpus", str(world), "--spatial_shards", str(SP_SHARDS)] if world > 1 else []
+    tag = "spo_cli" if world > 1 else "spo_one"
+    train_res, eval_res = (os.path.join(work, f"{tag}_{k}") for k in ("train", "eval"))
+    train = train_cli_argv(root, train_res, SPO_CLI + sharded, batch=SPO_CLI_BATCH, workers=4)
+    best = os.path.join(work, "spo_cli_train", "checkpoints", "best")
+    evaluate = eval_cli_argv(root, eval_res, best, "post", sharded, workers=4)
+    return train, evaluate, train_res, eval_res
+
+
+def _spo_cli(work: str, world: int) -> dict:
+    """``trainer.fit`` then ``trainer.test`` of C's CLIs in this rank of the
+    group (what a rank that ``main`` spawns runs), each with the launch
+    counters from 0.  Returns the launches and the eval's metrics."""
+    from xview2_tpu_torch.config import parse_args
+    from xview2_tpu_torch.train import trainer
+
+    train, evaluate, _, _ = _spo_cli_argv(work, world)
+    t0 = time.perf_counter()
+    cfg = parse_args(train)
+    trainer._check_supported(cfg)
+    _zero_counters()
+    trainer.fit(cfg, device="cuda")
+    out = {"train_launches": _read_counters()}
+    _zero_counters()
+    out["metrics"] = trainer.test(parse_args(evaluate), device="cuda")
+    out["eval_launches"] = _read_counters()
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def _spo_rank(rank: int, world: int, work: str) -> None:
+    """One rank of phase 14 on the one card (gloo, one data row of two
+    bands): C and D (``_spo_runs``), the option runs (``_spo_options``),
+    then C's CLIs (``_spo_cli``); writes ``spo_rank{rank}.pt`` to ``work``."""
+    sys.path.insert(0, ROOT)
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"  # two C ranks, one card
+    import datetime
+
+    import torch
+
+    from xview2_tpu_torch.parallel import mesh
+
+    # a rank that fails frees its partner from a collective within minutes
+    mesh.init_data_parallel(world, rank, backend="gloo", device="cuda:0", space=SP_SHARDS,
+                            init_method=f"file://{os.path.abspath(work)}/spo_rendezvous",
+                            timeout=datetime.timedelta(minutes=3))
+    try:
+        group = dict(gpus=world, spatial_shards=SP_SHARDS)
+        res = {name: _spo_runs(name, work, rank == 0, **group) for name in SPO_CONFIGS}
+        res["options"] = _spo_options(rank == 0, **group)
+        torch.cuda.empty_cache()
+        res["cli"] = _spo_cli(work, world)
+        torch.save(res, os.path.join(work, f"spo_rank{rank}.pt"))
+    finally:
+        mesh.shutdown()
+
+
+def _dumps(root: str) -> list:
+    return sorted(os.path.relpath(p, root) for p in glob.glob(os.path.join(root, "*", "*.*")))
+
+
+def _read_dump(root: str, name: str):
+    import numpy as np
+    from PIL import Image
+
+    path = os.path.join(root, name)
+    if name.endswith(".npy"):
+        return np.load(path)
+    with Image.open(path) as im:
+        return np.asarray(im)
+
+
+def run_spatial_options_path(work: str, c_peak_gib=None) -> dict:
+    """Phase 14: ``--gpus 2 --spatial_shards 2`` with every other option,
+    two ranks on the one card over gloo, one data row of two bands, against
+    one process on the same batches.  Configuration C (ResNeSt-200 ``fused``
+    + CORAL + ``--ppm``: the packed cross-fusion's K2 in band mode at C =
+    256, K4/K5 on its zero-padded cotangent; its residual branches at a
+    fifth) and D (ResNeSt-50 with the attention gates, deep supervision and
+    ``--autoaugment``: K6 on the data row's whole tiles before the bands are
+    cut), each at full width on tiles of spread contrast and brightness: the
+    parity step within PARITY_GATES (the loss, and the gradients' relative
+    L2 over all leaves and at the worst fused-tail leaf; C in float64 at
+    batch 4 of 256^2 crops on the stock tail, D in float32 at 16 of 512^2
+    on the fused tail), the bf16 parameters and buffers bit-equal across
+    the ranks after two steps at the configuration's batch (C 8, D 16),
+    K1-K5 per rank per step as in one process (and K6 as often), each
+    rank's peak memory against one process's, the TTA eval step of
+    VAL_BATCH tiles of 1024^2 with the fused tail: the float32 logits and
+    loss within EVAL_GATES, the bf16 argmax agreement printed.  Then phase
+    10's six option runs and ``--remat none|tail|full`` (ResNet-50,
+    float64, 4 tiles or pairs) within the option runs' gates, with each
+    step's peak memory; then C's train and eval CLIs in the ranks (float32,
+    batch 2, torch's initial weights, the encoder cut to ResNeSt-50)
+    against ``main`` alone: the launches equal per rank, the epoch's val_loss within 1e-2, the eval's class
+    dumps equal on 99.99% of the pixels, the targets equal, the F1 within
+    0.01.  ``c_peak_gib``: C's one-process peak of phase 9, printed beside.
+    Returns the ranks' launch counts, summed, and the numbers."""
+    import multiprocessing
+
+    import numpy as np
+    import torch
+
+    from xview2_tpu_torch.main import main as port_main
+
+    t_phase = time.perf_counter()
+    os.makedirs(work, exist_ok=True)
+    _spo_split(work)
+    for name in SPO_CONFIGS:
+        _spo_state(name, work)
+    torch.cuda.empty_cache()
+    log(f"spatial options phase: the weights {time.perf_counter() - t_phase:.0f} s; this "
+        f"process holds {torch.cuda.memory_reserved() / 2 ** 30:.2f} GiB of the card before the "
+        f"ranks start")
+    # the ranks first: two of C at batch 8 take most of the card
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=_spo_rank, args=(r, SP_WORLD, work)) for r in range(SP_WORLD)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + 900
+    for p in procs:
+        p.join(max(deadline - time.monotonic(), 0.0))
+    hung = [p for p in procs if p.is_alive()]
+    for p in hung:
+        p.kill()
+        p.join(10)
+    codes = [p.exitcode for p in procs]
+    if hung or any(codes):
+        raise AssertionError(f"spatial options job: exit codes {codes}, {len(hung)} hung")
+    wall = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(work, f"spo_rank{r}.pt")) for r in range(SP_WORLD)]
+    t0 = time.perf_counter()
+    one = {name: _spo_runs(name, work, True) for name in SPO_CONFIGS}
+    one["options"] = _spo_options(True)
+    torch.cuda.empty_cache()
+    refs = time.perf_counter() - t0
+
+    def legs(res):
+        return "; ".join([f"{n} parity {res[n]['seconds']['parity']:.0f}, bf16 "
+                          f"{res[n]['seconds']['bf16']:.0f}, evals {res[n]['seconds']['evals']:.0f}"
+                          for n in SPO_CONFIGS]
+                         + [f"option runs {sum(o['seconds'] for o in res['options'].values()):.0f}"]
+                         + ([f"CLIs {res['cli']['seconds']:.0f}"] if "cli" in res else []))
+
+    log(f"spatial options phase, seconds: the two ranks' job {wall:.0f} with process start "
+        f"(rank 0: {legs(ranks[0])}); the one-process references {refs:.0f} ({legs(one)})")
+
+    numbers, failed = {"job_wall_s": wall, "references_s": refs}, []
+
+    def train_gate(got, want, tag, precision, gates):
+        """The parity step of the bands (``got``, rank 0's gradients)
+        against one process's (``want``) within ``gates`` (loss,
+        gradients).  Returns the numbers."""
+        lim_loss, lim_grad = gates
+        names = list(want["grads"])
+        tail = [k for k in names if _kernel_leaf(k)] or names
+        err_all = _rel_l2(got["grads"], want["grads"], names)
+        err_tail = max(_rel_l2(got["grads"], want["grads"], [k]) for k in tail)
+        loss_err = abs(got["losses"][0] - want["losses"][0]) / abs(want["losses"][0])
+        log(f"{tag}: float{precision} step on two bands against one process, loss "
+            f"{got['losses'][0]:.9f} vs {want['losses'][0]:.9f} (relative {loss_err:.3g}, "
+            f"tolerance {lim_loss:g}), gradients relative L2 {err_all:.3g} over all "
+            f"{len(names)} leaves, worst of the {len(tail)} fused-tail leaves {err_tail:.3g} "
+            f"(tolerance {lim_grad:g})")
+        if not (loss_err <= lim_loss and err_all <= lim_grad and err_tail <= lim_grad):
+            failed.append(f"{tag} float{precision} step")
+        return {"parity_precision": precision, "parity_loss_rel_err": loss_err,
+                "parity_grad_rel_l2": err_all, "parity_grad_rel_l2_tail": err_tail}
+
+    for name in SPO_CONFIGS:
+        want, got = one[name], [r[name] for r in ranks]
+        _, batch, _, _, need, residual, (p_prec, p_batch, p_crop) = SPO_CONFIGS[name]
+        row = train_gate(got[0]["parity"], want["parity"],
+                         f"spatial {name} (batch {p_batch} of {p_crop}^2 crops, residual branches "
+                         f"x {residual})", p_prec, PARITY_GATES[name])
+        digests = {g["bf16"]["digest"] for g in got}
+        per_rank = {k: [g["launches"][k] for g in got] for k in want["launches"]}
+        k6 = per_rank["row_shift_cuda"]
+        log(f"spatial {name}, bf16, two steps at batch {batch}: parameters and "
+            f"buffers bit-equal across the ranks: {len(digests) == 1}; losses "
+            f"{[g['bf16']['losses'] for g in got]} (one process {want['bf16']['losses']}); "
+            f"launches per rank {_nonzero(per_rank)} (one process "
+            f"{_nonzero(want['launches'])}; need 2x {need}); collectives per rank per step "
+            f"{[g['collectives'] / 2 for g in got]}, of them halo and space collectives "
+            f"{[g['space_collectives'] / 2 for g in got]} carrying "
+            f"{[round(g['space_bytes'] / 2 / 2 ** 20, 2) for g in got]} MiB from each rank a "
+            f"step; bf16 step ms over gloo on the shared card "
+            f"{[round(g['bf16']['step_ms'][-1], 1) for g in got]} (one process "
+            f"{want['bf16']['step_ms'][-1]:.1f})")
+        if len(digests) != 1:
+            failed.append(f"{name} bf16 ranks differ")
+        for k, n in need.items():
+            if any(c != 2 * n for c in per_rank[k]):
+                failed.append(f"{name} {k} launched {per_rank[k]} times, expected {2 * n}")
+        if name == "D" and not (k6[0] >= 1 and all(c == want["launches"]["row_shift_cuda"]
+                                                   for c in k6)):
+            failed.append(f"D: K6 launched {k6} times on the ranks, "
+                          f"{want['launches']['row_shift_cuda']} in one process")
+        peaks = [g["train_peak_gib"] for g in got]
+        log(f"spatial {name} peak memory (torch.cuda.max_memory_allocated): train, two bf16 "
+            f"steps at batch {batch}, {want['train_peak_gib']:.2f} GiB alone "
+            f"(phase 9's run: {c_peak_gib if name == 'C' else 'n/a'}) against "
+            f"{[round(p, 2) for p in peaks]} GiB per rank at S = 2; TTA eval "
+            f"{want['eval']['peak_gib']:.2f} GiB against "
+            f"{[round(g['eval']['peak_gib'], 2) for g in got]}")
+        agree = [float((g["eval"]["argmax"] == want["eval"]["argmax"]).float().mean())
+                 for g in got]
+        w32, g32 = want["eval_f32"]["logits"], got[0]["eval_f32"]["logits"]
+        f32_rel = float((g32 - w32).norm() / w32.norm())
+        f32_loss = [abs(g["eval_f32"]["loss"] - want["eval_f32"]["loss"])
+                    / abs(want["eval_f32"]["loss"]) for g in got]
+        log(f"spatial {name} TTA eval ({VAL_BATCH} tiles of {TILE}^2, two bands of "
+            f"{TILE // 2} rows, fused tail): float32 whole logits {tuple(g32.shape)} relative "
+            f"L2 {f32_rel:.4g} (tolerance {EVAL_GATES[0]:g}), loss relative "
+            f"{[f'{e:.3g}' for e in f32_loss]} (tolerance {EVAL_GATES[1]:g}); bf16 argmax "
+            f"agreement with one process {agree}; launches "
+            f"{_nonzero(got[0]['eval']['launches'])}, space collectives "
+            f"{[g['eval']['space_collectives'] for g in got]}")
+        if not (f32_rel <= EVAL_GATES[0] and all(e <= EVAL_GATES[1] for e in f32_loss)):
+            failed.append(f"{name} float32 TTA eval")
+        row.update(train_peak_gib_s1=want["train_peak_gib"], train_peak_gib_s2=peaks,
+                   eval_peak_gib_s1=want["eval"]["peak_gib"],
+                   eval_peak_gib_s2=[g["eval"]["peak_gib"] for g in got],
+                   eval_f32_logits_rel_l2=f32_rel, eval_f32_loss_rel_err=f32_loss,
+                   eval_argmax_agreement=agree, launches_per_rank=_nonzero(per_rank),
+                   space_collectives_per_step=[g["space_collectives"] / 2 for g in got],
+                   bf16_step_ms=[g["bf16"]["step_ms"][-1] for g in got])
+        numbers[name] = row
+
+    for tag, _, _ in SPO_OPTION_RUNS:
+        want, got = one["options"][tag], ranks[0]["options"][tag]
+        numbers[tag] = train_gate(got, want, f"spatial option run {tag}", 64,
+                                  PARITY_GATES["options"])
+        numbers[tag].update(peak_gib_s1=want["peak_gib"],
+                            peak_gib_s2=[r["options"][tag]["peak_gib"] for r in ranks])
+        same = [r["options"][tag]["launches"] == want["launches"] for r in ranks]
+        if not all(same):
+            failed.append(f"{tag}: launches {[r['options'][tag]['launches'] for r in ranks]} "
+                          f"against {want['launches']}")
+
+    log("spatial option runs, peak memory of the float64 step (batch "
+        f"{SPO_OPTION_BATCH}): " + "; ".join(
+            f"{tag} {numbers[tag]['peak_gib_s1']:.2f} GiB alone, "
+            f"{[round(p, 2) for p in numbers[tag]['peak_gib_s2']]} per rank"
+            for tag, _, _ in SPO_OPTION_RUNS))
+
+    # C's CLIs: main alone, then the ranks' against it
+    t0 = time.perf_counter()
+    train, evaluate, train_res, eval_res = _spo_cli_argv(work, 1)
+    alone = {}
+    for key, argv in (("train_launches", train), ("eval_launches", evaluate)):
+        _zero_counters()
+        if port_main(argv, device="cuda") != 0:
+            raise AssertionError(f"main({' '.join(argv)}) failed")
+        alone[key] = _read_counters()
+    _, _, r_train, r_eval = _spo_cli_argv(work, SP_WORLD)
+    t_got, t_want = _last_log(r_train), _last_log(train_res)
+    e_got, e_want = _last_log(r_eval), _last_log(eval_res)
+    files = _dumps(r_eval)
+    probs = [f for f in files if f.endswith(".npy")]
+    same_px = min(float((_read_dump(r_eval, f) == _read_dump(eval_res, f)).mean())
+                  for f in probs)
+    dump_diff = max(float(np.abs(_read_dump(r_eval, f) - _read_dump(eval_res, f)).max())
+                    for f in probs)
+    targets_equal = all(np.array_equal(_read_dump(r_eval, f), _read_dump(eval_res, f))
+                        for f in files if f.endswith(".png"))
+    same_launches = [r["cli"]["train_launches"] == alone["train_launches"]
+                     and r["cli"]["eval_launches"] == alone["eval_launches"] for r in ranks]
+    log(f"spatial C CLIs (trainer.fit and trainer.test in the two ranks, {' '.join(SPO_CLI)} "
+        f"--batch_size {SPO_CLI_BATCH}) against main alone ({time.perf_counter() - t0:.0f} s): "
+        f"train epoch {t_got} vs {t_want} "
+        f"(tolerance: val_loss 1e-2 relative); eval of the ranks' best checkpoint {e_got} vs "
+        f"{e_want} (f1 within 0.01), {len(probs)} class dumps and {len(files) - len(probs)} "
+        f"targets, the same files: {files == _dumps(eval_res)}, pixels of equal class at "
+        f"least {same_px:.6f} (tolerance 0.9999), max abs diff {dump_diff:.4g}, targets "
+        f"equal: {targets_equal}; each rank's launches equal to main's: {same_launches} "
+        f"(train {_nonzero(alone['train_launches'])}, eval {_nonzero(alone['eval_launches'])})")
+    if not (abs(t_got["val_loss"] - t_want["val_loss"]) <= 1e-2 * abs(t_want["val_loss"])):
+        failed.append("C train CLI on the bands")
+    if not (len(probs) == VAL_BATCH and files == _dumps(eval_res) and same_px >= 0.9999
+            and targets_equal and abs(e_got["f1"] - e_want["f1"]) <= 0.01
+            and all(r["cli"]["metrics"] == e_got for r in ranks)):
+        failed.append("C eval CLI on the bands")
+    if not all(same_launches):
+        failed.append("C CLIs: a rank's launches differ from main's")
+    numbers["cli"] = dict(train=[t_got, t_want], eval=[e_got, e_want], same_class_px=same_px)
+    numbers["phase_s"] = time.perf_counter() - t_phase
+    log(f"spatial options phase {numbers['phase_s']:.0f} s")
+    if failed:
+        raise AssertionError(f"spatial options phase: {failed}")
+    total = {k: sum(r[n]["launches"][k] + r[n]["eval"]["launches"][k]
+                    + r[n]["eval_f32"]["launches"][k] for n in SPO_CONFIGS for r in ranks)
+             + sum(r["cli"]["train_launches"][k] + r["cli"]["eval_launches"][k] for r in ranks)
+             for k in ranks[0]["C"]["launches"]}
+    return total, numbers
 
 
 # kernel-name fragments -> category of a step's breakdown
@@ -3975,6 +4535,10 @@ def main(argv=None) -> int:
     for kern, row in check_conv_bn_band().items():
         rows[kern].update(row)
     torch.cuda.empty_cache()
+    for kern, row in check_conv_bn_band(FUSION_BAND_CASES, FUSION_BAND_PATHS, fusion_kernel,
+                                        "fusion_band_", seed=600).items():
+        rows[kern].update(row)
+    torch.cuda.empty_cache()
     rows["row_shift"] = check_row_shift()
     rows.update(check_small_conv())
     torch.cuda.empty_cache()
@@ -4027,6 +4591,11 @@ def main(argv=None) -> int:
         launches["spatial"], sp_rows = run_spatial_path(work)
         log(f"spatial shards path done at {time.perf_counter() - t_start:.0f} s; "
             f"{json.dumps(sp_rows)}")
+        torch.cuda.empty_cache()
+        launches["spatial_options"], spo_rows = run_spatial_options_path(
+            work, var_rows.get("C train fused", {}).get("peak_gib"))
+        log(f"spatial shards with every option done at {time.perf_counter() - t_start:.0f} s; "
+            f"{json.dumps(spo_rows)}")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -4057,6 +4626,10 @@ def main(argv=None) -> int:
     # CLIs, and the spatial path's two bands' bf16 train and eval steps), each
     # counted from 0; band_ keys of K2, K4 and K5: a band of the headline's
     # dec_l5 at --spatial_shards 2 (K2 per output row beside the whole map's);
+    # fusion_band_ keys of K2, K4 and K5: C's packed cross-fusion on a band at
+    # --spatial_shards 2 (train, per launch; fusion_band_eval_: K2 at the TTA
+    # eval's band); spatial_options_path_launches: phase 14's two ranks' C and D
+    # bf16 train steps and TTA evals and C's CLIs;
     # ds_train_ keys of K1: D's eight launches per train step; dmg_ keys of K1 and K3: the
     # damage shapes (K1 at n = 4, K3 at C = 256, Co = 16; dmg_train_: per
     # train step); coral_ and mse_ keys: K1 at n = 3 and 1, K3 at Co = 4 with
@@ -4087,6 +4660,7 @@ def main(argv=None) -> int:
                         "recipe_path_launches": launches["recipe"][counter],
                         "data_parallel_path_launches": launches["data_parallel"][counter],
                         "spatial_path_launches": launches["spatial"][counter],
+                        "spatial_options_path_launches": launches["spatial_options"][counter],
                         "max_abs_err": r["max_abs_err"],
                         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"],

@@ -110,22 +110,19 @@ def test_f1_equal(evaluated):
 
 
 def test_train_mode_raises(tmp_path):
-    """Train mode is ported (tests/test_torch_train_cli.py); what it cannot do
-    yet still raises, naming its ROADMAP item, before any data is read or
-    any rank is spawned (the options ``--spatial_shards`` leaves out: the
-    decoder options, the damage variants other than ``siamese``, ``--remat``).
-    The decoder options, ``fused --ppm`` and ``--autoaugment --dec_interp``
-    on pairs among them, the recipe's options (``--remat``, every
-    ``--optimizer``, ``--pretrained_enc``, ``--fold_eval_bn 0``), ``--gpus``
-    and ``--spatial_shards`` (``UNetLoc``, ``siamese``) are ported and pass
-    the same checks."""
+    """Train mode is ported (tests/test_torch_train_cli.py) with every
+    option: the checks that run before any data is read or any rank is
+    spawned let them through.  The decoder options, ``fused --ppm`` and
+    ``--autoaugment --dec_interp`` on pairs among them, the recipe's options
+    (``--remat``, every ``--optimizer``, ``--pretrained_enc``,
+    ``--fold_eval_bn 0``), ``--gpus`` and ``--spatial_shards`` (with the
+    decoder options and the damage variants too) pass."""
     base = ["--exec_mode", "train", "--type", "pre", "--encoder", "resnet50",
             "--results", str(tmp_path)]
     for extra in (["--gpus", "4", "--spatial_shards", "2", "--ppm"],
                   ["--type", "post", "--dmg_model", "fused", "--gpus", "2",
                    "--spatial_shards", "2"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            main(base + extra, device="cpu")
+        assert port_trainer._check_supported(parse_args(base + extra)) is None, extra
     for extra in (["--type", "post", "--dmg_model", "fused", "--ppm"], ["--interpolate"],
                   ["--deep_supervision"], ["--type", "post", "--loss_str", "coral",
                                            "--attention"],

@@ -1,8 +1,9 @@
 """The port stands alone: every ``xview2_tpu_torch`` module and the card
-scripts (``chip_smoke.py``, ``kernel_ab.py``, ``option_gate_spread.py``)
-import with ``jax``, ``flax``, ``optax``, ``orbax``, the JAX package,
-``cv2`` and ``joblib`` blocked (the card's machine has neither of the last
-two), and asking for CUDA without a CUDA device raises."""
+scripts (``chip_smoke.py``, ``kernel_ab.py``, ``option_gate_spread.py``,
+``rounding_witness.py``) import with ``jax``, ``flax``, ``optax``,
+``orbax``, the JAX package, ``cv2`` and ``joblib`` blocked (the card's
+machine has neither of the last two), and asking for CUDA without a CUDA
+device raises."""
 
 import os
 import subprocess
@@ -47,6 +48,7 @@ def test_every_port_module_imports_without_jax():
         import chip_smoke
         import kernel_ab
         import option_gate_spread
+        import rounding_witness
         leaked = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
         assert not leaked, leaked
         print(len(names))
@@ -64,7 +66,8 @@ def test_no_port_source_names_the_jax_stack():
     pat = re.compile(r"^\s*(?:import|from)\s+(jax|jaxlib|flax|optax|orbax|chex|xview2_tpu|cv2|"
                      r"joblib)\b", re.M)
     files = [os.path.join(ROOT, name) for name in ("chip_smoke.py", "kernel_ab.py",
-                                                   "option_gate_spread.py")]
+                                                   "option_gate_spread.py",
+                                                   "rounding_witness.py")]
     for base, _, names in os.walk(os.path.join(ROOT, "xview2_tpu_torch")):
         files += [os.path.join(base, n) for n in names if n.endswith(".py")]
     assert len(files) >= 33
@@ -81,23 +84,20 @@ def test_no_port_source_names_the_jax_stack():
 
 def test_options_left_out_raise_naming_a_roadmap_item():
     """Every option outside the ported slices raises NotImplementedError
-    naming its ROADMAP item, through ``main`` (train and eval) or the train
-    step; none returns numbers.  The decoder options (``--ppm``, ``--aspp``,
-    ``--attention``, ``--deep_supervision``, ``--dec_interp``,
-    ``--interpolate``, alone and together, for ``UNetLoc`` and the damage
-    variants, ``fused --ppm`` among them) and the recipe's options
-    (``--pretrained_enc``, ``--remat``, ``--fold_eval_bn 0``, every
-    ``--optimizer``), ``--gpus`` and ``--spatial_shards`` (``UNetLoc`` and
-    ``siamese``, ``--autoaugment`` and ``--dilation`` among them) are
-    ported: the checks let them through and ``build_model`` builds them.
-    What still raises: the options ``--spatial_shards`` leaves out (the
-    decoder options, the other damage variants, ``--remat``; before
-    ``main`` spawns a rank, in train and in eval mode) and
+    naming its ROADMAP item; none returns numbers.  The decoder options
+    (``--ppm``, ``--aspp``, ``--attention``, ``--deep_supervision``,
+    ``--dec_interp``, ``--interpolate``, alone and together, for ``UNetLoc``
+    and the damage variants, ``fused --ppm`` among them) and the recipe's
+    options (``--pretrained_enc``, ``--remat``, ``--fold_eval_bn 0``, every
+    ``--optimizer``), ``--gpus`` and ``--spatial_shards`` with every option
+    (the decoder options, the eight damage variants, ``--remat``, in train
+    and in eval mode, at ``--gpus 2`` and ``--gpus 4``) are ported: the
+    checks ``main`` runs before it spawns a rank let them through and
+    ``build_model`` builds them.  What still raises:
     ``make_train_multistep``."""
     proc = _run("""
         import torch
-        from xview2_tpu_torch.config import Config
-        from xview2_tpu_torch.main import main
+        from xview2_tpu_torch.config import Config, parse_args
         from xview2_tpu_torch.models.unet import build_model
         from xview2_tpu_torch.parallel import steps
         from xview2_tpu_torch.train import trainer
@@ -110,21 +110,26 @@ def test_options_left_out_raise_naming_a_roadmap_item():
                 return
             raise AssertionError(f"{what} did not raise NotImplementedError")
 
+        raises(lambda: steps.make_train_multistep(None, None, None, 2), "make_train_multistep")
+        # --spatial_shards with every other option, through the CLI's parser
+        # and the checks main runs before it spawns the ranks
         train = ["--exec_mode", "train", "--type", "pre", "--encoder", "resnet50",
                  "--results", "/nonexistent"]
         shards = ["--gpus", "2", "--spatial_shards", "2"]
-        left_out = [["--ppm"], ["--aspp"], ["--attention"], ["--deep_supervision"],
-                    ["--dec_interp"], ["--interpolate"], ["--remat", "tail"],
-                    ["--remat", "full"]]
-        left_out += [["--type", "post", "--dmg_model", m] for m in (
+        options = [["--ppm"], ["--aspp"], ["--attention"], ["--deep_supervision"],
+                   ["--dec_interp"], ["--interpolate"], ["--remat", "tail"],
+                   ["--remat", "full"]]
+        options += [["--type", "post", "--dmg_model", m] for m in (
             "siameseEnc", "fused", "fusedEnc", "parallel", "parallelEnc", "diff", "cat")]
-        cli = [shards + extra for extra in left_out]
-        cli += [["--gpus", "4", "--spatial_shards", "2", "--ppm"]]
-        for extra in cli:
-            raises(lambda: main(train + extra, device="cpu"), extra)
-        evaluate = ["--exec_mode", "eval", "--type", "pre", "--ckpt", "/nonexistent"]
-        raises(lambda: main(evaluate + shards + ["--attention"], device="cpu"), "eval")
-        raises(lambda: steps.make_train_multistep(None, None, None, 2), "make_train_multistep")
+        cli = [train + shards + extra for extra in options]
+        cli += [train + ["--gpus", "4", "--spatial_shards", "2", "--ppm"]]
+        cli += [["--exec_mode", "eval", "--type", "pre", "--ckpt", "/nonexistent"] + shards
+                + ["--attention"]]
+        for argv in cli:
+            cfg = parse_args(argv)
+            assert trainer._check_supported(cfg) is None, argv
+            with torch.device("meta"):
+                build_model(cfg)
         # --autoaugment, on pairs too, the damage variants, the mse and coral
         # heads and the decoder options are ported: the checks let them through
         ported = [dict(autoaugment=True), dict(type="post", autoaugment=True),
@@ -148,13 +153,12 @@ def test_options_left_out_raise_naming_a_roadmap_item():
         for kw in ported:
             cfg = Config(**{"encoder": "resnet50", **kw})
             assert trainer._check_fit_supported(cfg) is None, kw
-            assert steps.check_train_supported(cfg) is None, kw
             with torch.device("meta"):
                 build_model(cfg)
-        print("checked", len(cli) + 2, "raising,", len(ported), "ported")
+        print("checked", 1, "raising,", len(cli) + len(ported), "ported")
     """)
     assert proc.returncode == 0, proc.stderr + proc.stdout
-    assert proc.stdout.split()[-5:] == ["checked", "18", "raising,", "30", "ported"]
+    assert proc.stdout.split()[-5:] == ["checked", "1", "raising,", "47", "ported"]
 
 
 def test_cuda_request_without_a_device_raises():
@@ -189,6 +193,17 @@ def test_option_gate_spread_fails_without_a_card():
         torch.cuda.is_available = lambda: False
         import option_gate_spread
         sys.exit(option_gate_spread.main([]))
+    """)
+    assert proc.returncode == 1
+    assert "readings" not in proc.stdout
+
+
+def test_rounding_witness_fails_without_a_card():
+    proc = _run("""
+        import torch
+        torch.cuda.is_available = lambda: False
+        import rounding_witness
+        sys.exit(rounding_witness.main([]))
     """)
     assert proc.returncode == 1
     assert "readings" not in proc.stdout

@@ -4,6 +4,8 @@
 (a) K2 in band mode (its plain version, ``reference_conv_bn`` through
     ``conv_bn_fused(..., pad_top, pad_bottom)``) at every pair of pads
     against the full-height conv sliced, in float64 (1e-12 of the scale),
+    at 128 -> 128 and at the fused variant's packed cross-fusion (C = 256
+    -> 128, the group-major kernel of two branches, with a fold),
     and against JAX's ``conv_bn_fused`` in Pallas interpret mode on the full
     map, sliced (float32, the JAX kernel test's rtol 1e-5 / atol 1e-4); the
     K4/K5 band path (the cotangent zero-padded to the input's rows) the same
@@ -25,7 +27,7 @@
 (c) a second job of four processes, 2 x 2: the Siamese ResNet-50
     ``--autoaugment`` train step of ``tests/test_spatial.py`` (in float64,
     fused tail) against one process on the global batch;
-(d) the crop rule and the options ``--spatial_shards`` leaves out.
+(d) the crop rule and the eval tiles' rule.
 """
 
 import jax
@@ -38,6 +40,7 @@ import torch_spatial_jobs as jobs
 import xview2_tpu.ops.packed_fused_conv as jpfc
 from torch_jax_variables import jax_train_grads, one_torch_thread, seeded_model  # noqa: F401
 from xview2_tpu_torch.config import Config
+from xview2_tpu_torch.models.layers import group_major_rows, s2d_conv_kernel
 from xview2_tpu_torch.models.unet import build_model
 from xview2_tpu_torch.ops import packed_fused_conv as port
 from xview2_tpu_torch.parallel import mesh, steps
@@ -65,11 +68,19 @@ def _band(pt, pb):
     return (r0, r1), (r0 - 1 + pt, r1 + 1 - pb)
 
 
-def _k2_case(dtype):
+def _k2_case(dtype, kind="c128"):
+    """``c128``: a 128 -> 128 conv; ``cross_fusion``: the fused variant's
+    packed cross-fusion, C = 256 -> 128 through the group-major packed kernel
+    of ``PackedConvLayer(groups=2)`` (a fine (3, 3, 64, 32) kernel), the
+    fold over the concat of both branches' channels."""
     rng = np.random.default_rng(11)
-    c = co = 128
+    c, co = (128, 128) if kind == "c128" else (256, 128)
     x = rng.normal(size=(1, H, 8, c))
-    k = rng.normal(0, 0.1, (3, 3, c, co))
+    if kind == "c128":
+        k = rng.normal(0, 0.1, (3, 3, c, co))
+    else:
+        fine = torch.from_numpy(rng.normal(0, 0.1, (3, 3, 64, 32)))
+        k = group_major_rows(s2d_conv_kernel(fine), 2).numpy()
     fold = (rng.normal(0, 0.5, c), rng.uniform(0.5, 1.5, c), rng.normal(0, 0.5, c))
     g = rng.normal(size=(1, H, 8, co))
     g1, g2 = rng.normal(size=co), rng.normal(0, 0.1, co)
@@ -96,10 +107,24 @@ def _effective(out, g, g1, g2, rows):
 
 @pytest.fixture(scope="module")
 def full_f64():
-    x, k, *rest = _k2_case(np.float64)
-    fold, (g, g1, g2) = rest[:3], rest[3:]
-    (out, s1, s2), _ = _port_vjp(x, k, fold, (np.zeros_like(g), 0 * g1, 0 * g2))
-    return (x, k, fold, g, g1, g2), out
+    """The whole map's case and ``out`` of each kind, made on first use."""
+    cache = {}
+
+    def get(kind):
+        if kind not in cache:
+            x, k, *rest = _k2_case(np.float64, kind)
+            fold, (g, g1, g2) = rest[:3], rest[3:]
+            (out, s1, s2), _ = _port_vjp(x, k, fold, (np.zeros_like(g), 0 * g1, 0 * g2))
+            cache[kind] = (x, k, fold, g, g1, g2), out
+        return cache[kind]
+
+    return get
+
+
+# every pad pair at 128 -> 128, and the cross-fusion's C = 256 -> 128
+BAND_CASES = [("c128", p) for p in PADS] + [("cross_fusion", p) for p in PADS]
+BAND_IDS = [f"{kind}-pad{a}{b}" if kind != "c128" else f"pad{a}{b}"
+            for kind, (a, b) in BAND_CASES]
 
 
 @pytest.fixture(scope="module")
@@ -125,9 +150,9 @@ def jax_full():
         jpfc.INTERPRET = False
 
 
-@pytest.mark.parametrize("pads", PADS, ids=[f"pad{a}{b}" for a, b in PADS])
-def test_band_k2_equals_the_full_height_conv_sliced(full_f64, pads):
-    (x, k, fold, g, g1, g2), out = full_f64
+@pytest.mark.parametrize("kind,pads", BAND_CASES, ids=BAND_IDS)
+def test_band_k2_equals_the_full_height_conv_sliced(full_f64, kind, pads):
+    (x, k, fold, g, g1, g2), out = full_f64(kind)
     rows, (i0, i1) = _band(*pads)
     (bout, bs1, bs2), _ = _port_vjp(x[:, i0:i1], k, fold, (g[:, rows[0]:rows[1]], g1, g2), pads)
     want = out[:, rows[0]:rows[1]]
@@ -136,12 +161,12 @@ def test_band_k2_equals_the_full_height_conv_sliced(full_f64, pads):
     _close(bs2, (want * want).sum(axis=(0, 1, 2)), 1e-12, "s2")
 
 
-@pytest.mark.parametrize("pads", PADS, ids=[f"pad{a}{b}" for a, b in PADS])
-def test_band_k4_k5_equal_the_full_height_vjp(full_f64, pads):
+@pytest.mark.parametrize("kind,pads", BAND_CASES, ids=BAND_IDS)
+def test_band_k4_k5_equal_the_full_height_vjp(full_f64, kind, pads):
     """The band's backward (K4/K5 on the zero-padded cotangent) against the
     whole map's backward under the band's effective cotangent: dx on the
     band's input rows (zero elsewhere), dW and the fold cotangents."""
-    (x, k, fold, g, g1, g2), out = full_f64
+    (x, k, fold, g, g1, g2), out = full_f64(kind)
     rows, (i0, i1) = _band(*pads)
     _, got = _port_vjp(x[:, i0:i1], k, fold, (g[:, rows[0]:rows[1]], g1, g2), pads)
     eff = _effective(out, g, g1, g2, rows)

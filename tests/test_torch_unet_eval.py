@@ -9,7 +9,6 @@ and >= 99% argmax agreement (the two frameworks round bf16 at other
 places)."""
 
 import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -18,6 +17,7 @@ from xview2_tpu.config import Config as JaxConfig
 from xview2_tpu.models.unet import build_model as jax_build_model
 from xview2_tpu.ops.metrics import init_f1_state as jax_init_f1
 from xview2_tpu.parallel.steps import make_eval_step as jax_make_eval_step
+from torch_jax_variables import jax_variables
 from xview2_tpu_torch.config import Config
 from xview2_tpu_torch.models.unet import build_model
 from xview2_tpu_torch.ops.metrics import init_f1_state
@@ -26,28 +26,12 @@ from xview2_tpu_torch.weights import from_flax
 
 
 def perturbed_variables(cfg_kw, seed=0, size=64):
-    """Flax init variables with BN statistics and affines drawn from a numpy
+    """Flax variables from the port's initializers (``jax_variables``: no
+    flax init to trace) with BN statistics and affines drawn from a numpy
     seed and conv kernels scaled so activations stay O(1) through the
     network; the head bias is then set so both classes are predicted."""
-    model = jax_build_model(JaxConfig(**cfg_kw))
-    variables = jax.device_get(jax.jit(model.init, static_argnums=2)(
-        jax.random.PRNGKey(seed), jnp.zeros((1, size, size, 3)), True))
+    variables = jax_variables(cfg_kw, seed=seed)
     rng = np.random.default_rng(seed + 1)
-
-    def draw(path, leaf):
-        key = jax.tree_util.keystr(path)
-        if key.endswith("['kernel']"):
-            return (leaf * 2.2).astype(leaf.dtype)
-        draws = {"['scale']": lambda: rng.uniform(0.5, 1.5, leaf.shape),
-                 "['bias']": lambda: rng.normal(0, 0.1, leaf.shape),
-                 "['mean']": lambda: rng.normal(0, 0.1, leaf.shape),
-                 "['var']": lambda: rng.uniform(0.5, 2.0, leaf.shape)}
-        for suffix, fn in draws.items():
-            if key.endswith(suffix):
-                return fn().astype(leaf.dtype)
-        return leaf
-
-    variables = jax.tree_util.tree_map_with_path(draw, variables)
     # centre the head: channel 1 wins on about half of a probe batch
     port = build_model(Config(**{**cfg_kw, "precision": 32}))
     port.load_state_dict(from_flax(variables["params"], variables["batch_stats"]))
@@ -125,18 +109,15 @@ def test_fused_and_stock_paths_agree_in_the_port():
 
 
 def test_unported_options_raise():
-    """What the eval path cannot do yet raises (an option ``--spatial_shards
-    2`` leaves out, naming the ROADMAP; ``--gpus 2`` and ``--spatial_shards
-    2`` alone are ported); ``--fold_eval_bn 0`` and
-    the decoder options that raised here
-    before they were ported pass the check and build and run, their logits
-    the fine grid at eval, the packed loss view (or the DS list) in train
-    mode."""
+    """Every option of the eval path is ported: ``--gpus 2``,
+    ``--spatial_shards 2`` with a decoder option, ``--fold_eval_bn 0`` and
+    the decoder options that raised here before they were ported pass the
+    check and build and run, their logits the fine grid at eval, the packed
+    loss view (or the DS list) in train mode."""
     from xview2_tpu_torch.train import trainer
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        trainer._check_supported(Config(encoder="resnet50", gpus=2, spatial_shards=2,
-                                        attention=True))
+    assert trainer._check_supported(Config(encoder="resnet50", gpus=2, spatial_shards=2,
+                                           attention=True)) is None
     assert trainer._check_supported(Config(encoder="resnet50", gpus=2)) is None
     assert trainer._check_supported(Config(encoder="resnet50", gpus=2, spatial_shards=2)) is None
     assert trainer._check_supported(Config(encoder="resnet50", fold_eval_bn=False)) is None

@@ -42,8 +42,12 @@ Bessel's factor from the global sums over the global count.  Under
 reads beyond the band from the neighbours (:func:`mesh.halo_rows`) and
 convolves them with no padding in height, the fused chain runs K2 in band
 mode with a one-row halo, and the world sums of BatchNorm and K2 already
-cover the whole images; the 2x2 transposed convs, the 1x1 convs and the
-packed head are local to the band.
+cover the whole images; the 2x2 transposed convs, the 1x1 convs, the
+attention gates and the packed head are local to the band.  A resize
+computes the band's rows of the whole height's resize from the input rows
+they reach (:func:`interpolate_bilinear`), an adaptive pool the whole
+pooled map on every rank of the space group (:func:`adaptive_avg_pool`),
+whose BatchNorm then counts each image once (``replicated``).
 
 JAX counterparts merged here: ``TorchBatchNorm``/``_BNStats``/``_PackedBN``/
 ``_PackedBNSums`` share one variable tree, so they are one class,
@@ -176,11 +180,10 @@ def bn_act(bn: "BatchNorm", x: torch.Tensor, train: bool, act: str,
     local checkpoint under :func:`remat_tail_scope`), the eval fold or,
     outside :func:`fold_eval_bn_scope`, the stock eval normalize.
     ``replicated``: ``x`` is the same on every rank of a space group (a
-    pooled map), see :meth:`BatchNorm._batch_stats`; ``--remat`` does not
-    run under ``--spatial_shards``, so the remat branch never sees it."""
+    pooled map), see :meth:`BatchNorm._batch_stats`."""
     if train:
         if remat_tail and remat_tail_active():
-            return remat_norm_act(x, bn.train_fold(x), act)
+            return remat_norm_act(x, bn.train_fold(x, replicated), act)
         return _activate(bn.normalize_train(x, dtype, replicated), act)
     if _FOLD_EVAL_BN.get():
         return norm_act(x, *bn.fold(), act=act)
@@ -255,19 +258,77 @@ def _separable(x: torch.Tensor, wh: np.ndarray, ww: np.ndarray) -> torch.Tensor:
     return torch.einsum("ow,bhwc->bhoc", ww_t, x)
 
 
-def interpolate_bilinear(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
-    """NHWC bilinear resize with torch's ``align_corners=True`` semantics."""
-    h, w = x.shape[1], x.shape[2]
+def _band_halo(wh: np.ndarray, hb: int, n: int) -> Tuple[int, int]:
+    """The input rows above and below a band of ``hb`` rows that the output
+    rows of any of the ``n`` bands reach through the whole-height (out, in)
+    matrix ``wh``: one extent for every rank, so that one collective of
+    equal shapes fetches them."""
+    ob = wh.shape[0] // n
+    top = bottom = 0
+    for t in range(n):
+        cols = np.flatnonzero(wh[t * ob:(t + 1) * ob].any(axis=0))
+        top = max(top, t * hb - int(cols[0]))
+        bottom = max(bottom, int(cols[-1]) + 1 - (t + 1) * hb)
+    return top, bottom
+
+
+def _resample_band(x: torch.Tensor, wh: np.ndarray, ww: np.ndarray,
+                   whole_in: bool) -> torch.Tensor:
+    """This rank's band of output rows of ``Wh @ X @ Ww^T``, ``Wh`` the
+    matrix of the WHOLE height (JAX computes it on the whole map).  ``x``
+    is this rank's band of ``X`` or, with ``whole_in``, all of ``X`` (a map
+    every rank of the space group holds): the band's rows of ``Wh`` read
+    the input rows their nonzero columns reach, fetched from the neighbours
+    (:func:`mesh.halo_rows`, which gathers the height when they lie deeper
+    than a band), so a position that falls between two bands interpolates
+    across the edge."""
+    n, s = mesh.space_shards(), mesh.space_index()
+    if wh.shape[0] % n:
+        raise ValueError(f"{wh.shape[0]} output rows do not split into {n} bands")
+    ob = wh.shape[0] // n
+    rows = wh[s * ob:(s + 1) * ob]
+    if not whole_in:
+        hb = x.shape[1]
+        top, bottom = _band_halo(wh, hb, n)
+        x = mesh.halo_rows(x, top, bottom, fill=None)
+        lo = max(s * hb - top, 0)
+        rows = rows[:, lo:lo + x.shape[1]]
+    return _separable(x, np.ascontiguousarray(rows), ww)
+
+
+def interpolate_bilinear(x: torch.Tensor, out_hw: Tuple[int, int],
+                         whole_in: bool = False) -> torch.Tensor:
+    """NHWC bilinear resize with torch's ``align_corners=True`` semantics to
+    ``out_hw``, the WHOLE output's size.  Under ``--spatial_shards`` the
+    result is this rank's band of the whole resize, from this rank's band
+    of the input or, with ``whole_in``, from an input every rank of the
+    space group holds whole (PPM's pooled maps)."""
+    n = mesh.space_shards()
+    h, w = x.shape[1] * (1 if whole_in else n), x.shape[2]
     if (h, w) == tuple(out_hw):
-        return x
-    return _separable(x, _align_corners_weights(h, out_hw[0]),
-                      _align_corners_weights(w, out_hw[1]))
+        return mesh.band(x) if whole_in else x
+    wh, ww = _align_corners_weights(h, out_hw[0]), _align_corners_weights(w, out_hw[1])
+    if n == 1:
+        return _separable(x, wh, ww)
+    return _resample_band(x, wh, ww, whole_in)
 
 
 def adaptive_avg_pool(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
-    """NHWC adaptive average pool with torch's window semantics."""
-    return _separable(x, _adaptive_pool_weights(x.shape[1], out_hw[0]),
-                      _adaptive_pool_weights(x.shape[2], out_hw[1]))
+    """NHWC adaptive average pool with torch's window semantics.  Under
+    ``--spatial_shards`` ``x`` is this rank's band and the result the WHOLE
+    pooled map, the same on every rank of the space group: each band's
+    share of the windows' sums (its columns of the whole-height matrix, in
+    ``stat_dtype``), summed over the space group (:func:`mesh.space_sum`)."""
+    n = mesh.space_shards()
+    h = x.shape[1] * n
+    wh = _adaptive_pool_weights(h, out_hw[0])
+    ww = _adaptive_pool_weights(x.shape[2], out_hw[1])
+    if n == 1:
+        return _separable(x, wh, ww)
+    hb, s = x.shape[1], mesh.space_index()
+    part = _separable(x.to(stat_dtype(x.dtype)),
+                      np.ascontiguousarray(wh[:, s * hb:(s + 1) * hb]), ww)
+    return mesh.space_sum(part).to(x.dtype)
 
 
 class BatchNorm(nn.Module):
@@ -353,10 +414,10 @@ class BatchNorm(nn.Module):
         y = (xf - self.running_mean) * (torch.rsqrt(self.running_var + BN_EPS) * self.weight)
         return (y + self.bias).to(dtype)
 
-    def train_fold(self, x: torch.Tensor) -> Fold:
+    def train_fold(self, x: torch.Tensor, replicated: bool = False) -> Fold:
         """The batch statistics of :meth:`normalize_train` as a fold (JAX
         ``_BNStats`` in train mode, for ``--remat tail``)."""
-        mean, var = self._batch_stats(x.to(stat_dtype(x.dtype)))
+        mean, var = self._batch_stats(x.to(stat_dtype(x.dtype)), replicated)
         return self._fold(mean, var, 1)
 
     def _packed_stats(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -622,7 +683,7 @@ class UpsampleBlock(nn.Module):
             return self.conv_block(_convt_matmul(x, ct.weight, ct.dtype), train)
         if self.dec_interp:
             out = conv_bias_nhwc(x, self.conv, self.dtype, padding=1)
-            out = interpolate_bilinear(out, (2 * out.shape[1], 2 * out.shape[2]))
+            out = interpolate_bilinear(out, (2 * global_shape(out)[1], 2 * out.shape[2]))
         else:
             out = self.conv_transpose(x)
         if not self.skip_channels:
@@ -652,13 +713,15 @@ class PPM(nn.Module):
         self.fuse = nn.Conv2d(2 * in_features, in_features, 1, bias=True)
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-        h, w = x.shape[1], x.shape[2]
+        _, h, w, _ = global_shape(x)
         feats = [x]
         for i, b in enumerate(self.BINS):
+            # under --spatial_shards the pooled map is whole on every rank of
+            # the space group: its BatchNorm counts each image once
             f = conv_nhwc(adaptive_avg_pool(x, (b, b)).to(self.dtype),
                           getattr(self, f"reduce{i}").weight)
-            f = bn_act(getattr(self, f"bn{i}"), f, train, "leaky", self.dtype)
-            feats.append(interpolate_bilinear(f, (h, w)))
+            f = bn_act(getattr(self, f"bn{i}"), f, train, "leaky", self.dtype, replicated=True)
+            feats.append(interpolate_bilinear(f, (h, w), whole_in=True))
         return conv_bias_nhwc(torch.cat(feats, dim=-1), self.fuse, self.dtype)
 
 
@@ -871,7 +934,7 @@ class FusionBlock(nn.Module):
             fused, outstanding = fused_tail_state()
             raw_in = fmap.raw if isinstance(fmap, DeferredFold) else fmap
             if fused and not remat_tail_active() and \
-                    supported(tuple(raw_in.shape), 4 * self.features):
+                    supported(global_shape(raw_in), 4 * self.features):
                 raw_in, fold_in = consume_fold(fmap)
                 has_fold = fold_in is not None
                 if fold_in is None:

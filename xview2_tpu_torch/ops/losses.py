@@ -228,12 +228,19 @@ def deep_supervision_loss(loss_fn: Callable[..., torch.Tensor], outputs: Sequenc
     ``main_labels``: the labels of ``outputs[0]`` when it comes in another
     pixel arrangement than the fine ``labels`` (the packed loss view); the
     DS heads always read downsamplings of the fine ``labels``, torch's
-    nearest rule ``src = floor(dst * in / out)``."""
+    nearest rule ``src = floor(dst * in / out)``.  Under ``--spatial_shards``
+    the outputs and the labels are this rank's bands and the rule runs on
+    the whole height's rows; every source row must then lie in the band."""
     total = loss_fn(outputs[0], labels if main_labels is None else main_labels)
+    n, s = mesh.space_shards(), mesh.space_index()
     h0, w0 = labels.shape[1], labels.shape[2]
     for i, out in enumerate(outputs[1:]):
         h, w = out.shape[1], out.shape[2]
-        iy = torch.floor(torch.arange(h, device=labels.device) * (h0 / h)).to(torch.int64)
+        dst = torch.arange(s * h, (s + 1) * h, device=labels.device)
+        iy = torch.floor(dst * (h0 / h)).to(torch.int64) - s * h0
+        if n > 1 and not (int(iy.min()) >= 0 and int(iy.max()) < h0):
+            raise ValueError(f"deep supervision: the labels of band {s} of a {n * h}-row head "
+                             f"lie outside the band's {h0} rows of {n * h0}")
         ix = torch.floor(torch.arange(w, device=labels.device) * (w0 / w)).to(torch.int64)
         total = total + (0.5 ** (i + 1)) * loss_fn(out, labels[:, iy][:, :, ix])
     return (1.0 / (2.0 - 2.0 ** (-len(outputs)))) * total

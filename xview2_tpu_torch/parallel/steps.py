@@ -37,11 +37,16 @@ sends a collective.
 ``--spatial_shards S`` (``parallel/mesh.py``): the S ranks of a data row
 load, draw and augment the same samples (JAX's augmentation runs unmapped
 over ``space``), and each keeps its band of the rows of the crops and
-labels; the model runs on the band (halo exchanges in the convolutions and
-pools), and the losses and F1 counts sum over the world as before.  The
-eval step feeds each rank band s of the image and of its three flips; the
-flips of the height come back from the mirror band, gathered over the
-space group.
+labels; the model runs on the band (halo exchanges in the convolutions,
+pools and resizes, the pyramid pools summed over the space group), and the
+losses and F1 counts sum over the world as before.  Every model option
+runs there.  The eval step feeds each rank band s of the image and of its
+three flips; the flips of the height come back from the mirror band,
+gathered over the space group.  Under ``--remat dots|full`` the
+recomputation repeats every collective of the forward (the halos, the
+pools' space sums, BatchNorm's global sums, the replayed K2 sums'
+all-reduce) in the forward's order, the same on every rank, since every
+rank recomputes the same program.
 """
 
 from __future__ import annotations
@@ -108,7 +113,6 @@ def make_eval_step(cfg: Config, model, device="cuda"):
     returns ``(f1_state, loss, logits)``; the logits are f32 NHWC, this
     rank's band of rows under ``--spatial_shards``."""
     dev = resolve_device(device)
-    check_spatial_supported(cfg)
     loss_fn = make_loss_fn(cfg.loss_str, cfg.type)
     n_class = cfg.n_metric_class
     defer = fused_head_defer_ok(cfg)
@@ -159,38 +163,12 @@ def step_generator(cfg: Config, global_step: int, device) -> torch.Generator:
     return gen
 
 
-SPATIAL_ITEM = "ROADMAP Queue 1, --spatial_shards with the other options"
-
-
-def check_spatial_supported(cfg: Config) -> None:
-    """Raise for every option that ``--spatial_shards`` does not hold yet:
-    the decoder options (their resizes and adaptive pools read the whole
-    height), the damage variants other than ``siamese`` and ``--remat``
-    other than ``none``.  A no-op without a space split."""
-    if cfg.spatial_shards == 1:
-        return
-    left_out = [f"--{k}" for k in ("ppm", "aspp", "attention", "deep_supervision",
-                                   "dec_interp", "interpolate") if getattr(cfg, k)]
-    if cfg.type == "post" and cfg.dmg_model != "siamese":
-        left_out.append(f"--dmg_model {cfg.dmg_model}")
-    if cfg.remat != "none":
-        left_out.append(f"--remat {cfg.remat}")
-    if left_out:
-        raise NotImplementedError(f"{' '.join(left_out)} under --spatial_shards is not "
-                                  f"ported yet ({SPATIAL_ITEM})")
-
-
 def check_band_height(height: int, spatial_shards: int, what: str) -> None:
     """Raise unless every band of the deepest (/32) map holds whole rows:
     ``height`` divisible by ``32 * spatial_shards``."""
     if spatial_shards > 1 and height % (32 * spatial_shards):
         raise ValueError(f"{what} height {height} is not divisible by 32 * --spatial_shards "
                          f"= {32 * spatial_shards}")
-
-
-def check_train_supported(cfg: Config) -> None:
-    """Raise for every train-step option outside the ported slices."""
-    check_spatial_supported(cfg)
 
 
 def forward_loss(cfg: Config, model, loss_fn, x: torch.Tensor, y_main: torch.Tensor,
@@ -253,7 +231,6 @@ def make_train_step(cfg: Config, model, opt: torch.optim.Optimizer, crop: int = 
     ``--spatial_shards`` the tiles are the data row's and each rank trains
     on its band of the crops."""
     dev = resolve_device(device)
-    check_train_supported(cfg)
     loss_fn = make_loss_fn(cfg.loss_str, cfg.type)
     packed_view = emits_packed_loss_view(cfg)
     lr = cfg.lr if learning_rate is None else learning_rate

@@ -48,10 +48,9 @@ from xview2_tpu_torch.ops.losses import make_loss_fn
 from xview2_tpu_torch.ops.metrics import compute_f1, init_f1_state
 from xview2_tpu_torch.parallel import checkpoint as ckpt_lib
 from xview2_tpu_torch.parallel import mesh
-from xview2_tpu_torch.parallel.steps import (TrainState, check_band_height,
-                                             check_spatial_supported, check_train_supported,
-                                             init_train_state, make_eval_step,
-                                             make_train_step, resolve_device, step_generator)
+from xview2_tpu_torch.parallel.steps import (TrainState, check_band_height, init_train_state,
+                                             make_eval_step, make_train_step, resolve_device,
+                                             step_generator)
 from xview2_tpu_torch.parallel.transplant import transplant_encoder
 from xview2_tpu_torch.train.logging import MetricsLogger, epoch_metrics, test_metrics
 from xview2_tpu_torch.train.optimizers import build_optimizer, check_optimizer
@@ -184,13 +183,11 @@ class Runner:
 
 
 def _check_fit_supported(cfg: Config) -> None:
-    """Raise for every option outside the ported slice BEFORE touching the
-    data: the encoder, the loss terms, the optimizer and the train-step
-    options."""
+    """Raise for a train option the port cannot run BEFORE touching the
+    data: an unknown encoder, loss term or optimizer."""
     encoder_channels(cfg.encoder)
     make_loss_fn(cfg.loss_str, cfg.type)
     check_optimizer(cfg)
-    check_train_supported(cfg)
 
 
 def _say(msg: str) -> None:
@@ -312,19 +309,13 @@ def _first_tile_height(split_dir: str):
 
 
 def _check_supported(cfg: Config) -> None:
-    """Raise for a run option outside the ported slices, before any rank
-    starts: for training everything :func:`_check_fit_supported` checks;
-    under ``--spatial_shards`` the options it does not hold and the eval
-    tiles' height (the validation split's in train mode, the holdout's in
-    eval mode; ``Config`` checks the train crop)."""
+    """Raise for a run the port cannot do, before any rank starts: for
+    training everything :func:`_check_fit_supported` checks; under
+    ``--spatial_shards`` the eval tiles' height (the validation split's in
+    train mode, the holdout's in eval mode; ``Config`` checks the train
+    crop)."""
     if cfg.exec_mode == "train":
         _check_fit_supported(cfg)
-    elif cfg.spatial_shards > 1 and ckpt_lib.checkpoint_exists(cfg.ckpt):
-        # the model's options are the checkpoint's
-        check_spatial_supported(ckpt_lib.load_config(cfg.ckpt).replace(
-            spatial_shards=cfg.spatial_shards, gpus=cfg.gpus, train_crop=cfg.train_crop,
-            remat="none"))
-    check_spatial_supported(cfg)
     if cfg.spatial_shards > 1 and cfg.data:
         split = "test" if cfg.exec_mode == "train" else "holdout"
         height = _first_tile_height(os.path.join(cfg.data, split))
