@@ -45,8 +45,9 @@ Phases, each of which fails the script (non-zero exit, no result line):
    just before and read just after (K6 and K1-K5); the AutoAugment chain on
    the card against the CPU on the same draws at full size; then the
    AutoAugment train step's steady state beside the plain-augmentation step;
-8. the damage path, the README's pipeline at the CLI's defaults (ResNeSt-200
-   at full width and depth, torch's initializers): A, ``main([--exec_mode
+8. the damage path, the README's pipeline at the CLI's defaults (full width,
+   the CLIs' encoder cut to ResNeSt-50 depth, torch's initializers; the steps
+   and evals below at ResNeSt-200): A, ``main([--exec_mode
    train --type pre --fused_tail 1 ...])`` at batch 16; B, ``main([...
    --type post --dmg_model siamese --ckpt_pre <A's best> --loss_str
    ohem+dice ...])`` at batch 8 (K2, K4 and K5 twice per step, once per
@@ -60,7 +61,7 @@ Phases, each of which fails the script (non-zero exit, no result line):
    plain versions;
 9. the damage variants path (reusing A's best checkpoint): configuration C,
    ``main([... --type post --dmg_model fused --loss_str coral --ckpt_pre <A's
-   best> ...])`` at batch 8 (ResNeSt-200 at full width and depth; K2, K4 and
+   best> ...])`` at batch 8 (full width, ResNeSt-50 depth; K2, K4 and
    K5 14 times per step: both branches' tails and the packed cross-fusion;
    K3 at C = 256, Co = 4), its transplant watched (every
    ``enc_fusion_i.pre_layer``/``.post_layer`` tensor equal to A's
@@ -90,7 +91,7 @@ Phases, each of which fails the script (non-zero exit, no result line):
    float32 eval step against the CPU.  Configuration C of phase 9 runs
    with ``--ppm``, config 4 as written (its tree held equal without it).
    Phase 3 also holds K1 at D's eight train launches;
-11. the recipe and score path: A from ``--pretrained_enc`` (a ResNeSt-200
+11. the recipe and score path: A from ``--pretrained_enc`` (a ResNeSt-50
    release state dict drawn from a seed, converted by the port's converter;
    ``main([... --exec_mode train --pretrained_enc ...])`` at batch 16 with
    every grafted tensor held EQUAL to the ``.npz`` and the counters from 0),
@@ -157,13 +158,31 @@ Phases, each of which fails the script (non-zero exit, no result line):
    their plain versions (K2 bit-equal to the whole-height K2's rows) and
    times them beside cuDNN and the bound (``check_conv_bn_band`` with the
    cross-fusion's cases);
-15. one JSON line listing every kernel, then the ``nvidia-smi`` line, then
+15. the multistep path (``make_train_multistep``, K train steps as one CUDA
+   graph): the headline ResNet-50 UNetLoc at batch 16 of 512^2 crops of
+   1024^2 tiles, AdamW, K = 2: on the stock tail under cuDNN's deterministic
+   algorithms two eager runs of 2K steps, and the graph (its first call eager
+   and captured, its second replayed) EQUAL to them where they are EQUAL
+   (losses, parameters, BatchNorm buffers, optimizer moments), the same under
+   a one-rank NCCL group and on a small ``cat`` + CORAL + ``--ppm`` model; the
+   fused tail in float32 with SGD within the loss and update gates (K4's
+   atomics);
+   ``--autoaugment`` and a gloo group refused; the readings (no gate) of the
+   headline and of A (ResNeSt-200, batch 16): the eager step against the
+   graph's per-step time by CUDA events over three replays, the profiler's
+   idle share of each, the peak memory, and one profiled replay's kernels
+   (K2, K4, K5 6K times, K3 K, K1 3K); ``--einsum_1x1`` on the headline's
+   bf16 TTA eval step (the bf16 gates) and float32 eval (1e-5), both step
+   times; the native decoder against PIL on the synthetic tiles (EQUAL, the
+   decode rates), or, where it cannot be built, the reason and PIL's batches;
+16. one JSON line listing every kernel, then the ``nvidia-smi`` line, then
    ``{"ok": true, "device": {...}}`` as the last line.
 """
 
 from __future__ import annotations
 
 import argparse
+import copy
 import gc
 import glob
 import json
@@ -173,6 +192,7 @@ import shutil
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 TILE = 1024
@@ -184,12 +204,31 @@ TRAIN_VAL_TILES = 4
 CROP = 512
 DMG_A_BATCH = 16   # configuration A: ResNeSt-200 UNetLoc, the CLI's defaults
 DMG_BATCH = 8      # configuration B: ResNeSt-200 Siamese, BASELINE's batch for the pair
+# the encoder of the A, B and C CLIs (phases 8, 9, 11) and of A's --pretrained_enc: a
+# CLI's plumbing (index, loaders, transplant or graft, checkpoints, dumps) does not
+# depend on the encoder's depth; the steps and evals of A, B and C stay at ResNeSt-200
+CLI_ENCODER = ["--encoder", "resnest50"]
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # dense tensor core bf16; f32 without TF32
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def leg(fn):
+    """Log the wall seconds of each call of ``fn`` (a leg of a phase)."""
+    import functools
+
+    @functools.wraps(fn)
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            log(f"leg {fn.__name__}: {time.perf_counter() - t0:.1f} s")
+
+    return timed
 
 
 def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
@@ -1522,6 +1561,14 @@ def check_small_conv():
 
 # --------------------------------------------------------------- main path
 
+# the weights of the last few seeded models (see seeded_model), on the host
+_SEEDED: dict = {}
+_SEEDED_KEPT = 64
+# knobs of a configuration that leave its parameter tree and initial draws alone
+_COMPUTE_ONLY = dict(fused_tail=False, tta=False, batch_size=16, optimizer="adamw", remat="none",
+                     einsum_1x1=False, fold_eval_bn=True, gpus=1, spatial_shards=1)
+
+
 def seeded_model(cfg, seed: int, kernel_scale: float = 2.2, device: str = "cpu"):
     """The port's model with random weights from ``seed``: torch's default
     conv init scaled by ``kernel_scale`` so activations stay O(1) (1.9 for
@@ -1532,11 +1579,29 @@ def seeded_model(cfg, seed: int, kernel_scale: float = 2.2, device: str = "cpu")
     make the logits' argmax a coin toss between two equal channels.
     ``device``: where the model is built and initialized (the card builds
     ResNeSt-200's 385 M parameters in a fraction of the host's time; the
-    draws differ from the host's, the same in every process)."""
+    draws differ from the host's, the same in every process).  A call that
+    repeats one of the last few (the same tree, seed, scale and device; the
+    compute knobs of _COMPUTE_ONLY may differ) builds the model on the meta
+    device, loads those weights and leaves torch's generators as the first
+    call left them: the same model, without initializing it again."""
     import torch
 
     from xview2_tpu_torch.models.unet import build_model
 
+    key = (cfg.replace(**_COMPUTE_ONLY).to_json(), seed, kernel_scale, str(device))
+    hit = _SEEDED.pop(key, None)
+    if hit is not None:
+        _SEEDED[key] = hit
+        state, cpu_rng, cuda_rng = hit
+        torch.manual_seed(seed)
+        torch.set_rng_state(cpu_rng)
+        if cuda_rng is not None:
+            torch.cuda.set_rng_state_all(cuda_rng)
+        with torch.device("meta"):
+            model = build_model(cfg)
+        model = model.to_empty(device=device)
+        model.load_state_dict(state)
+        return model
     torch.manual_seed(seed)
     with torch.device(device):
         model = build_model(cfg)
@@ -1553,6 +1618,11 @@ def seeded_model(cfg, seed: int, kernel_scale: float = 2.2, device: str = "cpu")
                 t.copy_(torch.rand(t.shape, generator=gen) + 0.5)
             elif name.endswith("weight"):
                 t.mul_(kernel_scale)
+    while len(_SEEDED) >= _SEEDED_KEPT:
+        _SEEDED.pop(next(iter(_SEEDED)))
+    _SEEDED[key] = ({k: v.detach().to("cpu", copy=True) for k, v in model.state_dict().items()},
+                    torch.get_rng_state(),
+                    torch.cuda.get_rng_state_all() if torch.cuda.is_available() else None)
     return model
 
 
@@ -1581,6 +1651,7 @@ def _need_launches(launches: dict, need: dict, path: str) -> None:
                                  f"expected >= {n}")
 
 
+@leg
 def _time_eval_step(cfg, model, channels: int, profile: bool, tag: str) -> dict:
     """Steady state of the eval step of ``cfg`` (4-flip TTA) on a
     device-resident batch of VAL_BATCH raw tiles: CUDA events over 3 steps
@@ -1740,6 +1811,7 @@ def eval_cli_argv(work: str, results: str, ckpt: str, task: str, extra_argv=(),
             "--eval_tta", "on"] + list(extra_argv)
 
 
+@leg
 def _drive_train_cli(work: str, results_name: str, extra_argv, need_total: dict, tag: str,
                      batch: int = TRAIN_BATCH, need_per_step: dict = None):
     """``main([--exec_mode train ...])`` on the synthetic train split with the
@@ -1780,15 +1852,17 @@ def _drive_train_cli(work: str, results_name: str, extra_argv, need_total: dict,
     if not (math.isfinite(metrics["val_loss"]) and metrics["imgs_per_sec"] > 0):
         raise AssertionError(f"validation loss is not finite: {metrics}")
     cfg = ckpt_lib.load_config(os.path.join(results, "checkpoints", "last"))
-    fresh = initial_model(cfg).state_dict()
+    model = initial_model(cfg)
+    fresh = {k: v.clone() for k, v in model.state_dict().items()}
     for name in ("best", "last"):
         path = os.path.join(results, "checkpoints", name)
         if not ckpt_lib.checkpoint_exists(path):
             raise AssertionError(f"no {name} checkpoint at {path}")
-        payload, meta = ckpt_lib.restore_raw(path)
+        payload, meta = ckpt_lib.restore_raw(path, ("params", "batch_stats", "train"))
         trained = from_flax(payload["params"], payload["batch_stats"])
-        initial_model(cfg).load_state_dict(trained, strict=True)  # it reloads
-        if int(payload["train"]["step"]) != steps or "opt_state" not in payload:
+        model.load_state_dict(trained, strict=True)  # it reloads
+        if (int(payload["train"]["step"]) != steps
+                or "opt_state" not in ckpt_lib.stored_trees(path)):
             raise AssertionError(f"{name}: step {payload['train']['step']}, expected {steps}, "
                                  "with optimizer state")
         moved = [k for k, v in trained.items() if not torch.equal(v, fresh[k])]
@@ -1831,6 +1905,7 @@ def _raw_train_batch(batch: int = TRAIN_BATCH, channels: int = 3, spread: bool =
     return images.cuda(), masks.cuda()
 
 
+@leg
 def _time_train_step(cfg, images, masks, profile: bool, tag: str,
                      kernel_scale: float = 2.2) -> dict:
     """Steady state of the train step of ``cfg`` on a device-resident batch:
@@ -1954,8 +2029,8 @@ def write_splits(work: str) -> None:
 
 
 def run_damage_path(work: str, profile: bool):
-    """The README's pipeline at the CLI's defaults (ResNeSt-200, full width
-    and depth, torch's initializers from --seed): A, ``main([--exec_mode
+    """The README's pipeline at the CLI's defaults, the encoder cut to
+    CLI_ENCODER's depth (torch's initializers from --seed): A, ``main([--exec_mode
     train --type pre --fused_tail 1])`` at batch DMG_A_BATCH; B, ``main([...
     --type post --dmg_model siamese --ckpt_pre <A's best> --loss_str
     ohem+dice --fused_tail 1])`` at batch DMG_BATCH; then ``main([--exec_mode
@@ -1979,11 +2054,12 @@ def run_damage_path(work: str, profile: bool):
     write_splits(work)
     launches = {}
     res_a, res_b = os.path.join(work, "dmg_a"), os.path.join(work, "dmg_b")
-    launches["A train"] = _drive_train_cli(work, "dmg_a", [], {}, "A (ResNeSt-200 UNetLoc) train",
+    launches["A train"] = _drive_train_cli(work, "dmg_a", CLI_ENCODER, {},
+                                           "A (UNetLoc, the CLI cut to ResNeSt-50 depth) train",
                                            batch=DMG_A_BATCH)
     torch.cuda.empty_cache()
     a_best = os.path.join(res_a, "checkpoints", "best")
-    payload, _ = ckpt_lib.restore_raw(a_best)
+    payload, _ = ckpt_lib.restore_raw(a_best, ("params", "batch_stats"))
     loc = from_flax(payload["params"], payload["batch_stats"])
     shutil.rmtree(os.path.join(res_a, "checkpoints", "last"))
 
@@ -2001,8 +2077,8 @@ def run_damage_path(work: str, profile: bool):
     try:
         launches["B train"] = _drive_train_cli(
             work, "dmg_b", ["--type", "post", "--dmg_model", "siamese", "--ckpt_pre", a_best,
-                            "--loss_str", "ohem+dice"],
-            {}, "B (ResNeSt-200 Siamese, --ckpt_pre A) train", batch=DMG_BATCH,
+                            "--loss_str", "ohem+dice"] + CLI_ENCODER,
+            {}, "B (Siamese at ResNeSt-50 depth, --ckpt_pre A) train", batch=DMG_BATCH,
             need_per_step=DMG_NEED)
     finally:
         trainer.transplant_encoder = real_transplant
@@ -2118,11 +2194,11 @@ VARIANT_CROP = 256
 
 def run_dmg_variants_path(work: str, profile: bool):
     """Configuration C, BASELINE's config 4 as written, through the CLI at
-    full width and depth: ``main([--exec_mode train --type post --dmg_model
-    fused --loss_str coral --ppm --fused_tail 1 --batch_size 8 --ckpt_pre
-    <A's best>])`` (the CLI's default encoder, ResNeSt-200; the fused
-    variant ignores ``--ppm``, as JAX's does: its tree is held equal with
-    and without it), its transplant
+    full width, the encoder cut to CLI_ENCODER's depth: ``main([--exec_mode
+    train --type post --dmg_model fused --loss_str coral --ppm --fused_tail 1
+    --batch_size 8 --ckpt_pre <A's best>])`` (the fused variant ignores
+    ``--ppm``, as JAX's does: its tree is held equal with and without it),
+    its transplant
     watched (every ``enc_fusion_i.pre_layer`` and ``.post_layer`` tensor
     equal to A's ``unet.enc_l{i+1}``), then ``main([--exec_mode eval ...
     --eval_tta on --eval_fused_tail on])`` on C's best with its CORAL dumps
@@ -2160,7 +2236,7 @@ def run_dmg_variants_path(work: str, profile: bool):
         raise AssertionError("C's parameter tree changes with --ppm")
     log(f"C's tree with and without --ppm: the same {len(trees[0])} tensors, names and shapes")
     a_best = os.path.join(work, "dmg_a", "checkpoints", "best")
-    payload, _ = ckpt_lib.restore_raw(a_best)
+    payload, _ = ckpt_lib.restore_raw(a_best, ("params", "batch_stats"))
     loc = from_flax(payload["params"], payload["batch_stats"])
     del payload
     launches, rows, seen = {}, {}, {}
@@ -2178,8 +2254,8 @@ def run_dmg_variants_path(work: str, profile: bool):
     try:
         launches["C train"] = _drive_train_cli(
             work, "dmg_c", ["--type", "post", "--dmg_model", "fused", "--loss_str", "coral",
-                            "--ppm", "--ckpt_pre", a_best],
-            {}, "C (ResNeSt-200 fused + CORAL, --ckpt_pre A) train", batch=C_BATCH,
+                            "--ppm", "--ckpt_pre", a_best] + CLI_ENCODER,
+            {}, "C (fused + CORAL at ResNeSt-50 depth, --ckpt_pre A) train", batch=C_BATCH,
             need_per_step=C_NEED)
     finally:
         trainer.transplant_encoder = real_transplant
@@ -2679,6 +2755,7 @@ def release_encoder_pth(arch: str, path: str, seed: int) -> int:
     return len(sd)
 
 
+@leg
 def _eval_cli(work: str, results: str, ckpt: str, task: str, need: dict, tag: str) -> dict:
     """``main([--exec_mode eval --eval_tta on ...])`` on the holdout split with
     the counters from 0; its dumps are checked.  Returns the launch counts."""
@@ -2708,6 +2785,7 @@ def _eval_cli(work: str, results: str, ckpt: str, task: str, need: dict, tag: st
     return got
 
 
+@leg
 def check_optimizers_on_card(names=RECIPE_OPTIMIZERS + ("adamw",), dev: str = "cuda") -> dict:
     """Each optimizer's float32 update of the ResNet-50 UNetLoc's parameters
     on the card against the CPU's, from the same two gradients (seeded, of
@@ -2755,6 +2833,7 @@ def check_optimizers_on_card(names=RECIPE_OPTIMIZERS + ("adamw",), dev: str = "c
     return rows
 
 
+@leg
 def check_remat_running_stats(dev: str = "cuda") -> str:
     """float32 (TF32 off), ResNet-50 UNetLoc, 4 crops of 256^2, the fused
     tail through the f32 kernels: one forward, loss and backward under each
@@ -2822,6 +2901,7 @@ def check_remat_running_stats(dev: str = "cuda") -> str:
     return msg
 
 
+@leg
 def check_fold_eval_bn(cfg, tag: str, profile: bool) -> dict:
     """``--fold_eval_bn 0`` against the fold on one seeded model of ``cfg``
     (TTA, fused tail) and the eval step's batch: both bfloat16 steps by CUDA
@@ -2909,6 +2989,7 @@ def synthetic_labels(root: str, split: str, n: int, seed: int, size: int = TILE)
     return root
 
 
+@leg
 def run_score_chain(work: str) -> dict:
     """The offline chain on the card's own eval dumps: A's localization dumps
     (``recipe_a``) with B's damage dumps (``dmg_b``) and with C's CORAL class
@@ -2972,7 +3053,7 @@ def run_score_chain(work: str) -> dict:
 
 def run_recipe_path(work: str, profile: bool, c_peak_gib=None):
     """The reference's recipe and its score.  A from a converted
-    ``--pretrained_enc``: a ResNeSt-200 release state dict from a seed,
+    ``--pretrained_enc``: a release state dict of CLI_ENCODER's depth from a seed,
     converted by ``python -m xview2_tpu_torch.models.convert_weights``'s
     ``main``, then ``main([--exec_mode train --pretrained_enc ...])`` at batch
     DMG_A_BATCH with every grafted tensor held EQUAL to the ``.npz`` (the
@@ -2993,13 +3074,14 @@ def run_recipe_path(work: str, profile: bool, c_peak_gib=None):
 
     write_splits(work)
     launches, rows = {}, {}
-    pth, npz = os.path.join(work, "resnest200.pth"), os.path.join(work, "resnest200.npz")
+    arch = CLI_ENCODER[1]
+    pth, npz = os.path.join(work, f"{arch}.pth"), os.path.join(work, f"{arch}.npz")
     t0 = time.perf_counter()
-    n_release = release_encoder_pth("resnest200", pth, seed=5)
-    if convert_main(["--arch", "resnest200", "--pth", pth, "--out", npz]) != 0:
+    n_release = release_encoder_pth(arch, pth, seed=5)
+    if convert_main(["--arch", arch, "--pth", pth, "--out", npz]) != 0:
         raise AssertionError("the converter failed")
     want = encoder_state(npz)
-    log(f"recipe: a ResNeSt-200 release state dict of {n_release} tensors from a seed, "
+    log(f"recipe: a {arch} release state dict of {n_release} tensors from a seed, "
         f"converted in {time.perf_counter() - t0:.1f} s to {len(want)} encoder tensors")
     seen = {}
     real = trainer.apply_pretrained_encoder
@@ -3014,8 +3096,8 @@ def run_recipe_path(work: str, profile: bool, c_peak_gib=None):
     trainer.apply_pretrained_encoder = watched
     try:
         launches["A train"] = _drive_train_cli(
-            work, "recipe_a", ["--pretrained_enc", npz], {},
-            "A (ResNeSt-200 UNetLoc, --pretrained_enc) train", batch=DMG_A_BATCH)
+            work, "recipe_a", ["--pretrained_enc", npz] + CLI_ENCODER, {},
+            f"A (UNetLoc at {arch} depth, --pretrained_enc) train", batch=DMG_A_BATCH)
     finally:
         trainer.apply_pretrained_encoder = real
     log(f"A's --pretrained_enc: {len(seen.get('copied', []))} tensors grafted of {len(want)}; "
@@ -3078,6 +3160,7 @@ def run_recipe_path(work: str, profile: bool, c_peak_gib=None):
     return launches, rows
 
 
+@leg
 def check_autoaugment_against_cpu(channels: int = 3) -> None:
     """The --autoaugment chain (crop, AutoAugment, normalize) on the card,
     through K6, against the same chain on the CPU, through the plain
@@ -3150,6 +3233,7 @@ def _kernel_leaf(name: str) -> bool:
             or name.startswith(("dec_fusion_4.conv_pre.", "dec_fusion_4.conv_post.")))
 
 
+@leg
 def check_f32_train_step_against_cpu(base=None, b: int = 4, size: int = 256,
                                      tag: str = "", spread: bool = False,
                                      noise_floor: bool = False) -> None:
@@ -3173,11 +3257,10 @@ def check_f32_train_step_against_cpu(base=None, b: int = 4, size: int = 256,
     normalizes the batch's few pooled values: with crops of one
     distribution those differ by little more than float32 rounding, and
     the gradients with them.  ``spread`` also logs what separates that
-    conditioning from a fault of the card, on the spread crops and on
-    crops of one distribution: the CPU's own float32 step against itself
-    with the batch reversed (the same sums in another order) and against
-    the float64 step, and the card's float32 step against both CPU
-    steps.
+    conditioning from a fault of the card: the CPU's own float32 step
+    against itself with the batch reversed (the same sums in another order)
+    and against the float64 step, and the card's float32 step against both
+    CPU steps.
 
     ``noise_floor`` (with ``spread``; the fused variant, where the CPU's own
     float32 step reversed reads about 0.06 against itself, above the 5e-2):
@@ -3197,11 +3280,11 @@ def check_f32_train_step_against_cpu(base=None, b: int = 4, size: int = 256,
     base = Config(type="pre", encoder="resnet50", precision=32) if base is None else base
     apply_precision(base)
     rng = np.random.default_rng(17)
-    x = x0 = rng.normal(size=(b, size, size, base.in_channels))
+    x = rng.normal(size=(b, size, size, base.in_channels))
     if spread:
         x = x * rng.uniform(0.3, 2.0, (b, 1, 1, base.in_channels)) \
             + rng.normal(0.0, 1.0, (b, 1, 1, base.in_channels))
-    x, unspread = torch.from_numpy(x.astype(np.float32)), torch.from_numpy(x0.astype(np.float32))
+    x = torch.from_numpy(x.astype(np.float32))
     hi = 5 if base.type == "post" else 2
     fine = torch.from_numpy((rng.random((b, size, size)) > 0.7)
                             * rng.integers(1, hi, (b, size, size))).to(torch.int32)
@@ -3209,9 +3292,14 @@ def check_f32_train_step_against_cpu(base=None, b: int = 4, size: int = 256,
     y = packed_loss_view_labels(fine) if emits_packed_loss_view(base) else fine
     loss_fn = make_loss_fn(base.loss_str, base.type)
 
+    # the models, built once here: the CPU runs below share the host's cores
+    # in threads (their ops are too small to keep all cores busy alone)
+    models = {p: seeded_model(base.replace(precision=p), seed=2)
+              for p in ((32, 64) if spread else (32,))}
+
     def run(dev, fused, x=x, dtype=torch.float32, order=slice(None)):
         cfg = base.replace(fused_tail=fused, precision=64 if dtype == torch.float64 else 32)
-        model = seeded_model(cfg, seed=2).to(dev, dtype)
+        model = copy.deepcopy(models[cfg.precision]).to(dev, dtype)
         before = pfc.conv_bn_wgrad.launches + pfc.conv_bn_dgrad.launches
         loss = forward_loss(cfg, model, loss_fn, x[order].to(dev, dtype), y[order].to(dev),
                             fine[order].to(dev))
@@ -3225,9 +3313,17 @@ def check_f32_train_step_against_cpu(base=None, b: int = 4, size: int = 256,
         num = math.sqrt(sum(float(((got[k] - want[k]) ** 2).sum()) for k in names))
         return num / max(math.sqrt(sum(float((want[k] ** 2).sum()) for k in names)), 1e-30)
 
-    lc, gc, sc, nc = run("cpu", True)
+    reverse = torch.arange(b - 1, -1, -1)
     lg, gg, sg, ng = run("cuda", True)
     ls, gs, _, _ = run("cuda", False)
+    # the card is idle from here: the CPU runs (no launch to count) side by side
+    with ThreadPoolExecutor() as pool:
+        cpu_runs = {"f32": pool.submit(run, "cpu", True)}
+        if spread:
+            cpu_runs["reversed"] = pool.submit(run, "cpu", True, x, order=reverse)
+            cpu_runs["f64"] = pool.submit(run, "cpu", True, x, torch.float64)
+        cpu_runs = {k: f.result() for k, f in cpu_runs.items()}
+    lc, gc, sc, nc = cpu_runs["f32"]
     tail = [k for k in gc if _kernel_leaf(k)]
     err_all, floor_all = rel_l2(gg, gc, list(gc)), rel_l2(gs, gc, list(gc))
     err_tail = max(rel_l2(gg, gc, [k]) for k in tail)
@@ -3248,32 +3344,25 @@ def check_f32_train_step_against_cpu(base=None, b: int = 4, size: int = 256,
         f"{k} {rel_l2(gg, gc, [k]):.3g} (stock tail {rel_l2(gs, gc, [k]):.3g})" for k in top))
     near_cpu = max(err_all, err_tail) <= 5e-2
     if spread:
-        reverse = torch.arange(b - 1, -1, -1)
-        for name, data, cpu, card in (("spread", x, gc, gg), ("one distribution", unspread,
-                                                             None, None)):
-            cpu = run("cpu", True, data)[1] if cpu is None else cpu
-            card = run("cuda", True, data)[1] if card is None else card
-            cpu_rev = run("cpu", True, data, order=reverse)[1]
-            cpu64 = run("cpu", True, data, torch.float64)[1]
-            log(f"f32 train step{tag}, crops of {name}: gradients relative L2, CPU float32 "
-                f"batch reversed vs CPU float32 {rel_l2(cpu_rev, cpu, list(cpu)):.3g}, CPU "
-                f"float32 vs CPU float64 {rel_l2(cpu, cpu64, list(cpu)):.3g}, card float32 vs "
-                f"CPU float32 {rel_l2(card, cpu, list(cpu)):.3g}, card float32 vs CPU float64 "
-                f"{rel_l2(card, cpu64, list(cpu)):.3g}")
-            if name == "spread" and noise_floor and not near_cpu:
-                floor = (rel_l2(cpu, cpu64, list(cpu)),
-                         max(rel_l2(cpu, cpu64, [k]) for k in tail))
-                got = (rel_l2(card, cpu64, list(cpu)), max(rel_l2(card, cpu64, [k]) for k in tail))
-                near_cpu = got[0] <= 1.25 * floor[0] and got[1] <= 1.25 * floor[1]
-                log(f"f32 train step{tag}: against float64, the card float32 {got[0]:.3g} over "
-                    f"all leaves and {got[1]:.3g} at the worst fused-tail leaf, the CPU float32 "
-                    f"{floor[0]:.3g} and {floor[1]:.3g} (noise-floor gate: the card within 1.25 "
-                    f"times the CPU)")
+        cpu_rev, cpu64 = cpu_runs["reversed"][1], cpu_runs["f64"][1]
+        log(f"f32 train step{tag}, crops of spread: gradients relative L2, CPU float32 batch "
+            f"reversed vs CPU float32 {rel_l2(cpu_rev, gc, list(gc)):.3g}, CPU float32 vs CPU "
+            f"float64 {rel_l2(gc, cpu64, list(gc)):.3g}, card float32 vs CPU float32 "
+            f"{err_all:.3g}, card float32 vs CPU float64 {rel_l2(gg, cpu64, list(gc)):.3g}")
+        if noise_floor and not near_cpu:
+            floor = (rel_l2(gc, cpu64, list(gc)), max(rel_l2(gc, cpu64, [k]) for k in tail))
+            got = (rel_l2(gg, cpu64, list(gc)), max(rel_l2(gg, cpu64, [k]) for k in tail))
+            near_cpu = got[0] <= 1.25 * floor[0] and got[1] <= 1.25 * floor[1]
+            log(f"f32 train step{tag}: against float64, the card float32 {got[0]:.3g} over "
+                f"all leaves and {got[1]:.3g} at the worst fused-tail leaf, the CPU float32 "
+                f"{floor[0]:.3g} and {floor[1]:.3g} (noise-floor gate: the card within 1.25 "
+                f"times the CPU)")
     if not (ng > 0 and nc == 0 and abs(lg - lc) <= 1e-4 * abs(lc) and stat_err <= 1e-3
             and near_cpu and max(card_all, card_tail) <= 5e-2):
         raise AssertionError(f"float32 train step{tag} on the card disagrees with the CPU path")
 
 
+@leg
 def check_f32_against_cpu(cfg=None, tag: str = "") -> None:
     """The whole eval step in float32 on a small input: on the card (fused
     tail through the f32 kernels, TF32 off) against the port's plain path on
@@ -3403,6 +3492,20 @@ def _dp_steps(cfg, images, masks, n_steps: int, keep_grads: bool = False,
     return out
 
 
+_REFERENCES: dict = {}
+
+
+def _one_process_step(cfg) -> dict:
+    """One process's step of ``cfg`` (the seeded model) on the batch of
+    TRAIN_BATCH raw tiles, its gradients kept: the reference that phase 12's
+    two ranks and phase 13's two bands are held to, computed once."""
+    key = cfg.to_json()
+    if key not in _REFERENCES:
+        images, masks = _raw_train_batch(TRAIN_BATCH)
+        _REFERENCES[key] = _dp_steps(cfg, images, masks, 1, keep_grads=True)
+    return _REFERENCES[key]
+
+
 def _dp_rank(rank: int, world: int, work: str) -> None:
     """One rank of the two-rank job on the one card (gloo, which carries the
     card's tensors through the host): its rows of the global batch of 16,
@@ -3438,6 +3541,7 @@ def _rel_l2(got: dict, want: dict, names) -> float:
     return num / max(math.sqrt(sum(float((want[k] ** 2).sum()) for k in names)), 1e-30)
 
 
+@leg
 def run_two_ranks_on_one_card(work: str) -> dict:
     """Phase 12 (i): the ResNet-50 UNetLoc at full width, 512^2 crops of
     1024^2 tiles, fused tail, global batch 16 = 2 ranks x 8 on the one card
@@ -3462,9 +3566,9 @@ def run_two_ranks_on_one_card(work: str) -> dict:
     log(f"a rank's draws for its {DP_ROWS} rows (crop {CROP}^2, CUDA events over 10): "
         f"{draw_ms[DP_WORLD]:.3f} ms for the global batch of {DP_ROWS * DP_WORLD}, "
         f"{draw_ms[1]:.3f} ms for its rows alone")
-    ref = _dp_steps(Config(type="pre", encoder="resnet50", loss_str="focal+dice",
-                           optimizer="adamw", fused_tail=True, batch_size=TRAIN_BATCH,
-                           precision=32), images, masks, 1, keep_grads=True)
+    ref = _one_process_step(Config(type="pre", encoder="resnet50", loss_str="focal+dice",
+                                   optimizer="adamw", fused_tail=True, batch_size=TRAIN_BATCH,
+                                   precision=32))
     del images, masks
     torch.cuda.empty_cache()
     ctx = multiprocessing.get_context("spawn")
@@ -3559,6 +3663,7 @@ def _last_log(results: str) -> dict:
         return json.loads(f.readlines()[-1])["data"]
 
 
+@leg
 def run_nccl_one_rank(work: str, profile: bool):
     """Phase 12 (ii) and (iii): the train and eval CLIs under a one-rank
     NCCL group (``torchrun``'s environment, ``WORLD_SIZE=1``): collectives
@@ -3823,8 +3928,8 @@ def run_spatial_path(work: str) -> dict:
     import torch
 
     write_splits(work)
+    ref = _one_process_step(_sp_config(32))
     images, masks = _raw_train_batch(TRAIN_BATCH)
-    ref = _dp_steps(_sp_config(32), images, masks, 1, keep_grads=True)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _dp_steps(_sp_config(16), images, masks, 2)
@@ -4022,6 +4127,9 @@ SPO_OPTION_BATCH = 4
 SPO_CLI = ["--type", "post", "--dmg_model", "fused", "--loss_str", "coral", "--encoder",
            "resnest50", "--ppm", "--precision", "32"]
 SPO_CLI_BATCH = 2
+# written by rank 0 when C's legs end: from there the parent runs the references
+# that fit beside the ranks (D, the option runs, C's CLIs alone); C's after them
+SPO_C_DONE = "spo_C_done"
 
 
 def _spo_cfg(name: str, precision: int, batch: int, **kw):
@@ -4177,10 +4285,33 @@ def _spo_cli(work: str, world: int) -> dict:
     return out
 
 
+def _spo_cli_alone(work: str, which) -> dict:
+    """``main`` alone for C's train and/or eval CLI (``which``), each with
+    the launch counters from 0.  Returns the launches and the seconds."""
+    import torch
+
+    from xview2_tpu_torch.main import main as port_main
+
+    t0 = time.perf_counter()
+    train, evaluate, _, _ = _spo_cli_argv(work, 1)
+    out = {}
+    for key in which:
+        argv = train if key == "train" else evaluate
+        _zero_counters()
+        if port_main(argv, device="cuda") != 0:
+            raise AssertionError(f"main({' '.join(argv)}) failed")
+        out[f"{key}_launches"] = _read_counters()
+    gc.collect()  # the run's closures hold its model in cycles
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def _spo_rank(rank: int, world: int, work: str) -> None:
     """One rank of phase 14 on the one card (gloo, one data row of two
-    bands): C and D (``_spo_runs``), the option runs (``_spo_options``),
-    then C's CLIs (``_spo_cli``); writes ``spo_rank{rank}.pt`` to ``work``."""
+    bands): C, then D (``_spo_runs``; rank 0 marks the end of C with the
+    file SPO_C_DONE), the option runs (``_spo_options``), then C's CLIs
+    (``_spo_cli``); writes ``spo_rank{rank}.pt`` to ``work``."""
     sys.path.insert(0, ROOT)
     os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"  # two C ranks, one card
     import datetime
@@ -4195,7 +4326,10 @@ def _spo_rank(rank: int, world: int, work: str) -> None:
                             timeout=datetime.timedelta(minutes=3))
     try:
         group = dict(gpus=world, spatial_shards=SP_SHARDS)
-        res = {name: _spo_runs(name, work, rank == 0, **group) for name in SPO_CONFIGS}
+        res = {"C": _spo_runs("C", work, rank == 0, **group)}
+        if rank == 0:  # the card has room for the parent's smaller references from here
+            open(os.path.join(work, SPO_C_DONE), "w").close()
+        res["D"] = _spo_runs("D", work, rank == 0, **group)
         res["options"] = _spo_options(rank == 0, **group)
         torch.cuda.empty_cache()
         res["cli"] = _spo_cli(work, world)
@@ -4243,14 +4377,15 @@ def run_spatial_options_path(work: str, c_peak_gib=None) -> dict:
     batch 2, torch's initial weights, the encoder cut to ResNeSt-50)
     against ``main`` alone: the launches equal per rank, the epoch's val_loss within 1e-2, the eval's class
     dumps equal on 99.99% of the pixels, the targets equal, the F1 within
-    0.01.  ``c_peak_gib``: C's one-process peak of phase 9, printed beside.
+    0.01.  Once the ranks are past C, D's and the option runs' references
+    and C's train CLI alone run in this process beside them; C's references
+    and its eval CLI alone (which reads the ranks' checkpoint) after them.
+    ``c_peak_gib``: C's one-process peak of phase 9, printed beside.
     Returns the ranks' launch counts, summed, and the numbers."""
     import multiprocessing
 
     import numpy as np
     import torch
-
-    from xview2_tpu_torch.main import main as port_main
 
     t_phase = time.perf_counter()
     os.makedirs(work, exist_ok=True)
@@ -4261,29 +4396,51 @@ def run_spatial_options_path(work: str, c_peak_gib=None) -> dict:
     log(f"spatial options phase: the weights {time.perf_counter() - t_phase:.0f} s; this "
         f"process holds {torch.cuda.memory_reserved() / 2 ** 30:.2f} GiB of the card before the "
         f"ranks start")
-    # the ranks first: two of C at batch 8 take most of the card
+    # the ranks first: two of C at batch 8 take most of the card; once C is
+    # done the references that fit beside the ranks run here meanwhile (D's,
+    # the option runs', C's CLIs alone), C's after the ranks end
     ctx = multiprocessing.get_context("spawn")
     procs = [ctx.Process(target=_spo_rank, args=(r, SP_WORLD, work)) for r in range(SP_WORLD)]
+    marker = os.path.join(work, SPO_C_DONE)
+    if os.path.exists(marker):
+        os.remove(marker)
     t0 = time.perf_counter()
     for p in procs:
         p.start()
     deadline = time.monotonic() + 900
-    for p in procs:
-        p.join(max(deadline - time.monotonic(), 0.0))
-    hung = [p for p in procs if p.is_alive()]
-    for p in hung:
-        p.kill()
-        p.join(10)
+    one, alone, refs = {}, {}, 0.0
+    try:
+        while not os.path.exists(marker) and time.monotonic() < deadline \
+                and all(p.exitcode in (None, 0) for p in procs):
+            time.sleep(0.5)
+        if os.path.exists(marker):
+            t1 = time.perf_counter()
+            one["D"] = _spo_runs("D", work, True)
+            one["options"] = _spo_options(True)
+            torch.cuda.empty_cache()
+            refs += time.perf_counter() - t1
+            alone = _spo_cli_alone(work, ("train",))
+        for p in procs:
+            p.join(max(deadline - time.monotonic(), 0.0))
+    finally:  # the ranks end with this phase, whatever failed here
+        hung = [p for p in procs if p.is_alive()]
+        for p in hung:
+            p.kill()
+            p.join(10)
     codes = [p.exitcode for p in procs]
-    if hung or any(codes):
-        raise AssertionError(f"spatial options job: exit codes {codes}, {len(hung)} hung")
+    if hung or any(codes) or not alone:
+        raise AssertionError(f"spatial options job: exit codes {codes}, {len(hung)} hung, "
+                             f"C's legs ended: {bool(alone)}")
     wall = time.perf_counter() - t0
     ranks = [torch.load(os.path.join(work, f"spo_rank{r}.pt")) for r in range(SP_WORLD)]
-    t0 = time.perf_counter()
-    one = {name: _spo_runs(name, work, True) for name in SPO_CONFIGS}
-    one["options"] = _spo_options(True)
+    t1 = time.perf_counter()
+    one["C"] = _spo_runs("C", work, True)
     torch.cuda.empty_cache()
-    refs = time.perf_counter() - t0
+    refs += time.perf_counter() - t1
+    eval_alone = _spo_cli_alone(work, ("eval",))  # it reads the ranks' best checkpoint
+    alone.update(eval_launches=eval_alone["eval_launches"],
+                 seconds=alone["seconds"] + eval_alone["seconds"])
+    _, _, train_res, eval_res = _spo_cli_argv(work, 1)
 
     def legs(res):
         return "; ".join([f"{n} parity {res[n]['seconds']['parity']:.0f}, bf16 "
@@ -4293,7 +4450,9 @@ def run_spatial_options_path(work: str, c_peak_gib=None) -> dict:
                          + ([f"CLIs {res['cli']['seconds']:.0f}"] if "cli" in res else []))
 
     log(f"spatial options phase, seconds: the two ranks' job {wall:.0f} with process start "
-        f"(rank 0: {legs(ranks[0])}); the one-process references {refs:.0f} ({legs(one)})")
+        f"(rank 0: {legs(ranks[0])}), with D's and the option runs' one-process references "
+        f"and C's train CLI alone beside it after C; the one-process "
+        f"references {refs:.0f} ({legs(one)})")
 
     numbers, failed = {"job_wall_s": wall, "references_s": refs}, []
 
@@ -4394,15 +4553,7 @@ def run_spatial_options_path(work: str, c_peak_gib=None) -> dict:
             f"{[round(p, 2) for p in numbers[tag]['peak_gib_s2']]} per rank"
             for tag, _, _ in SPO_OPTION_RUNS))
 
-    # C's CLIs: main alone, then the ranks' against it
-    t0 = time.perf_counter()
-    train, evaluate, train_res, eval_res = _spo_cli_argv(work, 1)
-    alone = {}
-    for key, argv in (("train_launches", train), ("eval_launches", evaluate)):
-        _zero_counters()
-        if port_main(argv, device="cuda") != 0:
-            raise AssertionError(f"main({' '.join(argv)}) failed")
-        alone[key] = _read_counters()
+    # C's CLIs: the ranks' against main alone
     _, _, r_train, r_eval = _spo_cli_argv(work, SP_WORLD)
     t_got, t_want = _last_log(r_train), _last_log(train_res)
     e_got, e_want = _last_log(r_eval), _last_log(eval_res)
@@ -4417,7 +4568,7 @@ def run_spatial_options_path(work: str, c_peak_gib=None) -> dict:
     same_launches = [r["cli"]["train_launches"] == alone["train_launches"]
                      and r["cli"]["eval_launches"] == alone["eval_launches"] for r in ranks]
     log(f"spatial C CLIs (trainer.fit and trainer.test in the two ranks, {' '.join(SPO_CLI)} "
-        f"--batch_size {SPO_CLI_BATCH}) against main alone ({time.perf_counter() - t0:.0f} s): "
+        f"--batch_size {SPO_CLI_BATCH}) against main alone ({alone['seconds']:.0f} s): "
         f"train epoch {t_got} vs {t_want} "
         f"(tolerance: val_loss 1e-2 relative); eval of the ranks' best checkpoint {e_got} vs "
         f"{e_want} (f1 within 0.01), {len(probs)} class dumps and {len(files) - len(probs)} "
@@ -4443,6 +4594,435 @@ def run_spatial_options_path(work: str, c_peak_gib=None) -> dict:
              + sum(r["cli"]["train_launches"][k] + r["cli"]["eval_launches"][k] for r in ranks)
              for k in ranks[0]["C"]["launches"]}
     return total, numbers
+
+
+# ------------------------------------------------------ phase 15: K steps as one graph
+
+MS_K = 2            # train steps in one CUDA graph of make_train_multistep
+MS_REPLAYS = 3      # timed replays of the readings
+MS_LOSS_RTOL = 1e-5     # fused tail, float32: each loss against the eager step's
+MS_UPDATE_RTOL = 5e-2   # fused tail, float32: the 2K-step update, relative L2 (phase 12's gate)
+MS_NEED = {"relayout_cuda": 3, "conv_bn_fused": 6, "head_conv_fused": 1, "conv_bn_wgrad": 6,
+           "conv_bn_dgrad": 6}   # launches per train step inside the graph (one profiled replay)
+_KERNEL_OF = {"relayout_cuda": "K1 relayout", "conv_bn_fused": "K2 conv_bn_fused",
+              "head_conv_fused": "K3 head_conv_fused", "conv_bn_wgrad": "K4 conv_bn_wgrad",
+              "conv_bn_dgrad": "K5 conv_bn_dgrad", "row_shift_cuda": "K6 row_shift",
+              "small_conv_fwd": "K7 small_conv_fwd", "small_conv_wgrad": "K8 small_conv_wgrad"}
+
+
+def _train_state(model, opt) -> dict:
+    """Every parameter and buffer of ``model`` and every moment of ``opt``, cloned."""
+    import torch
+
+    out = {f"model/{k}": v.detach().clone() for k, v in model.state_dict().items()}
+    names = {id(p): n for n, p in model.named_parameters()}
+    for p, st in opt.state.items():
+        out.update({f"opt/{names[id(p)]}/{k}": v.detach().clone() for k, v in st.items()
+                    if torch.is_tensor(v) and v.is_cuda})
+    return out
+
+
+def _ms_batches(batch: int, n: int, channels: int = 3, tile: int = TILE):
+    """``n`` device-resident raw batches (K-stacked), each another rotation of
+    one batch of tiles."""
+    import torch
+
+    if tile == TILE:
+        images, masks = _raw_train_batch(batch, channels)
+    else:
+        g = torch.Generator(device="cuda").manual_seed(13)
+        images = torch.randint(0, 256, (batch, tile, tile, channels), generator=g,
+                               device="cuda", dtype=torch.uint8)
+        masks = (torch.rand((batch, tile, tile), generator=g, device="cuda") > 0.9).to(
+            torch.uint8) * (torch.randint(1, 5, (batch, tile, tile), generator=g, device="cuda",
+                                          dtype=torch.uint8) if channels == 6 else 1)
+    return (torch.stack([images.roll(i, 0) for i in range(n)]),
+            torch.stack([masks.roll(i, 0) for i in range(n)]))
+
+
+def _ms_run(cfg, images, masks, graph: bool, crop: int = CROP, kernel_scale: float = 2.2):
+    """2K train steps from the seeded weights of ``cfg``: through
+    ``make_train_step`` (eager) or as two calls of ``make_train_multistep``
+    (the first runs its K steps eagerly and captures, the second replays).
+    Returns the losses, ``state.step``, the whole state after and the
+    parameters before."""
+    import torch
+
+    from xview2_tpu_torch.parallel import steps
+    from xview2_tpu_torch.train.optimizers import build_optimizer
+
+    model = seeded_model(cfg, seed=0, kernel_scale=kernel_scale)
+    opt = build_optimizer(cfg, model.parameters(), cfg.lr)
+    state = steps.init_train_state(model, opt, device="cuda")
+    before = {k: v.detach().clone() for k, v in model.named_parameters()}
+    losses = []
+    if graph:
+        multi = steps.make_train_multistep(cfg, model, opt, MS_K, crop=crop, device="cuda")
+        for c in range(2):
+            state, loss = multi(state, images[c * MS_K:(c + 1) * MS_K],
+                                masks[c * MS_K:(c + 1) * MS_K])
+            losses.append(loss)
+    else:
+        step = steps.make_train_step(cfg, model, opt, crop=crop, device="cuda")
+        for i in range(2 * MS_K):
+            state, loss = step(state, images[i], masks[i],
+                               steps.step_generator(cfg, state.step, "cuda"))
+            losses.append(loss.reshape(1))
+    torch.cuda.synchronize()
+    out = {"losses": torch.cat(losses).double(), "step": state.step,
+           "state": _train_state(model, opt), "before": before}
+    del model, opt, state, losses
+    torch.cuda.empty_cache()
+    return out
+
+
+def _update_rel(got: dict, want: dict) -> float:
+    """Relative L2 of the 2K-step update (parameters after minus before)."""
+    import torch
+
+    keys = [k for k in want["before"]]
+    d_want = torch.cat([(want["state"][f"model/{k}"] - want["before"][k]).double().reshape(-1)
+                        for k in keys])
+    d_got = torch.cat([(got["state"][f"model/{k}"] - got["before"][k]).double().reshape(-1)
+                       for k in keys])
+    return float((d_got - d_want).norm() / d_want.norm())
+
+
+@leg
+def _hold_graph_to_eager(cfg, images, masks, tag: str, crop: int = CROP) -> dict:
+    """The graph's 2K steps against eager ones.  On the stock tail under
+    cuDNN's deterministic algorithms two eager runs are compared first:
+    where they are EQUAL, the graph must be EQUAL to them (losses, every
+    parameter, BatchNorm buffer and optimizer moment), and the tensors that
+    differ are named otherwise.  With the fused tail (K4 adds dW by atomics)
+    each loss within MS_LOSS_RTOL and the update within MS_UPDATE_RTOL."""
+    import torch
+
+    exact = not cfg.fused_tail
+    eager = _ms_run(cfg, images, masks, False, crop)
+    graph = _ms_run(cfg, images, masks, True, crop)
+    if not graph["step"] == eager["step"] == 2 * MS_K:
+        raise AssertionError(f"{tag}: state.step {graph['step']} after the graph, "
+                             f"{eager['step']} after the eager steps")
+    rel_loss = float(((graph["losses"] - eager["losses"]).abs()
+                      / eager["losses"].abs()).max())
+    rel_update = _update_rel(graph, eager)
+    row = {"losses_eager": eager["losses"].tolist(), "losses_graph": graph["losses"].tolist(),
+           "loss_rel": rel_loss, "update_rel_l2": rel_update}
+    if exact:
+        again = _ms_run(cfg, images, masks, False, crop)
+        eager_unequal = [k for k in eager["state"]
+                         if not torch.equal(eager["state"][k], again["state"][k])]
+        eager_equal = not eager_unequal and torch.equal(eager["losses"], again["losses"])
+        unequal = [k for k in eager["state"]
+                   if not torch.equal(eager["state"][k], graph["state"][k])]
+        equal = not unequal and torch.equal(eager["losses"], graph["losses"])
+        log(f"{tag}: two eager runs of {2 * MS_K} steps EQUAL: {eager_equal} "
+            f"({len(eager_unequal)} tensors differ{': ' + ', '.join(eager_unequal[:6]) if eager_unequal else ''}); "
+            f"the graph (call 1 eager and captured, call 2 replayed) EQUAL to them: {equal} "
+            f"({len(unequal)} of {len(eager['state'])} tensors differ"
+            f"{': ' + ', '.join(unequal[:6]) if unequal else ''}); losses {row['losses_eager']} "
+            f"vs {row['losses_graph']}, update relative L2 {rel_update:.3g}")
+        row.update(eager_equal=eager_equal, graph_equal=equal)
+        if eager_equal and not equal:
+            raise AssertionError(f"{tag}: the graph is not EQUAL to the eager steps, which are "
+                                 "EQUAL to each other")
+        if not eager_equal and not (rel_loss <= MS_LOSS_RTOL and rel_update <= MS_UPDATE_RTOL):
+            raise AssertionError(f"{tag}: the eager runs differ and the graph is outside the "
+                                 "fused tail's gates")
+        return row
+    log(f"{tag}: graph (call 1 eager and captured, call 2 replayed) against {2 * MS_K} eager "
+        f"steps: losses {row['losses_eager']} vs {row['losses_graph']} (max relative "
+        f"{rel_loss:.3g}, gate {MS_LOSS_RTOL}), the update's relative L2 {rel_update:.3g} "
+        f"(gate {MS_UPDATE_RTOL}), state.step {graph['step']}")
+    if not (rel_loss <= MS_LOSS_RTOL and rel_update <= MS_UPDATE_RTOL):
+        raise AssertionError(f"{tag}: the graph's steps are off the eager ones")
+    return row
+
+
+def _profiled(fn) -> dict:
+    """One call of ``fn`` under torch.profiler: its device time, its wall
+    time, the device's idle share and the launches of each kernel of the
+    port (by kernel name)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.self_device_time_total > 0 and e.self_cpu_time_total == 0]
+    if not kernels:
+        raise AssertionError("the profiler saw no device time")
+    total = sum(e.self_device_time_total for e in kernels) / 1e3
+    names = dict(_CATEGORIES)
+    counts = {c: sum(e.count for e in kernels if any(k in e.key for k in names[label]))
+              for c, label in _KERNEL_OF.items()}
+    return {"device_ms": total, "wall_ms": wall, "idle": max(0.0, 1 - total / wall),
+            "launches": counts}
+
+
+@leg
+def _ms_readings(cfg, images, masks, tag: str, kernel_scale: float = 2.2) -> dict:
+    """The eager step against the graph's per-step time (CUDA events: 3
+    steps after 1 warm-up; MS_REPLAYS replays after the capturing call), the
+    profiler's idle share of one step and of one replay, the peak memory of
+    each, and the kernels of one profiled replay."""
+    import torch
+
+    from xview2_tpu_torch.parallel import steps
+    from xview2_tpu_torch.train.optimizers import build_optimizer
+
+    model = seeded_model(cfg, seed=0, kernel_scale=kernel_scale)
+    opt = build_optimizer(cfg, model.parameters(), cfg.lr)
+    state = steps.init_train_state(model, opt, device="cuda")
+    step = steps.make_train_step(cfg, model, opt, crop=CROP, device="cuda")
+    losses = []
+
+    def one_step():
+        losses.append(step(state, images[0], masks[0],
+                           steps.step_generator(cfg, state.step, "cuda"))[1])
+
+    torch.cuda.reset_peak_memory_stats()
+    eager_ms = cuda_ms(one_step, 3)
+    eager_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    eager_prof = _profiled(one_step)
+    del model, opt, state, step
+    torch.cuda.empty_cache()
+
+    model = seeded_model(cfg, seed=0, kernel_scale=kernel_scale)
+    opt = build_optimizer(cfg, model.parameters(), cfg.lr)
+    state = steps.init_train_state(model, opt, device="cuda")
+    multi = steps.make_train_multistep(cfg, model, opt, MS_K, crop=CROP, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, loss = multi(state, images, masks)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    losses += list(loss)
+
+    def replay():
+        losses.extend(multi(state, images, masks)[1])
+
+    graph_ms = cuda_ms(replay, MS_REPLAYS, warmup=0) / MS_K
+    graph_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    reserved = torch.cuda.memory_reserved() / 2 ** 30
+    graph_prof = _profiled(replay)
+    vals = [float(v) for v in losses]
+    if not all(math.isfinite(v) for v in vals):
+        raise AssertionError(f"{tag}: losses are not finite: {vals}")
+    row = {"eager_ms": eager_ms, "graph_ms_per_step": graph_ms,
+           "eager_idle": eager_prof["idle"], "graph_idle": graph_prof["idle"],
+           "eager_device_ms": eager_prof["device_ms"],
+           "graph_device_ms_per_step": graph_prof["device_ms"] / MS_K,
+           "eager_peak_gib": eager_peak, "graph_peak_gib": graph_peak,
+           "reserved_gib": reserved, "first_call_s": first_s,
+           "replay_launches": graph_prof["launches"]}
+    log(f"{tag} (batch {images.shape[1]}, {cfg.optimizer}, bf16): eager step {eager_ms:.2f} ms "
+        f"(profiler: {eager_prof['device_ms']:.2f} ms of device time in {eager_prof['wall_ms']:.2f} "
+        f"ms, idle {100 * eager_prof['idle']:.1f}%), peak {eager_peak:.2f} GiB; graph of "
+        f"{MS_K} steps {graph_ms:.2f} ms a step over {MS_REPLAYS} replays (profiler: "
+        f"{graph_prof['device_ms']:.2f} ms of device time in a {graph_prof['wall_ms']:.2f} ms "
+        f"replay, idle {100 * graph_prof['idle']:.1f}%), peak {graph_peak:.2f} GiB, reserved "
+        f"{reserved:.2f} GiB; the capturing call {first_s:.2f} s; one replay's kernels "
+        f"{_nonzero(graph_prof['launches'])}")
+    del model, opt, state, multi
+    torch.cuda.empty_cache()
+    return row
+
+
+def check_graph_raises() -> str:
+    """``make_train_multistep`` on the card refuses ``--autoaugment`` and a
+    gloo group (two ranks on one card), naming their ROADMAP items."""
+    import torch.distributed as dist
+
+    from xview2_tpu_torch.config import Config
+    from xview2_tpu_torch.parallel import mesh, steps
+
+    said = []
+
+    def raises(cfg, what):
+        try:
+            steps.make_train_multistep(cfg, None, None, MS_K, device="cuda")
+        except NotImplementedError as e:
+            if "ROADMAP" not in str(e):
+                raise AssertionError(f"{what}: {e} names no ROADMAP item") from e
+            said.append(f"{what}: {e}")
+            return
+        raise AssertionError(f"make_train_multistep took {what}")
+
+    raises(Config(encoder="resnet50", autoaugment=True), "--autoaugment")
+    mesh.init_data_parallel(1, 0, backend="gloo", device="cuda:0", store=dist.HashStore())
+    try:
+        raises(Config(encoder="resnet50", gpus=1), "a gloo group")
+    finally:
+        mesh.shutdown()
+    for s in said:
+        log(f"graph path raises under {s}")
+    return "; ".join(said)
+
+
+@leg
+def check_einsum_1x1(profile: bool) -> dict:
+    """``--einsum_1x1`` on the headline: the bf16 TTA eval step against the
+    same step without it at the bf16 gates, the float32 eval logits within
+    1e-5 relative L2, and both eval and train step times as readings."""
+    import torch
+
+    from xview2_tpu_torch.config import Config, apply_precision
+
+    base = Config(type="pre", encoder="resnet50", precision=16, loss_str="focal+dice",
+                  batch_size=TRAIN_BATCH, optimizer="adamw", fused_tail=True, tta=True)
+    rows = {}
+    for precision in (16, 32):
+        cfg = base.replace(precision=precision)
+        apply_precision(cfg)
+        model = seeded_model(cfg, seed=0).cuda()
+        outs = {}
+        for on in (True, False):
+            rows[f"eval f{precision} {'einsum' if on else 'conv'}"], outs[on] = _time_eval_step(
+                cfg.replace(einsum_1x1=on), model, 3, profile and precision == 16,
+                f"ResNet-50 UNetLoc, {'--einsum_1x1' if on else '1x1 convs'}")
+        if precision == 16:
+            _check_fused_vs_stock(outs, "--einsum_1x1 eval step", ("--einsum_1x1", "1x1 convs"))
+        else:
+            rel = float((outs[True] - outs[False]).norm() / outs[False].norm())
+            log(f"--einsum_1x1 float32 eval logits against the 1x1 convs: relative L2 "
+                f"{rel:.3g} (gate 1e-5)")
+            rows["f32_eval_rel_l2"] = rel
+            if not rel <= 1e-5:
+                raise AssertionError("--einsum_1x1 changes the float32 eval logits")
+        del model, outs
+        torch.cuda.empty_cache()
+    images, masks = _raw_train_batch()
+    for on in (True, False):
+        rows[f"train {'einsum' if on else 'conv'}"] = _time_train_step(
+            base.replace(einsum_1x1=on), images, masks, profile,
+            f"{'--einsum_1x1' if on else '1x1 convs'}")
+    return rows
+
+
+@leg
+def check_native_decoder(work: str) -> dict:
+    """The native decoder against PIL on the synthetic 1024^2 splits:
+    batches EQUAL and the decode rates in tiles/s (host numbers, beside the
+    host's CPU count).  Where the decoder cannot be built here, the reason,
+    and the loader's batches are PIL's."""
+    import numpy as np
+
+    from xview2_tpu_torch.data import native, pipeline
+
+    write_splits(work)
+    split = os.path.join(work, "holdout")
+
+    def batches():
+        t0 = time.perf_counter()
+        loader = pipeline.Loader(pipeline.XView2Dataset(split, "post"), VAL_BATCH,
+                                 shuffle=False, drop_last=False, num_workers=8)
+        out = [(b.image, b.mask) for b in loader]
+        return out, N_TILES / (time.perf_counter() - t0)
+
+    got, rate = batches()
+    available = native.is_available()
+    real = native.is_available
+    native.is_available = lambda: False
+    try:
+        want, pil_rate = batches()
+    finally:
+        native.is_available = real
+    equal = len(got) == len(want) and all(np.array_equal(a, c) and np.array_equal(b, d)
+                                          for (a, b), (c, d) in zip(got, want))
+    status = native.status()
+    row = {"native": available, "status": status, "native_tiles_per_s": rate if available
+           else None, "pil_tiles_per_s": pil_rate, "host_cpus": os.cpu_count()}
+    log(f"input decoder: {status}; {N_TILES} pairs of {TILE}^2 tiles (pre and post images, "
+        f"the masks) {'native' if available else 'PIL (the fallback)'} {rate:.2f} tiles/s, "
+        f"PIL {pil_rate:.2f} tiles/s, batches EQUAL: {equal} (host: {os.cpu_count()} CPUs, "
+        "8 decode threads)")
+    if not equal:
+        raise AssertionError("the loader's batches differ from PIL's")
+    return row
+
+
+def run_multistep_path(work: str, profile: bool):
+    """Phase 15: ``make_train_multistep`` as one CUDA graph of K train steps
+    (the headline ResNet-50 UNetLoc at batch 16 of 512^2 crops of 1024^2
+    tiles, AdamW): the stock tail EQUAL to eager steps where two eager runs
+    are EQUAL, and so under a one-rank NCCL group and on a small ``cat`` +
+    CORAL + ``--ppm`` model; the fused tail in float32 with SGD within its
+    gates; the refusals; the readings of the headline and of A;
+    ``--einsum_1x1``; the native decoder.
+    Returns the launch counters of the eager and captured steps, the
+    profiled replay's launches and the rows."""
+    import torch
+
+    from xview2_tpu_torch.config import Config, apply_precision
+    from xview2_tpu_torch.parallel import mesh
+
+    rows = {}
+    base = Config(type="pre", encoder="resnet50", precision=16, loss_str="focal+dice",
+                  batch_size=TRAIN_BATCH, optimizer="adamw", fused_tail=True)
+    images, masks = _ms_batches(TRAIN_BATCH, 2 * MS_K)
+    small_images, small_masks = _ms_batches(4, 2 * MS_K, tile=256)
+    pair_images, pair_masks = _ms_batches(2, 2 * MS_K, 6, 256)
+    small = base.replace(fused_tail=False, batch_size=4)
+    _zero_counters()
+    deterministic = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        rows["stock bf16"] = _hold_graph_to_eager(base.replace(fused_tail=False), images, masks,
+                                                  "multistep, stock tail, bf16, cuDNN "
+                                                  "deterministic")
+        with _LauncherEnv():
+            mesh.init_data_parallel(1, 0, backend="nccl", device="cuda:0", init_method="env://")
+            try:
+                before = mesh.collective.calls
+                rows["nccl"] = _hold_graph_to_eager(
+                    small, small_images, small_masks, "multistep under a one-rank NCCL group, "
+                    "ResNet-50, stock tail, batch 4 of 128^2", crop=128)
+                rows["nccl"]["collectives"] = mesh.collective.calls - before
+            finally:
+                mesh.shutdown()
+        rows["coral ppm"] = _hold_graph_to_eager(
+            small.replace(type="post", dmg_model="cat", loss_str="coral", ppm=True, batch_size=2),
+            pair_images, pair_masks, "multistep, cat + CORAL + --ppm, ResNet-50, stock tail, 2 "
+            "pairs of 128^2", crop=128)
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = deterministic
+    del small_images, small_masks, pair_images, pair_masks
+    # SGD: its update is a linear function of the gradients, which K4's atomics
+    # move in their last digits; AdamW's per-element normalization turns that
+    # noise into moves of the learning rate's size (two eager AdamW runs differ)
+    f32 = base.replace(precision=32, optimizer="sgd")
+    apply_precision(f32)
+    rows["fused f32"] = _hold_graph_to_eager(f32, images, masks,
+                                             "multistep, fused tail, f32, SGD")
+    launches = _read_counters()
+    del images, masks
+    torch.cuda.empty_cache()
+    rows["raises"] = check_graph_raises()
+    torch.cuda.empty_cache()
+    images, masks = _ms_batches(TRAIN_BATCH, MS_K)
+    rows["headline"] = _ms_readings(base, images, masks, "multistep readings, ResNet-50 UNetLoc")
+    replay = rows["headline"]["replay_launches"]
+    want = {k: n * MS_K for k, n in MS_NEED.items()}
+    log(f"one profiled replay of {MS_K} headline steps: {_nonzero(replay)} (expected {want})")
+    if any(replay[k] != n for k, n in want.items()):
+        raise AssertionError("the graph's replay did not launch K1-K5 as K eager steps do")
+    a_images, a_masks = _ms_batches(DMG_A_BATCH, MS_K)
+    del images, masks
+    rows["A"] = _ms_readings(base.replace(encoder="resnest200", batch_size=DMG_A_BATCH),
+                             a_images, a_masks, "multistep readings, A (ResNeSt-200 UNetLoc)",
+                             kernel_scale=1.9)
+    del a_images, a_masks
+    torch.cuda.empty_cache()
+    rows["einsum_1x1"] = check_einsum_1x1(profile)
+    torch.cuda.empty_cache()
+    rows["decoder"] = check_native_decoder(work)
+    return launches, replay, rows
 
 
 # kernel-name fragments -> category of a step's breakdown
@@ -4596,6 +5176,10 @@ def main(argv=None) -> int:
             work, var_rows.get("C train fused", {}).get("peak_gib"))
         log(f"spatial shards with every option done at {time.perf_counter() - t_start:.0f} s; "
             f"{json.dumps(spo_rows)}")
+        torch.cuda.empty_cache()
+        launches["multistep"], replay, ms_rows = run_multistep_path(work, args.profile)
+        log(f"multistep path done at {time.perf_counter() - t_start:.0f} s; "
+            f"{json.dumps(ms_rows)}")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -4629,7 +5213,10 @@ def main(argv=None) -> int:
     # fusion_band_ keys of K2, K4 and K5: C's packed cross-fusion on a band at
     # --spatial_shards 2 (train, per launch; fusion_band_eval_: K2 at the TTA
     # eval's band); spatial_options_path_launches: phase 14's two ranks' C and D
-    # bf16 train steps and TTA evals and C's CLIs;
+    # bf16 train steps and TTA evals and C's CLIs; multistep_path_launches: the
+    # kernels of one profiled replay of phase 15's CUDA graph of K headline
+    # train steps (the counters move at the capture, not at a replay; "launches"
+    # adds phase 15's counters: its eager steps and captures);
     # ds_train_ keys of K1: D's eight launches per train step; dmg_ keys of K1 and K3: the
     # damage shapes (K1 at n = 4, K3 at C = 256, Co = 16; dmg_train_: per
     # train step); coral_ and mse_ keys: K1 at n = 3 and 1, K3 at Co = 4 with
@@ -4661,6 +5248,7 @@ def main(argv=None) -> int:
                         "data_parallel_path_launches": launches["data_parallel"][counter],
                         "spatial_path_launches": launches["spatial"][counter],
                         "spatial_options_path_launches": launches["spatial_options"][counter],
+                        "multistep_path_launches": replay[counter],
                         "max_abs_err": r["max_abs_err"],
                         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"],

@@ -21,6 +21,7 @@ from xview2_tpu_torch.ops import layout
 from xview2_tpu_torch.ops import packed_fused_conv as pfc
 from xview2_tpu_torch.ops import rowshift
 from xview2_tpu_torch.ops import small_conv as sc
+from xview2_tpu_torch.train.optimizers import OPTIMIZERS
 
 pytestmark = pytest.mark.cuda
 
@@ -773,3 +774,143 @@ def test_fold_from_sums_of_k2_over_two_ranks_on_one_card(tmp_path):
     for got0, got1, w in zip(ranks[0]["fold"], ranks[1]["fold"], want["fold"]):
         assert torch.equal(got0, got1)
         assert float((got0 - w).abs().max()) <= 1e-5 * float(w.abs().max())
+
+
+def test_train_multistep_graph_equals_eager_steps():
+    """``make_train_multistep`` on the card (one CUDA graph of K = 2 train
+    steps) against 2K eager ``make_train_step`` calls on a small ResNet-50
+    ``UNetLoc`` (batch 2 of 64^2 crops, the fused tail, SGD, float32): the
+    first call runs its steps eagerly and captures, the second replays.
+    The losses within 1e-5 relative and the 2K-step update within 5e-2
+    relative L2 (K4 adds its dW by atomics, in another order in every run;
+    SGD's update is linear in the gradients, where AdamW's normalization
+    would turn that noise into moves of the learning rate's size),
+    ``state.step`` equal, and the replay's launches inside the graph: the
+    counters move at the capture only."""
+    import numpy as np
+
+    from xview2_tpu_torch.config import Config, apply_precision
+    from xview2_tpu_torch.models.unet import build_model
+    from xview2_tpu_torch.parallel import steps
+    from xview2_tpu_torch.train.optimizers import build_optimizer
+
+    k_steps = 2
+    cfg = Config(type="pre", encoder="resnet50", precision=32, fused_tail=True,
+                 optimizer="sgd", batch_size=2)
+    apply_precision(cfg)
+    rng = np.random.default_rng(0)
+    images = torch.from_numpy(rng.integers(0, 256, (2 * k_steps, 2, 128, 128, 3),
+                                           np.uint8)).cuda()
+    masks = torch.from_numpy((rng.random((2 * k_steps, 2, 128, 128)) > 0.8)
+                             .astype(np.uint8)).cuda()
+    torch.manual_seed(0)
+    init = build_model(cfg).state_dict()
+    runs = {}
+    for mode in ("eager", "graph"):
+        model = build_model(cfg)
+        model.load_state_dict(init)
+        opt = build_optimizer(cfg, model.parameters(), cfg.lr)
+        state = steps.init_train_state(model, opt, device="cuda")
+        if mode == "eager":
+            step = steps.make_train_step(cfg, model, opt, crop=64, device="cuda")
+            losses = []
+            for i in range(2 * k_steps):
+                state, loss = step(state, images[i], masks[i],
+                                   steps.step_generator(cfg, state.step, "cuda"))
+                losses.append(loss)
+            losses = torch.stack(losses)
+        else:
+            multi = steps.make_train_multistep(cfg, model, opt, k_steps, crop=64, device="cuda")
+            state, first = multi(state, images[:k_steps], masks[:k_steps])
+            captured = pfc.conv_bn_wgrad.launches
+            state, second = multi(state, images[k_steps:], masks[k_steps:])
+            assert pfc.conv_bn_wgrad.launches == captured  # replayed, not launched anew
+            losses = torch.cat([first, second])
+        runs[mode] = (losses, state.step, {k: v.detach().clone()
+                                           for k, v in model.named_parameters()})
+    (l0, n0, p0), (l1, n1, p1) = runs["eager"], runs["graph"]
+    assert n0 == n1 == 2 * k_steps
+    assert bool(((l1 - l0).abs() <= 1e-5 * l0.abs()).all()), (l0, l1)
+    moved = torch.cat([(p0[k] - init[k].cuda()).reshape(-1) for k in p0])
+    diff = torch.cat([(p1[k] - p0[k]).reshape(-1) for k in p0])
+    assert float(diff.norm() / moved.norm()) <= 5e-2
+
+
+# the graph against eager steps on the stock tail (no atomics): each optimizer,
+# --remat tail|full and the decoder options; AdaBound under the Noam schedule
+_GRAPH_EXACT = ([(dict(optimizer=o), o == "adabound") for o in OPTIMIZERS if o != "adam"]
+                + [(dict(optimizer="adamw", remat=m), False) for m in ("tail", "full")]
+                + [(dict(optimizer="adamw", attention=True, deep_supervision=True, ppm=True),
+                    False)])
+
+
+@pytest.mark.parametrize("kw,scheduled", _GRAPH_EXACT,
+                         ids=lambda v: "-".join(f"{k}={x}" for k, x in v.items())
+                         if isinstance(v, dict) else ("noam" if v else "constant"))
+def test_train_multistep_graph_is_equal_to_eager_steps(kw, scheduled):
+    """``make_train_multistep`` on the card against eager ``make_train_step``
+    calls on the stock tail under cuDNN's deterministic algorithms: a small
+    ResNet-50 ``UNetLoc`` (batch 2 of 64^2 crops of 128^2 tiles, bf16), K = 4,
+    two calls (the first runs its steps eagerly and captures, the second
+    replays), so RAdam's rectified updates (from the sixth) replay too.  Two
+    eager runs are EQUAL, and the graph is EQUAL to them: the losses, every
+    parameter and buffer, every optimizer moment and ``state.step``."""
+    import numpy as np
+
+    from xview2_tpu_torch.config import Config, apply_precision
+    from xview2_tpu_torch.models.unet import build_model
+    from xview2_tpu_torch.parallel import steps
+    from xview2_tpu_torch.train.optimizers import build_optimizer
+    from xview2_tpu_torch.train.scheduler import noam_schedule
+
+    k_steps = 4
+    cfg = Config(type="pre", encoder="resnet50", fused_tail=False, batch_size=2,
+                 weight_decay=0.05, **kw)
+    apply_precision(cfg)
+    lr = noam_schedule(1e-4, 3e-3, 2e-4, 1, 3, 4) if scheduled else cfg.lr
+    rng = np.random.default_rng(0)
+    images = torch.from_numpy(rng.integers(0, 256, (2 * k_steps, 2, 128, 128, 3),
+                                           np.uint8)).cuda()
+    masks = torch.from_numpy((rng.random((2 * k_steps, 2, 128, 128)) > 0.8)
+                             .astype(np.uint8)).cuda()
+    torch.manual_seed(0)
+    init = build_model(cfg).state_dict()
+
+    def run(graph):
+        model = build_model(cfg)
+        model.load_state_dict(init)
+        opt = build_optimizer(cfg, model.parameters(), lr)
+        state = steps.init_train_state(model, opt, device="cuda")
+        losses = []
+        if graph:
+            multi = steps.make_train_multistep(cfg, model, opt, k_steps, crop=64,
+                                               device="cuda", learning_rate=lr)
+            for c in range(2):
+                state, loss = multi(state, images[c * k_steps:(c + 1) * k_steps],
+                                    masks[c * k_steps:(c + 1) * k_steps])
+                losses.append(loss)
+        else:
+            step = steps.make_train_step(cfg, model, opt, crop=64, device="cuda",
+                                         learning_rate=lr)
+            for i in range(2 * k_steps):
+                state, loss = step(state, images[i], masks[i],
+                                   steps.step_generator(cfg, state.step, "cuda"))
+                losses.append(loss.reshape(1))
+        snap = {f"model/{k}": v.detach().clone() for k, v in model.state_dict().items()}
+        names = {id(p): n for n, p in model.named_parameters()}
+        snap.update({f"opt/{names[id(p)]}/{k}": v.detach().clone()
+                     for p, st in opt.state.items() for k, v in st.items()})
+        return torch.cat(losses), state.step, snap
+
+    flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        (l0, n0, s0), (l1, n1, s1), (lg, ng, sg) = run(False), run(False), run(True)
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
+    assert n0 == n1 == ng == 2 * k_steps
+    assert s0.keys() == s1.keys() == sg.keys()
+    assert torch.equal(l0, l1), (l0, l1)
+    assert [k for k in s0 if not torch.equal(s0[k], s1[k])] == []
+    assert torch.equal(l0, lg), (l0, lg)
+    assert [k for k in s0 if not torch.equal(s0[k], sg[k])] == []

@@ -1,10 +1,13 @@
 """Host-side input pipeline: file discovery, index selection, decode, batch
-(a copy of ``xview2_tpu/data/pipeline.py``, PIL decode only).
+(a copy of ``xview2_tpu/data/pipeline.py``).
 
-The host discovers files, decodes PNGs in a thread pool and assembles raw
-uint8 batches; every per-pixel transform (crop, zoom, flip, noise,
-normalize) runs on the device inside the train and eval steps.  The native
-C++ decoder is not ported (ROADMAP Queue 1, the native PNG decoder).
+The host discovers files, decodes PNGs and assembles raw uint8 batches;
+every per-pixel transform (crop, zoom, flip, noise, normalize) runs on the
+device inside the train and eval steps.  The decode is the native C++
+decoder's (``data/native.py``: one GIL-free batch call per image plane and
+one for the masks, the tile size probed once), or PIL in a thread pool where
+the library cannot be built, a decode fails, or ``--raw_cache`` reads raw
+tiles, as in the JAX package.
 
 Semantics preserved:
  * directory layout ``{data}/{train,test,holdout}/{images,targets}`` with
@@ -36,6 +39,8 @@ from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 from PIL import Image
+
+from xview2_tpu_torch.data import native
 
 
 def load_data(path: str, dtype: str) -> Tuple[List[str], List[str]]:
@@ -151,6 +156,40 @@ class Loader:
         self.rank = rank
         self.world = world
         self.epoch = 0
+        self._hw: Optional[Tuple[int, int]] = None
+        self._probed = False
+
+    def _image_hw(self) -> Optional[Tuple[int, int]]:
+        """Probe (once) the dataset's tile size for the native fast path."""
+        if not self._probed:
+            self._probed = True
+            if native.is_available() and len(self.ds) > 0:
+                try:
+                    self._hw = native.probe_png(self.ds.item_paths(0)[0][0])
+                except (IOError, RuntimeError):
+                    self._hw = None
+        return self._hw
+
+    def _assemble_native(self, batch_ids: Sequence[int]):
+        """The native batch decode (``csrc/decoder.cpp``): each image plane
+        (pre, post) by one call, the masks as one channel; None -> PIL."""
+        if self.ds.cache_dir is not None:
+            return None  # the raw cache path (load_item) skips decode entirely
+        hw = self._image_hw()
+        if hw is None:
+            return None
+        img_lists, lbl_paths = [], []
+        for i in batch_ids:
+            img_paths, lbl = self.ds.item_paths(int(i))
+            img_lists.append(list(img_paths))
+            lbl_paths.append(lbl)
+        try:
+            planes = [native.decode_batch([il[j] for il in img_lists], *hw, 3, self.num_workers)
+                      for j in range(len(img_lists[0]))]
+            msks = native.decode_batch(lbl_paths, *hw, 1, self.num_workers)[..., 0]
+        except (IOError, RuntimeError):
+            return None
+        return (planes[0] if len(planes) == 1 else np.concatenate(planes, axis=3)), msks
 
     def __len__(self) -> int:
         n, g = len(self.ds), self.batch_size * self.world
@@ -178,10 +217,12 @@ class Loader:
             batch_ids = global_ids[self.rank * self.batch_size:][:self.batch_size]
             # a rank past the data decodes the global batch's first sample
             # for the shapes alone
-            items = list(pool.map(self.ds.load_item, batch_ids if len(batch_ids)
-                                  else global_ids[:1]))
-            imgs = np.stack([it[0] for it in items])[:len(batch_ids)]
-            msks = np.stack([it[1] for it in items])[:len(batch_ids)]
+            ids = batch_ids if len(batch_ids) else global_ids[:1]
+            fast = self._assemble_native(ids)
+            if fast is None:
+                items = list(pool.map(self.ds.load_item, ids))
+                fast = np.stack([it[0] for it in items]), np.stack([it[1] for it in items])
+            imgs, msks = fast[0][:len(batch_ids)], fast[1][:len(batch_ids)]
             valid = np.ones((len(batch_ids),), np.float32)
             pad = self.batch_size - len(batch_ids)
             if pad > 0:
@@ -234,6 +275,13 @@ class Loader:
                 except queue.Empty:
                     break
             t.join(timeout=30.0)
+
+
+def decoder_status(cfg) -> str:
+    """Which decoder the loaders of ``cfg`` use, and why: one line for the logs."""
+    if cfg.raw_cache:
+        return "raw tile cache (--raw_cache): PIL decodes a tile's first read only"
+    return native.status()
 
 
 def make_test_loader(cfg, rank: int = 0, world: int = 1) -> Loader:

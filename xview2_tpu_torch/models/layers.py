@@ -84,6 +84,8 @@ _REMAT_TAIL: contextvars.ContextVar = contextvars.ContextVar(
     "xview2_torch_remat_tail", default=False)
 _STATS_FROZEN: contextvars.ContextVar = contextvars.ContextVar(
     "xview2_torch_stats_frozen", default=False)
+_EINSUM_1X1: contextvars.ContextVar = contextvars.ContextVar(
+    "xview2_torch_einsum_1x1", default=False)
 
 
 @contextlib.contextmanager
@@ -116,6 +118,12 @@ def frozen_running_stats(enabled: bool = True):
     return _scope(_STATS_FROZEN, enabled)
 
 
+def einsum_1x1_scope(enabled: bool = True):
+    """``--einsum_1x1``: the 1x1 convs of :func:`conv1x1` as matrix products
+    (JAX ``einsum_1x1_scope``, which the train and eval steps set)."""
+    return _scope(_EINSUM_1X1, enabled)
+
+
 def halo_extent(k: int, stride: int, padding: int, dilation: int = 1) -> Tuple[int, int]:
     """The rows above and below a band that a k x k window with this stride,
     padding and dilation reads, for a band that starts on a multiple of
@@ -137,6 +145,18 @@ def conv_nhwc(x: torch.Tensor, weight: torch.Tensor, stride: int = 1, padding: i
     out = F.conv2d(x.permute(0, 3, 1, 2), weight.to(x.dtype), stride=stride,
                    padding=pad, dilation=dilation, groups=groups)
     return out.permute(0, 2, 3, 1)
+
+
+def conv1x1(x: torch.Tensor, weight: torch.Tensor, stride: int = 1) -> torch.Tensor:
+    """JAX ``Conv1x1``: a 1x1 conv (no bias) with an OIHW weight, the library
+    conv by default and, under :func:`einsum_1x1_scope`, ``x @ W`` on the
+    NHWC map, strided convs sliced first (a 1x1 conv reads only the strided
+    grid); the same function either way, in ``x``'s dtype."""
+    if not _EINSUM_1X1.get():
+        return conv_nhwc(x, weight, stride=stride)
+    if stride > 1:
+        x = x[:, ::stride, ::stride, :]
+    return torch.matmul(x, weight[:, :, 0, 0].t().to(x.dtype))
 
 
 def global_shape(x: torch.Tensor) -> Tuple[int, ...]:
@@ -250,12 +270,35 @@ def _adaptive_pool_weights(in_size: int, out_size: int) -> np.ndarray:
     return w
 
 
-def _separable(x: torch.Tensor, wh: np.ndarray, ww: np.ndarray) -> torch.Tensor:
-    """``Wh @ x @ Ww^T`` over the H and W axes of an NHWC map."""
-    wh_t = torch.from_numpy(wh).to(x.device, x.dtype)
-    ww_t = torch.from_numpy(ww).to(x.device, x.dtype)
-    x = torch.einsum("oh,bhwc->bowc", wh_t, x)
-    return torch.einsum("ow,bhwc->bhoc", ww_t, x)
+# A matrix is named by a spec ``(kind, in_size, out_size, rows, cols)``:
+# the (out, in) matrix of ``kind`` ("linear" or "pool") cut to the rows and
+# then the columns ``(lo, hi)`` (None: all).  Its device copy is made once
+# per device and dtype, so a step copies nothing from the host (a CUDA
+# graph of train steps could not replay such a copy).
+_KINDS = {"linear": _align_corners_weights, "pool": _adaptive_pool_weights}
+
+
+@functools.lru_cache(maxsize=256)
+def _matrix(kind: str, in_size: int, out_size: int, rows=None, cols=None) -> np.ndarray:
+    w = _KINDS[kind](in_size, out_size)
+    if rows is not None:
+        w = w[rows[0]:rows[1]]
+    if cols is not None:
+        w = w[:, cols[0]:cols[1]]
+    return np.ascontiguousarray(w)
+
+
+@functools.lru_cache(maxsize=256)
+def _device_matrix(spec: tuple, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    with torch.inference_mode(False):  # made under the eval step, read by autograd too
+        return torch.from_numpy(_matrix(*spec)).to(device, dtype)
+
+
+def _separable(x: torch.Tensor, wh: tuple, ww: tuple) -> torch.Tensor:
+    """``Wh @ x @ Ww^T`` over the H and W axes of an NHWC map (``wh``,
+    ``ww``: matrix specs)."""
+    x = torch.einsum("oh,bhwc->bowc", _device_matrix(wh, x.device, x.dtype), x)
+    return torch.einsum("ow,bhwc->bhoc", _device_matrix(ww, x.device, x.dtype), x)
 
 
 def _band_halo(wh: np.ndarray, hb: int, n: int) -> Tuple[int, int]:
@@ -272,8 +315,7 @@ def _band_halo(wh: np.ndarray, hb: int, n: int) -> Tuple[int, int]:
     return top, bottom
 
 
-def _resample_band(x: torch.Tensor, wh: np.ndarray, ww: np.ndarray,
-                   whole_in: bool) -> torch.Tensor:
+def _resample_band(x: torch.Tensor, wh: tuple, ww: tuple, whole_in: bool) -> torch.Tensor:
     """This rank's band of output rows of ``Wh @ X @ Ww^T``, ``Wh`` the
     matrix of the WHOLE height (JAX computes it on the whole map).  ``x``
     is this rank's band of ``X`` or, with ``whole_in``, all of ``X`` (a map
@@ -283,17 +325,18 @@ def _resample_band(x: torch.Tensor, wh: np.ndarray, ww: np.ndarray,
     than a band), so a position that falls between two bands interpolates
     across the edge."""
     n, s = mesh.space_shards(), mesh.space_index()
-    if wh.shape[0] % n:
-        raise ValueError(f"{wh.shape[0]} output rows do not split into {n} bands")
-    ob = wh.shape[0] // n
-    rows = wh[s * ob:(s + 1) * ob]
+    whole = _matrix(*wh)
+    if whole.shape[0] % n:
+        raise ValueError(f"{whole.shape[0]} output rows do not split into {n} bands")
+    ob = whole.shape[0] // n
+    cols = None
     if not whole_in:
         hb = x.shape[1]
-        top, bottom = _band_halo(wh, hb, n)
+        top, bottom = _band_halo(whole, hb, n)
         x = mesh.halo_rows(x, top, bottom, fill=None)
         lo = max(s * hb - top, 0)
-        rows = rows[:, lo:lo + x.shape[1]]
-    return _separable(x, np.ascontiguousarray(rows), ww)
+        cols = (lo, lo + x.shape[1])
+    return _separable(x, wh[:3] + ((s * ob, (s + 1) * ob), cols), ww)
 
 
 def interpolate_bilinear(x: torch.Tensor, out_hw: Tuple[int, int],
@@ -307,7 +350,7 @@ def interpolate_bilinear(x: torch.Tensor, out_hw: Tuple[int, int],
     h, w = x.shape[1] * (1 if whole_in else n), x.shape[2]
     if (h, w) == tuple(out_hw):
         return mesh.band(x) if whole_in else x
-    wh, ww = _align_corners_weights(h, out_hw[0]), _align_corners_weights(w, out_hw[1])
+    wh, ww = ("linear", h, out_hw[0]), ("linear", w, out_hw[1])
     if n == 1:
         return _separable(x, wh, ww)
     return _resample_band(x, wh, ww, whole_in)
@@ -321,13 +364,11 @@ def adaptive_avg_pool(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
     ``stat_dtype``), summed over the space group (:func:`mesh.space_sum`)."""
     n = mesh.space_shards()
     h = x.shape[1] * n
-    wh = _adaptive_pool_weights(h, out_hw[0])
-    ww = _adaptive_pool_weights(x.shape[2], out_hw[1])
+    wh, ww = ("pool", h, out_hw[0]), ("pool", x.shape[2], out_hw[1])
     if n == 1:
         return _separable(x, wh, ww)
     hb, s = x.shape[1], mesh.space_index()
-    part = _separable(x.to(stat_dtype(x.dtype)),
-                      np.ascontiguousarray(wh[:, s * hb:(s + 1) * hb]), ww)
+    part = _separable(x.to(stat_dtype(x.dtype)), wh + (None, (s * hb, (s + 1) * hb)), ww)
     return mesh.space_sum(part).to(x.dtype)
 
 
@@ -636,7 +677,7 @@ class AttentionLayer(nn.Module):
         self.BatchNorm_0 = BatchNorm(features)
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-        x = conv_nhwc(x.to(self.dtype), self.Conv_0.weight)
+        x = conv1x1(x.to(self.dtype), self.Conv_0.weight)
         return bn_act(self.BatchNorm_0, x, train, "none", self.dtype)
 
 
@@ -718,8 +759,8 @@ class PPM(nn.Module):
         for i, b in enumerate(self.BINS):
             # under --spatial_shards the pooled map is whole on every rank of
             # the space group: its BatchNorm counts each image once
-            f = conv_nhwc(adaptive_avg_pool(x, (b, b)).to(self.dtype),
-                          getattr(self, f"reduce{i}").weight)
+            f = conv1x1(adaptive_avg_pool(x, (b, b)).to(self.dtype),
+                        getattr(self, f"reduce{i}").weight)
             f = bn_act(getattr(self, f"bn{i}"), f, train, "leaky", self.dtype, replicated=True)
             feats.append(interpolate_bilinear(f, (h, w), whole_in=True))
         return conv_bias_nhwc(torch.cat(feats, dim=-1), self.fuse, self.dtype)
@@ -784,12 +825,19 @@ def _phase_matrix() -> np.ndarray:
 _PHASE = _phase_matrix()
 
 
+@functools.lru_cache(maxsize=16)
+def _phase(device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    """:data:`_PHASE` on ``device``, copied once (no host copy in a step)."""
+    with torch.inference_mode(False):
+        return torch.as_tensor(_PHASE, dtype=dtype, device=device)
+
+
 def s2d_conv_kernel(w: torch.Tensor) -> torch.Tensor:
     """Embed a fine (3, 3, Ci, Co) HWIO kernel as the packed (3, 3, 4Ci, 4Co)
     kernel computing the identical stride-1 SAME conv on s2d(2)-packed
     activations (channel order phase-major ``[p, c]``)."""
     ci, co = w.shape[2], w.shape[3]
-    ph = torch.as_tensor(_PHASE, dtype=w.dtype, device=w.device)
+    ph = _phase(w.device, w.dtype)
     wp = torch.einsum("hwio,uadh,vbew->uvabideo", w, ph, ph)
     return wp.reshape(3, 3, 4 * ci, 4 * co)
 

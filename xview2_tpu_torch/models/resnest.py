@@ -35,7 +35,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from xview2_tpu_torch.models.layers import BatchNorm, bn_act, conv_nhwc, halo_extent
+from xview2_tpu_torch.models.layers import BatchNorm, bn_act, conv1x1, conv_nhwc, halo_extent
 from xview2_tpu_torch.parallel import mesh
 
 RESNEST_LAYERS = {
@@ -181,17 +181,17 @@ class ResNeStBottleneck(nn.Module):
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         dt = self.dtype
-        out = bn_act(self.bn1, conv_nhwc(x.to(dt), self.conv1.weight), train, "relu", dt)
+        out = bn_act(self.bn1, conv1x1(x.to(dt), self.conv1.weight), train, "relu", dt)
         out = self.conv2(out, train)
         if self.use_avd:
             out = avg_pool_torch(out, 3, self.stride, padding=1)
-        out = bn_act(self.bn3, conv_nhwc(out, self.conv3.weight), train, "none", dt)
+        out = bn_act(self.bn3, conv1x1(out, self.conv3.weight), train, "none", dt)
         identity = x
         if self.downsample:
             if self.pool_stride > 1:
                 identity = avg_pool_torch(identity, self.pool_stride, self.pool_stride,
                                           ceil_mode=True, count_include_pad=False)
-            identity = conv_nhwc(identity.to(dt), self.downsample_conv.weight)
+            identity = conv1x1(identity.to(dt), self.downsample_conv.weight)
             identity = bn_act(self.downsample_bn, identity, train, "none", dt)
         return F.relu(out + identity)
 

@@ -5,7 +5,8 @@ torchvision Bottleneck semantics, including ``replace_stride_with_dilation``
 rewiring as the reference wires it (``[False, dilation == 4, dilation in
 [2, 4]]``).  Module names follow the flax tree (``conv1``, ``bn1``, ...,
 ``downsample_conv``, ``downsample_bn``; stages ``block0..``), tensors are
-NHWC and the convolutions are library calls on channels-last views.  On a
+NHWC and the convolutions are library calls on channels-last views (the 1x1
+ones through ``layers.conv1x1``: matrix products under ``--einsum_1x1``).  On a
 band of rows (``--spatial_shards``) the convolutions and the stem's max pool
 read their halo rows from the neighbours (``layers.conv_nhwc``).
 """
@@ -18,7 +19,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from xview2_tpu_torch.models.layers import BatchNorm, bn_act, conv_nhwc, halo_extent
+from xview2_tpu_torch.models.layers import BatchNorm, bn_act, conv1x1, conv_nhwc, halo_extent
 from xview2_tpu_torch.parallel import mesh
 
 RESNET_LAYERS = {
@@ -56,14 +57,14 @@ class Bottleneck(nn.Module):
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         x = x.to(self.dtype)
         dt = self.dtype
-        out = bn_act(self.bn1, conv_nhwc(x, self.conv1.weight), train, "relu", dt, remat_tail=True)
+        out = bn_act(self.bn1, conv1x1(x, self.conv1.weight), train, "relu", dt, remat_tail=True)
         out = conv_nhwc(out, self.conv2.weight, stride=self.stride, padding=self.dilation,
                         dilation=self.dilation)
         out = bn_act(self.bn2, out, train, "relu", dt, remat_tail=True)
-        out = bn_act(self.bn3, conv_nhwc(out, self.conv3.weight), train, "none", dt, remat_tail=True)
+        out = bn_act(self.bn3, conv1x1(out, self.conv3.weight), train, "none", dt, remat_tail=True)
         identity = x
         if self.downsample:
-            identity = conv_nhwc(x, self.downsample_conv.weight, stride=self.stride)
+            identity = conv1x1(x, self.downsample_conv.weight, stride=self.stride)
             identity = bn_act(self.downsample_bn, identity, train, "none", dt, remat_tail=True)
         return F.relu(out + identity)
 

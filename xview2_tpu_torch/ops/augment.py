@@ -42,6 +42,7 @@ and an intensity op acts on each half with the same magnitude.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -63,9 +64,17 @@ def normalize(img: torch.Tensor, channels: int = 3, bgr: bool = False) -> torch.
     reps = channels // 3
     if bgr:
         img = img.reshape(img.shape[:-1] + (reps, 3)).flip(-1).reshape(img.shape)
-    mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32, device=img.device).repeat(reps)
-    std = torch.tensor(IMAGENET_STD, dtype=torch.float32, device=img.device).repeat(reps)
+    mean, std = _imagenet(img.device, reps)
     return (img - mean) / std
+
+
+@functools.lru_cache(maxsize=16)
+def _imagenet(device: torch.device, reps: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The ImageNet mean and std of ``reps`` RGB groups on ``device``, copied
+    once (a CUDA graph of train steps cannot replay a host copy)."""
+    with torch.inference_mode(False):  # made under the eval step, read by autograd too
+        return tuple(torch.tensor(v, dtype=torch.float32, device=device).repeat(reps)
+                     for v in (IMAGENET_MEAN, IMAGENET_STD))
 
 
 def eval_batch(images: torch.Tensor, bgr: bool = False) -> torch.Tensor:

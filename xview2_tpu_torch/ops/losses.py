@@ -20,8 +20,10 @@ height over the space group for the ranking.
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, Optional, Sequence
 
+import numpy as np
 import torch
 
 from xview2_tpu_torch.parallel import mesh
@@ -156,6 +158,13 @@ def mse_loss(logits: torch.Tensor, labels: torch.Tensor,
 _CORAL_LEVELS = ((0.0, 0.0, 0.0), (1.0, 0.0, 0.0), (1.0, 1.0, 0.0), (1.0, 1.0, 1.0))
 
 
+@functools.lru_cache(maxsize=8)
+def _coral_table(device: torch.device) -> torch.Tensor:
+    """The 4x3 level table on ``device``, copied once (no host copy in a step)."""
+    with torch.inference_mode(False):  # made under the eval step, read by autograd too
+        return torch.tensor(_CORAL_LEVELS, dtype=torch.float32, device=device)
+
+
 def coral_loss(logits: torch.Tensor, labels: torch.Tensor,
                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Ordinal regression (CORAL) on 3 cumulative level logits (reference
@@ -164,8 +173,7 @@ def coral_loss(logits: torch.Tensor, labels: torch.Tensor,
     the 4x3 table, as in the JAX package."""
     w = _ensure_mask(labels, mask)
     x = _acc(logits)
-    table = torch.tensor(_CORAL_LEVELS, dtype=torch.float32, device=logits.device)
-    levels = _one_hot(labels.clamp(0, 3), 4) @ table
+    levels = _one_hot(labels.clamp(0, 3), 4) @ _coral_table(logits.device)
     logpt = torch.nn.functional.logsigmoid(x)
     per_pixel = torch.sum(logpt * levels + (logpt - x) * (1.0 - levels), dim=-1)
     return -_global_mean(torch.sum(w * per_pixel), torch.sum(w))
@@ -238,7 +246,11 @@ def deep_supervision_loss(loss_fn: Callable[..., torch.Tensor], outputs: Sequenc
         h, w = out.shape[1], out.shape[2]
         dst = torch.arange(s * h, (s + 1) * h, device=labels.device)
         iy = torch.floor(dst * (h0 / h)).to(torch.int64) - s * h0
-        if n > 1 and not (int(iy.min()) >= 0 and int(iy.max()) < h0):
+        # the same rows on the host (float32, as torch computes them): no
+        # device read in a step
+        iy0 = np.floor(np.arange(s * h, (s + 1) * h, dtype=np.float32)
+                       * np.float32(h0 / h)).astype(np.int64) - s * h0
+        if n > 1 and not (iy0.min() >= 0 and iy0.max() < h0):
             raise ValueError(f"deep supervision: the labels of band {s} of a {n * h}-row head "
                              f"lie outside the band's {h0} rows of {n * h0}")
         ix = torch.floor(torch.arange(w, device=labels.device) * (w0 / w)).to(torch.int64)

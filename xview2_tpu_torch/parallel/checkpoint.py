@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import json
 import os
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -72,19 +72,30 @@ def load_config(path: str) -> Config:
     return Config(**load_metadata(path)["config"])
 
 
-def restore_raw(path: str) -> Tuple[Dict[str, dict], Dict[str, Any]]:
+def restore_raw(path: str, tops: Optional[Sequence[str]] = None,
+                ) -> Tuple[Dict[str, dict], Dict[str, Any]]:
     """``({"params": tree, "batch_stats": tree, ...}, metadata)`` with
     nested dicts of numpy arrays; a training checkpoint also has
-    ``opt_state`` and ``train``."""
+    ``opt_state`` and ``train``.  ``tops``: read only these trees (an
+    evaluation skips the optimizer state, twice the parameters' bytes)."""
     payload: Dict[str, dict] = {"params": {}, "batch_stats": {}}
     with np.load(os.path.join(os.path.abspath(path), _STATE)) as z:
         for key in z.files:
             top, *mods, leaf = key.split("/")
+            if tops is not None and top not in tops:
+                continue
             node = payload.setdefault(top, {})
             for m in mods:
                 node = node.setdefault(m, {})
             node[leaf] = z[key]
     return payload, load_metadata(path)
+
+
+def stored_trees(path: str) -> set:
+    """The trees a checkpoint holds (``params``, ``opt_state``, ...), read
+    from the archive's index alone."""
+    with np.load(os.path.join(os.path.abspath(path), _STATE)) as z:
+        return {key.split("/", 1)[0] for key in z.files}
 
 
 def checkpoint_exists(path: Optional[str]) -> bool:

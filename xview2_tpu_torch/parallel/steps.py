@@ -13,6 +13,9 @@ the loss and the F1 state.
 The JAX step is a pure function of a donated state; here the model's
 parameters, its BatchNorm buffers and the optimizer state are updated IN
 PLACE and ``TrainState`` only carries the references and the step count.
+Both steps enter ``--einsum_1x1``'s scope (``layers.einsum_1x1_scope``) as
+JAX's do.  :func:`make_train_multistep` runs K train steps as one CUDA graph
+on the card (K calls of the train step on the CPU).
 
 ``--remat`` (JAX ``steps.py:150-177``): ``tail`` normalizes+activates each
 stock BatchNorm in a local checkpoint (``layers.remat_tail_scope``; the
@@ -53,17 +56,20 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Callable, Optional, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from xview2_tpu_torch.config import Config
-from xview2_tpu_torch.models.layers import (fold_eval_bn_scope, frozen_running_stats,
-                                            fused_tail_scope, remat_tail_scope)
+from xview2_tpu_torch.models.layers import (einsum_1x1_scope, fold_eval_bn_scope,
+                                            frozen_running_stats, fused_tail_scope,
+                                            remat_tail_scope)
 from xview2_tpu_torch.models.unet import emits_packed_loss_view, fused_head_defer_ok
-from xview2_tpu_torch.ops.augment import augment_batch, eval_batch
+from xview2_tpu_torch.ops.augment import (apply_augment, augment_batch, draw_augment,
+                                          eval_batch)
 from xview2_tpu_torch.ops.layout import relayout_standard
 from xview2_tpu_torch.ops.losses import (deep_supervision_loss, make_loss_fn,
                                          packed_loss_view_labels)
@@ -126,6 +132,7 @@ def make_eval_step(cfg: Config, model, device="cuda"):
         x = eval_batch(images, bgr=cfg.bgr)
         masks = mesh.band(masks)
         with fold_eval_bn_scope(bool(cfg.fold_eval_bn)), \
+                einsum_1x1_scope(bool(cfg.einsum_1x1)), \
                 fused_tail_scope(bool(cfg.fused_tail), defer_head=defer):
             logits = tta_forward(model, x, cfg.tta).to(torch.float32)
         logits = relayout_standard(logits)  # the model/loss seam, as in JAX
@@ -173,12 +180,14 @@ def check_band_height(height: int, spatial_shards: int, what: str) -> None:
 
 def forward_loss(cfg: Config, model, loss_fn, x: torch.Tensor, y_main: torch.Tensor,
                  y: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Train-mode forward and loss of an augmented batch: the fused-tail
-    scope, the model, the relayout of each output at the loss seam, the
-    loss.  ``y_main`` is already in the main logits' view (see
-    ``make_train_step``); ``y``: the fine labels the deep-supervision heads
-    read (default ``y_main``, right when the main logits are fine)."""
-    with fused_tail_scope(bool(cfg.fused_tail), defer_head=fused_head_defer_ok(cfg)):
+    """Train-mode forward and loss of an augmented batch: the
+    ``--einsum_1x1`` and fused-tail scopes, the model, the relayout of each
+    output at the loss seam, the loss.  ``y_main`` is already in the main
+    logits' view (see ``make_train_step``); ``y``: the fine labels the
+    deep-supervision heads read (default ``y_main``, right when the main
+    logits are fine)."""
+    with einsum_1x1_scope(bool(cfg.einsum_1x1)), \
+            fused_tail_scope(bool(cfg.fused_tail), defer_head=fused_head_defer_ok(cfg)):
         outs = model(x, True)
     if isinstance(outs, list):
         return deep_supervision_loss(loss_fn, [relayout_standard(o) for o in outs],
@@ -219,30 +228,18 @@ def rematerialized(fn: Callable, remat: str) -> Callable:
     return run
 
 
-def make_train_step(cfg: Config, model, opt: torch.optim.Optimizer, crop: int = 512,
-                    device="cuda", learning_rate: LearningRate = None,
-                    ) -> Callable[..., Tuple[TrainState, torch.Tensor]]:
-    """Build the augment+train step.  ``step_fn(state, images, masks, rng)``
-    takes raw uint8 (B, H, W, 3|6) tiles and (B, H, W) labels (numpy or
-    tensors; moved to ``device``) and a ``torch.Generator`` on the device
-    (:func:`step_generator`); it updates the model, its BN buffers and the
-    optimizer in place and returns ``(state, loss)``.  ``learning_rate`` is a
-    float or a schedule of the update count (default ``cfg.lr``).  Under
-    ``--spatial_shards`` the tiles are the data row's and each rank trains
-    on its band of the crops."""
-    dev = resolve_device(device)
+def _learner(cfg: Config, model) -> Callable[[torch.Tensor, torch.Tensor], torch.Tensor]:
+    """``learn(x, y)``: the part of a train step between the augmentation and
+    the optimizer, on this rank's rows of an augmented batch: the band of
+    rows, the labels' loss views, the forward and loss (under ``--remat``),
+    the backward and the gradients' average over the ranks.  Returns the
+    loss, detached."""
     loss_fn = make_loss_fn(cfg.loss_str, cfg.type)
     packed_view = emits_packed_loss_view(cfg)
-    lr = cfg.lr if learning_rate is None else learning_rate
     loss_of = rematerialized(functools.partial(forward_loss, cfg, model, loss_fn), cfg.remat)
 
-    def step_fn(state: TrainState, images, masks, rng: torch.Generator):
-        images = torch.as_tensor(images).to(dev, non_blocking=True)
-        masks = torch.as_tensor(masks).to(dev, non_blocking=True)
+    def learn(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
         with torch.no_grad():
-            x, y = augment_batch(rng, images, masks, crop=crop, bgr=cfg.bgr,
-                                 use_autoaugment=cfg.autoaugment, rank=mesh.data_rank(),
-                                 world=mesh.data_world())
             x, y = mesh.band(x), mesh.band(y)
             # the packed head emits train logits as a (B, H/2, 2W, n) pixel
             # permutation; pair it with the same permutation of the labels.
@@ -256,18 +253,207 @@ def make_train_step(cfg: Config, model, opt: torch.optim.Optimizer, crop: int = 
             loss = loss_of(x, y_main, y)
         loss.backward()
         mesh.average_gradients(model.parameters())
+        return loss.detach()
+
+    return learn
+
+
+def make_train_step(cfg: Config, model, opt: torch.optim.Optimizer, crop: int = 512,
+                    device="cuda", learning_rate: LearningRate = None,
+                    ) -> Callable[..., Tuple[TrainState, torch.Tensor]]:
+    """Build the augment+train step.  ``step_fn(state, images, masks, rng)``
+    takes raw uint8 (B, H, W, 3|6) tiles and (B, H, W) labels (numpy or
+    tensors; moved to ``device``) and a ``torch.Generator`` on the device
+    (:func:`step_generator`); it updates the model, its BN buffers and the
+    optimizer in place and returns ``(state, loss)``.  ``learning_rate`` is a
+    float or a schedule of the update count (default ``cfg.lr``).  Under
+    ``--spatial_shards`` the tiles are the data row's and each rank trains
+    on its band of the crops."""
+    dev = resolve_device(device)
+    lr = cfg.lr if learning_rate is None else learning_rate
+    learn = _learner(cfg, model)
+
+    def step_fn(state: TrainState, images, masks, rng: torch.Generator):
+        images = torch.as_tensor(images).to(dev, non_blocking=True)
+        masks = torch.as_tensor(masks).to(dev, non_blocking=True)
+        with torch.no_grad():
+            x, y = augment_batch(rng, images, masks, crop=crop, bgr=cfg.bgr,
+                                 use_autoaugment=cfg.autoaugment, rank=mesh.data_rank(),
+                                 world=mesh.data_world())
+        loss = learn(x, y)
         for group in opt.param_groups:
             group["lr"] = lr_at(lr, state.step)
         opt.step()
         opt.zero_grad(set_to_none=True)
         state.step += 1
-        return state, loss.detach()
+        return state, loss
 
     return step_fn
 
 
-def make_train_multistep(*args, **kwargs):
-    """K fused train steps in one device program (JAX ``lax.scan``); an
-    experiment of the JAX package that its trainer does not use."""
-    raise NotImplementedError("make_train_multistep is not ported to xview2_tpu_torch yet "
-                              "(ROADMAP Queue 1, make_train_multistep)")
+def check_graph_supported(cfg: Config) -> None:
+    """Raise ``NotImplementedError``, naming its ROADMAP item, where a CUDA
+    graph of train steps cannot hold the step: ``--autoaugment`` (its draws
+    go to the host every step to group the samples by op) and a gloo group
+    (the CPU's, or two ranks on one card: its collectives are staged
+    through the host)."""
+    if cfg.autoaugment:
+        raise NotImplementedError(
+            "make_train_multistep on CUDA: --autoaugment reads its draws on the host every "
+            "step to group the samples by op, which a CUDA graph cannot replay (ROADMAP "
+            "Queue 1, the graph path under --autoaugment; Queue 2 item 6)")
+    if mesh.active() is not None and dist.get_backend() != "nccl":
+        raise NotImplementedError(
+            f"make_train_multistep on CUDA: a {dist.get_backend()} group stages its "
+            "collectives through the host, which a CUDA graph cannot capture; it needs "
+            "NCCL, one rank per card (ROADMAP Queue 1, the graph path under a gloo group)")
+
+
+def _leaves(d) -> List[torch.Tensor]:
+    """The tensors of a draws dataclass (nested ones included), in order."""
+    out = []
+    for f in dataclasses.fields(d):
+        v = getattr(d, f.name)
+        if dataclasses.is_dataclass(v):
+            out += _leaves(v)
+        elif v is not None:
+            out.append(v)
+    return out
+
+
+def _static_like(d):
+    """A copy of a draws dataclass whose tensors are fresh buffers."""
+    def fresh(v):
+        return _static_like(v) if dataclasses.is_dataclass(v) else None if v is None else v.clone()
+
+    return dataclasses.replace(d, **{f.name: fresh(getattr(d, f.name))
+                                     for f in dataclasses.fields(d)})
+
+
+class _GraphedSteps:
+    """K train steps as one CUDA graph (see :func:`make_train_multistep`)."""
+
+    def __init__(self, cfg: Config, model, opt, nsteps: int, crop: int, dev: torch.device,
+                 lr: LearningRate, step_fn):
+        self.cfg, self.model, self.opt, self.nsteps = cfg, model, opt, nsteps
+        self.crop, self.dev, self.lr, self.step_fn = crop, dev, lr, step_fn
+        self.learn = _learner(cfg, model)
+        self.graph, self.key = None, None
+
+    def _key(self, images: torch.Tensor, masks: torch.Tensor) -> tuple:
+        """What the graph holds by address or by shape: the inputs' shapes
+        and the model's and the optimizer's tensors."""
+        held = [t.data_ptr() for t in self.model.parameters()]
+        held += [t.data_ptr() for t in self.model.buffers()]
+        held += [t.data_ptr() for st in self.opt.state.values() for t in st.values()
+                 if t.is_cuda]
+        return (tuple(images.shape), images.dtype, tuple(masks.shape), masks.dtype,
+                tuple(held))
+
+    def _draw(self, step: int, k: int):
+        return draw_augment(step_generator(self.cfg, step, self.dev), self.masks[k],
+                            self.crop, self.images.shape[-1], mesh.data_rank(),
+                            mesh.data_world())
+
+    def _body(self, k: int) -> None:
+        with torch.no_grad():
+            x, y = apply_augment(self.images[k], self.masks[k], self.draws[k], self.crop,
+                                 self.cfg.bgr)
+        loss = self.learn(x, y)
+        self.opt.apply(k)
+        self.opt.zero_grad(set_to_none=True)
+        self.losses[k].copy_(loss)
+
+    def _lrs(self, step: int) -> List[float]:
+        return [lr_at(self.lr, step + k) for k in range(self.nsteps)]
+
+    def _eager_then_capture(self, state: TrainState, images, masks):
+        """The K steps of this call eagerly on a side stream (the warm-up
+        that capture needs), then the capture, which runs nothing."""
+        self.graph = None
+        side = torch.cuda.Stream(self.dev)
+        side.wait_stream(torch.cuda.current_stream(self.dev))
+        with torch.cuda.stream(side):
+            losses = []
+            for k in range(self.nsteps):
+                state, loss = self.step_fn(state, images[k], masks[k],
+                                           step_generator(self.cfg, state.step, self.dev))
+                losses.append(loss)
+            losses = torch.stack(losses)
+            self.images = torch.empty(images.shape, dtype=images.dtype, device=self.dev)
+            self.masks = torch.empty(masks.shape, dtype=masks.dtype, device=self.dev)
+            self.images.copy_(images)
+            self.masks.copy_(masks)
+            self.draws = [_static_like(self._draw(0, k)) for k in range(self.nsteps)]
+            self.losses = torch.zeros_like(losses)
+            self.opt.prepare(self._lrs(state.step), advance=False)
+        torch.cuda.current_stream(self.dev).wait_stream(side)
+        torch.cuda.synchronize(self.dev)
+        torch.cuda.empty_cache()  # the warm-up's blocks, before the graph's pool takes its own
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for k in range(self.nsteps):
+                self._body(k)
+        self.graph, self.key = graph, self._key(self.images, self.masks)
+        return state, losses
+
+    def __call__(self, state: TrainState, images, masks):
+        images, masks = torch.as_tensor(images), torch.as_tensor(masks)
+        if images.shape[0] != self.nsteps or masks.shape[0] != self.nsteps:
+            raise ValueError(f"make_train_multistep({self.nsteps}): images {tuple(images.shape)} "
+                             f"and masks {tuple(masks.shape)} must stack {self.nsteps} batches")
+        if self.graph is None or self._key(images, masks) != self.key:
+            return self._eager_then_capture(state, images, masks)
+        if not images.is_cuda:  # pinned: an ordered copy that need not wait for the host
+            images, masks = images.pin_memory(), masks.pin_memory()
+        self.images.copy_(images, non_blocking=True)
+        self.masks.copy_(masks, non_blocking=True)
+        for k in range(self.nsteps):  # each step's draws, eagerly, as make_train_step's
+            for dst, src in zip(_leaves(self.draws[k]), _leaves(self._draw(state.step + k, k))):
+                dst.copy_(src)
+        self.opt.prepare(self._lrs(state.step))
+        self.graph.replay()
+        state.step += self.nsteps
+        return state, self.losses.clone()
+
+
+def make_train_multistep(cfg: Config, model, opt: torch.optim.Optimizer, nsteps: int,
+                         crop: int = 512, device="cuda", learning_rate: LearningRate = None,
+                         ) -> Callable[..., Tuple[TrainState, torch.Tensor]]:
+    """``nsteps`` train steps in one device program (JAX ``lax.scan``; an
+    experiment of the JAX package that its trainer does not use, nor does
+    this one).  ``multi(state, images, masks) -> (state, losses)`` takes
+    (K, B, H, W, 3|6) uint8 tiles and (K, B, H, W) labels and returns the
+    (K,) losses; step k draws from ``step_generator(cfg, state.step + k)``,
+    so the result is that of K calls of :func:`make_train_step`: the losses,
+    the parameters, the BatchNorm buffers, the optimizer state and
+    ``state.step``.
+
+    On the CPU it is those K calls.  On CUDA it is one CUDA graph of the K
+    steps: the first call (and a call after the inputs' shapes, the model's
+    or the optimizer's tensors changed) runs its K steps eagerly, which is
+    the warm-up capture needs, and captures the graph, which runs nothing;
+    later calls copy the inputs into the graph's static buffers, draw each
+    step's augmentation eagerly from its generator into static draws (the
+    draws of :func:`make_train_step`, bit for bit), write the optimizer's
+    table of per-step scalars (:meth:`_Zoo.prepare`) and replay.  The
+    hand-written kernels launch inside the graph on the capturing stream;
+    their launch counters count the capture, not the replays.  It raises
+    where a graph cannot hold the step (:func:`check_graph_supported`)."""
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        check_graph_supported(cfg)
+    step_fn = make_train_step(cfg, model, opt, crop=crop, device=dev,
+                              learning_rate=learning_rate)
+    if dev.type != "cuda":
+        def multi(state: TrainState, images, masks):
+            losses = []
+            for k in range(nsteps):
+                state, loss = step_fn(state, images[k], masks[k],
+                                      step_generator(cfg, state.step, dev))
+                losses.append(loss)
+            return state, torch.stack(losses)
+
+        return multi
+    return _GraphedSteps(cfg, model, opt, nsteps, crop, dev,
+                         cfg.lr if learning_rate is None else learning_rate, step_fn)

@@ -40,7 +40,8 @@ import torch
 from PIL import Image
 
 from xview2_tpu_torch.config import Config, apply_precision
-from xview2_tpu_torch.data.pipeline import Loader, make_test_loader, make_train_loaders
+from xview2_tpu_torch.data.pipeline import (Loader, decoder_status, make_test_loader,
+                                            make_train_loaders)
 from xview2_tpu_torch.models.encoder import encoder_channels
 from xview2_tpu_torch.models.pretrained import apply_pretrained_encoder
 from xview2_tpu_torch.models.unet import build_model
@@ -204,6 +205,7 @@ def fit(cfg: Config, device="cuda") -> str:
     _check_fit_supported(cfg)
     mesh.check_world(cfg.gpus, cfg.spatial_shards)
     train_loader, val_loader = make_train_loaders(cfg, mesh.data_rank(), mesh.data_world())
+    _say(f"input decoder: {decoder_status(cfg)}")
     runner = Runner(cfg, len(train_loader), device=device)
     state: TrainState = runner.state
 
@@ -214,7 +216,7 @@ def fit(cfg: Config, device="cuda") -> str:
         _say(f"loaded pretrained encoder from {cfg.pretrained_enc} ({len(copied)} tensors)")
 
     if cfg.type == "post" and ckpt_lib.checkpoint_exists(cfg.ckpt_pre):
-        loc, _ = ckpt_lib.restore_raw(cfg.ckpt_pre)
+        loc, _ = ckpt_lib.restore_raw(cfg.ckpt_pre, ("params", "batch_stats"))
         copied = transplant_encoder(cfg.dmg_model, runner.model,
                                     from_flax(loc["params"], loc["batch_stats"]))
         mesh.broadcast_module(runner.model)
@@ -347,12 +349,13 @@ def test(cfg: Config, device="cuda") -> dict:
     _check_supported(cfg)
     apply_precision(cfg)
     model = build_model(cfg)
-    payload, _ = ckpt_lib.restore_raw(cfg.ckpt)
+    payload, _ = ckpt_lib.restore_raw(cfg.ckpt, ("params", "batch_stats"))
     model.load_state_dict(from_flax(payload["params"], payload["batch_stats"]), strict=True)
     model.to(dev)
 
     mesh.run_on_main(_clear_task_artifacts, cfg)
     loader = make_test_loader(cfg, mesh.data_rank(), mesh.data_world())
+    _say(f"input decoder: {decoder_status(cfg)}")
     eval_step = make_eval_step(cfg, model, device=dev)
     f1_state = init_f1_state(cfg.n_metric_class, device=dev)
     for batch in loader:
