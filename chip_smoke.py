@@ -160,18 +160,28 @@ Phases, each of which fails the script (non-zero exit, no result line):
    cross-fusion's cases);
 15. the multistep path (``make_train_multistep``, K train steps as one CUDA
    graph): the headline ResNet-50 UNetLoc at batch 16 of 512^2 crops of
-   1024^2 tiles, AdamW, K = 2: on the stock tail under cuDNN's deterministic
-   algorithms two eager runs of 2K steps, and the graph (its first call eager
-   and captured, its second replayed) EQUAL to them where they are EQUAL
-   (losses, parameters, BatchNorm buffers, optimizer moments), the same under
-   a one-rank NCCL group and on a small ``cat`` + CORAL + ``--ppm`` model; the
-   fused tail in float32 with SGD within the loss and update gates (K4's
-   atomics);
-   ``--autoaugment`` and a gloo group refused; the readings (no gate) of the
-   headline and of A (ResNeSt-200, batch 16): the eager step against the
-   graph's per-step time by CUDA events over three replays, the profiler's
-   idle share of each, the peak memory, and one profiled replay's kernels
-   (K2, K4, K5 6K times, K3 K, K1 3K); ``--einsum_1x1`` on the headline's
+   1024^2 tiles, AdamW, K = 2, without and with ``--autoaugment`` (the graph
+   holds AutoAugment's static form, K6 included; the eager steps group by
+   op): on the stock tail under cuDNN's deterministic algorithms two eager
+   runs of 2K steps, and the graph (its first call eager and captured, its
+   second replayed) EQUAL to them where they are EQUAL (losses, parameters,
+   BatchNorm buffers, optimizer moments), the same under a one-rank NCCL
+   group (also with ``--autoaugment``), on a small ``cat`` + CORAL + ``--ppm``
+   model and on a small ``cat`` pair model with ``--autoaugment``; the fused
+   tail in float32 with SGD within the loss and update gates (K4's atomics),
+   also with ``--autoaugment``; the static form EQUAL to the grouped form on
+   16 singles and 8 pairs of 512^2 (seven K6 launches a call, as the policy
+   table gives); a gloo group refused; the readings (no gate) of the
+   headline, of ResNet-50 ``--autoaugment``, of D (ResNeSt-50 + gates + DS +
+   ``--autoaugment``, batch 16) and of A (ResNeSt-200, batch 16): the eager
+   step against the graph's per-step time by CUDA events over three replays,
+   the profiler's idle share of each, the peak memory, under
+   ``--autoaugment`` the eager step with the static form, and one profiled
+   replay's kernels, gated for the headline (K2, K4, K5 6K times, K3 K, K1
+   3K), ResNet-50 ``--autoaugment`` (the same and K6 7K) and D (K1 8K, K6
+   7K); phase 3 also holds K6 at the graph's shapes (a pass on the whole
+   batch, the samples at shift 0 copied) and times its seven launches a
+   step; ``--einsum_1x1`` on the headline's
    bf16 TTA eval step (the bf16 gates) and float32 eval (1e-5), both step
    times; the native decoder against PIL on the synthetic tiles (EQUAL, the
    decode rates), or, where it cannot be built, the reason and PIL's batches;
@@ -1296,6 +1306,55 @@ def _row_shift_cases(n, c: int = 4):
     ]
 
 
+def _static_k6_passes() -> int:
+    """K6 launches of one batch's AutoAugment in its static form, from the
+    policy table: per slot, one pass for each shift family its column draws
+    (shearX/translateX along W, shearY/translateY along H) and three for a
+    rotation."""
+    from xview2_tpu_torch.ops import autoaugment as aa
+
+    n = 0
+    for ops in (set(aa._OP1.tolist()), set(aa._OP2.tolist())):
+        n += sum(1 for fam in ((aa.SHEAR_X, aa.TRANS_X), (aa.SHEAR_Y, aa.TRANS_Y))
+                 if ops & set(fam))
+        n += 3 * (aa.ROTATE in ops)
+    return n
+
+
+def _row_shift_graph_cases(n: int):
+    """(tag, x, shift, sel, axis, launches a step) of the static form's K6
+    passes on the whole batch of ``n``: the x pass on the crop (a quarter of
+    the samples shear, lerping; the rest shift by 0, nearest), and the
+    rotation's row, column and row passes on the widened map (a quarter of
+    the samples rotate, the rest copy), once per slot that draws a rotation."""
+    import numpy as np
+    import torch
+
+    from xview2_tpu_torch.ops import autoaugment as aa
+
+    gen = torch.Generator(device="cuda").manual_seed(62)
+
+    def image(w):
+        return torch.randint(0, 256, (n, CROP, w, 4), generator=gen, device="cuda").float()
+
+    takes = torch.arange(n, device="cuda") % 4 == 0
+    rows = torch.arange(CROP, dtype=torch.float32, device="cuda")
+    cols = torch.arange(ROT_WIDTH, dtype=torch.float32, device="cuda")
+    mags = np.resize(np.array([30.0, -26.666666, 10.0], np.float32), n)
+    a, b = (torch.from_numpy(v).cuda() * takes for v in aa.rotate_shear_factors(mags))
+    shear = torch.where(takes[:, None], float(aa._M1[18]) * rows[None, :],
+                        torch.zeros((n, CROP), device="cuda"))
+    rotations = sum(aa.ROTATE in col for col in (aa._OP1.tolist(), aa._OP2.tolist()))
+    return [
+        ("x pass", image(CROP), shear, takes.to(torch.int32), 2, 1),
+        ("rotate row pass", image(ROT_WIDTH), a[:, None] * (rows - (CROP - 1) / 2.0)[None, :],
+         torch.zeros(n, dtype=torch.int32, device="cuda"), 2, 2 * rotations),
+        ("rotate column pass", image(ROT_WIDTH),
+         b[:, None] * (cols - (ROT_WIDTH - 1) / 2.0)[None, :],
+         torch.zeros(n, dtype=torch.int32, device="cuda"), 1, rotations),
+    ]
+
+
 def row_shift_host_breakdown(calls: int = 1000, c: int = 4) -> dict:
     """Host microseconds of one ``row_shift_cuda`` call beside ``clone``, and
     of the ctypes call of the entry point without a launch (an empty map) and
@@ -1434,6 +1493,39 @@ def check_row_shift():
         f"{pair['bound_ms']:.4f} ms (bytes)")
     row.update({f"pair_{k}": v for k, v in pair.items()})
     row.update({f"pair_host_us_{k}": v for k, v in row_shift_host_breakdown(c=7).items()})
+    # the CUDA graph's --autoaugment step (AutoAugment's static form): every
+    # pass on the whole batch of 16, a sample that does not take it copied
+    graph = dict(ms=0.0, device_ms=0.0, plain_ms=0.0, bound_ms=0.0, launches=0)
+    for tag, x, shift, sel, axis, times in _row_shift_graph_cases(TRAIN_BATCH):
+        got = rowshift.row_shift(x, shift, sel, axis=axis)
+        want = rowshift.row_shift_reference(x, shift, sel, axis=axis)
+        if not torch.equal(got, want):
+            raise AssertionError(f"K6 row_shift graph {tag} {tuple(x.shape)}: not bit-equal to "
+                                 f"the plain version, max abs err "
+                                 f"{(got - want).abs().max().item():.4g}")
+        copied = (sel == 0) & (shift == 0).all(dim=1)
+        if not torch.equal(got[copied], x[copied]):
+            raise AssertionError(f"K6 row_shift graph {tag}: a sample at shift 0 is not copied")
+        fn = lambda: rowshift.row_shift(x, shift, sel, axis=axis)  # noqa: E731
+        ms, dev = cuda_ms(fn, 20), device_ms(fn, 20)
+        plain = cuda_ms(lambda: rowshift.row_shift_reference(x, shift, sel, axis=axis), 5)
+        bnd, _ = bound_ms(2 * x.numel() * 4 + shift.numel() * 4 + sel.numel() * 4, 0.0,
+                          "float32")
+        log(f"K6 row_shift graph {tag} {tuple(x.shape)} f32 axis {axis}, {times} a step: "
+            f"bit-equal, samples at shift 0 copied, kernel {ms:.4f} ms "
+            f"({2 * x.numel() * 4 / ms / 1e9:.3f} TB/s; device time {dev:.4f}), plain "
+            f"{plain:.4f} ms, bound {bnd:.4f} ms (bytes)")
+        for k, v in (("ms", ms), ("device_ms", dev), ("plain_ms", plain), ("bound_ms", bnd),
+                     ("launches", 1)):
+            graph[k] += times * v
+    if graph["launches"] != _static_k6_passes():
+        raise AssertionError(f"K6 graph row: {graph['launches']} launches a step, the policy "
+                             f"table gives {_static_k6_passes()}")
+    log(f"K6 per --autoaugment step of the CUDA graph (AutoAugment's static form, batch "
+        f"{TRAIN_BATCH}, {graph['launches']} launches): kernel {graph['ms']:.4f} ms (device time "
+        f"{graph['device_ms']:.4f}), plain {graph['plain_ms']:.4f} ms, bound "
+        f"{graph['bound_ms']:.4f} ms (bytes)")
+    row.update({f"graph_{k}": v for k, v in graph.items()})
     return row
 
 
@@ -4765,12 +4857,24 @@ def _profiled(fn) -> dict:
             "launches": counts}
 
 
+def _static_augment_batch(gen, images, masks, crop, bgr=False, use_autoaugment=False,
+                          rank=0, world=1):
+    """``augment_batch`` under ``--autoaugment`` with AutoAugment's static
+    form in place of the grouped one (a reading of the eager step only)."""
+    from xview2_tpu_torch.ops import augment
+
+    d = augment.draw_augment_autoaugment(gen, masks, crop, rank, world)
+    return augment.apply_augment_autoaugment(images, masks, d, crop, bgr, static=True)
+
+
 @leg
 def _ms_readings(cfg, images, masks, tag: str, kernel_scale: float = 2.2) -> dict:
     """The eager step against the graph's per-step time (CUDA events: 3
     steps after 1 warm-up; MS_REPLAYS replays after the capturing call), the
     profiler's idle share of one step and of one replay, the peak memory of
-    each, and the kernels of one profiled replay."""
+    each, and the kernels of one profiled replay.  Under ``--autoaugment``
+    also the eager step with AutoAugment's static form in place of the
+    grouped one (CUDA events, the same count)."""
     import torch
 
     from xview2_tpu_torch.parallel import steps
@@ -4790,6 +4894,13 @@ def _ms_readings(cfg, images, masks, tag: str, kernel_scale: float = 2.2) -> dic
     eager_ms = cuda_ms(one_step, 3)
     eager_peak = torch.cuda.max_memory_allocated() / 2 ** 30
     eager_prof = _profiled(one_step)
+    static_ms = None
+    if cfg.autoaugment:
+        grouped, steps.augment_batch = steps.augment_batch, _static_augment_batch
+        try:
+            static_ms = cuda_ms(one_step, 3)
+        finally:
+            steps.augment_batch = grouped
     del model, opt, state, step
     torch.cuda.empty_cache()
 
@@ -4820,10 +4931,12 @@ def _ms_readings(cfg, images, masks, tag: str, kernel_scale: float = 2.2) -> dic
            "graph_device_ms_per_step": graph_prof["device_ms"] / MS_K,
            "eager_peak_gib": eager_peak, "graph_peak_gib": graph_peak,
            "reserved_gib": reserved, "first_call_s": first_s,
-           "replay_launches": graph_prof["launches"]}
+           "replay_launches": graph_prof["launches"], "eager_static_ms": static_ms}
+    static = (f"; with AutoAugment's static form {static_ms:.2f} ms" if static_ms is not None
+              else "")
     log(f"{tag} (batch {images.shape[1]}, {cfg.optimizer}, bf16): eager step {eager_ms:.2f} ms "
         f"(profiler: {eager_prof['device_ms']:.2f} ms of device time in {eager_prof['wall_ms']:.2f} "
-        f"ms, idle {100 * eager_prof['idle']:.1f}%), peak {eager_peak:.2f} GiB; graph of "
+        f"ms, idle {100 * eager_prof['idle']:.1f}%{static}), peak {eager_peak:.2f} GiB; graph of "
         f"{MS_K} steps {graph_ms:.2f} ms a step over {MS_REPLAYS} replays (profiler: "
         f"{graph_prof['device_ms']:.2f} ms of device time in a {graph_prof['wall_ms']:.2f} ms "
         f"replay, idle {100 * graph_prof['idle']:.1f}%), peak {graph_peak:.2f} GiB, reserved "
@@ -4835,8 +4948,8 @@ def _ms_readings(cfg, images, masks, tag: str, kernel_scale: float = 2.2) -> dic
 
 
 def check_graph_raises() -> str:
-    """``make_train_multistep`` on the card refuses ``--autoaugment`` and a
-    gloo group (two ranks on one card), naming their ROADMAP items."""
+    """``make_train_multistep`` on the card refuses a gloo group (two ranks
+    on one card), naming its ROADMAP item."""
     import torch.distributed as dist
 
     from xview2_tpu_torch.config import Config
@@ -4854,7 +4967,6 @@ def check_graph_raises() -> str:
             return
         raise AssertionError(f"make_train_multistep took {what}")
 
-    raises(Config(encoder="resnet50", autoaugment=True), "--autoaugment")
     mesh.init_data_parallel(1, 0, backend="gloo", device="cuda:0", store=dist.HashStore())
     try:
         raises(Config(encoder="resnet50", gpus=1), "a gloo group")
@@ -4947,16 +5059,74 @@ def check_native_decoder(work: str) -> dict:
     return row
 
 
+AA_STATIC_DRAWS = 8   # batches of draws through both AutoAugment forms at full width
+
+
+@leg
+def check_static_autoaugment() -> dict:
+    """AutoAugment's static form (the CUDA graph's) against the grouped form
+    (the eager step's) at full width: 512^2 crops of the smoke's 1024^2
+    tiles, 16 singles and 8 pairs, AA_STATIC_DRAWS batches of draws each:
+    image and mask EQUAL, row-major, ``_static_k6_passes()`` K6 launches a
+    call; the ops fired, and both forms' time a batch (CUDA events)."""
+    import numpy as np
+    import torch
+
+    from xview2_tpu_torch.ops import autoaugment as aa
+    from xview2_tpu_torch.ops import rowshift
+
+    row = {}
+    for channels, batch in ((3, TRAIN_BATCH), (6, DMG_BATCH)):
+        images, masks = _raw_train_batch(batch, channels)
+        img, mask = images[:, :CROP, :CROP].float(), masks[:, :CROP, :CROP].contiguous()
+        del images, masks
+        fired = np.zeros(14, np.int64)
+        for i in range(AA_STATIC_DRAWS):
+            d = aa.draw_autoaugment(torch.Generator(device="cuda").manual_seed(700 + i), batch,
+                                    "cuda")
+            for op, _, fires in aa.slot_plan(d):
+                np.add.at(fired, op[fires], 1)
+            want_img, want_mask = aa.apply_autoaugment(img, mask, d)
+            before = rowshift.row_shift_cuda.launches
+            got_img, got_mask = aa.apply_autoaugment_static(img, mask, d)
+            passes = rowshift.row_shift_cuda.launches - before
+            if passes != _static_k6_passes():
+                raise AssertionError(f"static form: {passes} K6 launches, the table gives "
+                                     f"{_static_k6_passes()}")
+            if not (torch.equal(got_mask, want_mask) and torch.equal(got_img, want_img)
+                    and got_img.is_contiguous()):
+                raise AssertionError(
+                    f"AutoAugment's static form differs from the grouped form on {channels} "
+                    f"channels, draws {i}: max abs {(got_img - want_img).abs().max().item():.4g}, "
+                    f"mask pixels {(got_mask != want_mask).sum().item()}")
+        grouped_ms = cuda_ms(lambda: aa.apply_autoaugment(img, mask, d), 3)
+        static_ms = cuda_ms(lambda: aa.apply_autoaugment_static(img, mask, d), 3)
+        names = {v: k for k, v in aa._OP_NAMES.items()}
+        ops = {names[o]: int(c) for o, c in enumerate(fired) if c}
+        log(f"AutoAugment's static form against the grouped form, {batch} x {CROP}^2 x "
+            f"{channels} (K6 on {channels + 1} channels, the mask last), {AA_STATIC_DRAWS} "
+            f"batches of draws: EQUAL (image and mask), {_static_k6_passes()} K6 launches a call; ops fired "
+            f"{ops}; a batch (the last draws) grouped {grouped_ms:.2f} ms, static "
+            f"{static_ms:.2f} ms")
+        row[f"{channels}ch"] = dict(ops_fired=ops, grouped_ms=grouped_ms, static_ms=static_ms)
+        del img, mask
+    return row
+
+
 def run_multistep_path(work: str, profile: bool):
     """Phase 15: ``make_train_multistep`` as one CUDA graph of K train steps
     (the headline ResNet-50 UNetLoc at batch 16 of 512^2 crops of 1024^2
-    tiles, AdamW): the stock tail EQUAL to eager steps where two eager runs
-    are EQUAL, and so under a one-rank NCCL group and on a small ``cat`` +
-    CORAL + ``--ppm`` model; the fused tail in float32 with SGD within its
-    gates; the refusals; the readings of the headline and of A;
-    ``--einsum_1x1``; the native decoder.
+    tiles, AdamW), without and with ``--autoaugment`` (AutoAugment's static
+    form in the graph, the grouped form in the eager steps): the stock tail
+    EQUAL to eager steps where two eager runs are EQUAL, and so under a
+    one-rank NCCL group and on small ``cat`` models (CORAL + ``--ppm``; pairs
+    under ``--autoaugment``); the fused tail in float32 with SGD within its
+    gates; the static form EQUAL to the grouped form at full width; the
+    gloo refusal; the readings of the headline, of ResNet-50
+    ``--autoaugment``, of A and of D, each replay's kernels (K6 as the
+    policy table gives); ``--einsum_1x1``; the native decoder.
     Returns the launch counters of the eager and captured steps, the
-    profiled replay's launches and the rows."""
+    profiled replays' launches and the rows."""
     import torch
 
     from xview2_tpu_torch.config import Config, apply_precision
@@ -4976,19 +5146,29 @@ def run_multistep_path(work: str, profile: bool):
         rows["stock bf16"] = _hold_graph_to_eager(base.replace(fused_tail=False), images, masks,
                                                   "multistep, stock tail, bf16, cuDNN "
                                                   "deterministic")
+        rows["stock bf16 autoaugment"] = _hold_graph_to_eager(
+            base.replace(fused_tail=False, autoaugment=True), images, masks,
+            "multistep --autoaugment, stock tail, bf16, cuDNN deterministic")
         with _LauncherEnv():
             mesh.init_data_parallel(1, 0, backend="nccl", device="cuda:0", init_method="env://")
             try:
-                before = mesh.collective.calls
-                rows["nccl"] = _hold_graph_to_eager(
-                    small, small_images, small_masks, "multistep under a one-rank NCCL group, "
-                    "ResNet-50, stock tail, batch 4 of 128^2", crop=128)
-                rows["nccl"]["collectives"] = mesh.collective.calls - before
+                for key, cfg in (("nccl", small), ("nccl autoaugment",
+                                                   small.replace(autoaugment=True))):
+                    before = mesh.collective.calls
+                    rows[key] = _hold_graph_to_eager(
+                        cfg, small_images, small_masks, f"multistep under a one-rank NCCL group"
+                        f"{' --autoaugment' if cfg.autoaugment else ''}, ResNet-50, stock tail, "
+                        "batch 4 of 128^2", crop=128)
+                    rows[key]["collectives"] = mesh.collective.calls - before
             finally:
                 mesh.shutdown()
         rows["coral ppm"] = _hold_graph_to_eager(
             small.replace(type="post", dmg_model="cat", loss_str="coral", ppm=True, batch_size=2),
             pair_images, pair_masks, "multistep, cat + CORAL + --ppm, ResNet-50, stock tail, 2 "
+            "pairs of 128^2", crop=128)
+        rows["cat autoaugment"] = _hold_graph_to_eager(
+            small.replace(type="post", dmg_model="cat", autoaugment=True, batch_size=2),
+            pair_images, pair_masks, "multistep --autoaugment, cat, ResNet-50, stock tail, 2 "
             "pairs of 128^2", crop=128)
     finally:
         torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = deterministic
@@ -5000,24 +5180,40 @@ def run_multistep_path(work: str, profile: bool):
     apply_precision(f32)
     rows["fused f32"] = _hold_graph_to_eager(f32, images, masks,
                                              "multistep, fused tail, f32, SGD")
+    rows["fused f32 autoaugment"] = _hold_graph_to_eager(
+        f32.replace(autoaugment=True), images, masks, "multistep --autoaugment, fused tail, "
+        "f32, SGD")
     launches = _read_counters()
     del images, masks
     torch.cuda.empty_cache()
     rows["raises"] = check_graph_raises()
+    rows["static autoaugment"] = check_static_autoaugment()
     torch.cuda.empty_cache()
     images, masks = _ms_batches(TRAIN_BATCH, MS_K)
-    rows["headline"] = _ms_readings(base, images, masks, "multistep readings, ResNet-50 UNetLoc")
-    replay = rows["headline"]["replay_launches"]
-    want = {k: n * MS_K for k, n in MS_NEED.items()}
-    log(f"one profiled replay of {MS_K} headline steps: {_nonzero(replay)} (expected {want})")
-    if any(replay[k] != n for k, n in want.items()):
-        raise AssertionError("the graph's replay did not launch K1-K5 as K eager steps do")
+    k6 = _static_k6_passes()
+    replays = {}
+    for key, cfg, need, tag in (
+            ("headline", base, MS_NEED, "ResNet-50 UNetLoc"),
+            ("autoaugment", base.replace(autoaugment=True),
+             {**MS_NEED, "row_shift_cuda": k6}, "ResNet-50 UNetLoc --autoaugment"),
+            ("D", Config(precision=16, loss_str="focal+dice", batch_size=TRAIN_BATCH,
+                         optimizer="adamw", fused_tail=True, autoaugment=True, **D_BASE),
+             {**D_NEED, "row_shift_cuda": k6}, "D (ResNeSt-50 + attention + DS + "
+             "--autoaugment)")):
+        rows[key] = _ms_readings(cfg, images, masks, f"multistep readings, {tag}")
+        replays[key] = replay = rows[key]["replay_launches"]
+        want = {k: n * MS_K for k, n in need.items()}
+        log(f"one profiled replay of {MS_K} steps of {tag}: {_nonzero(replay)} (expected {want})")
+        if any(replay[k] != n for k, n in want.items()):
+            raise AssertionError(f"{tag}: the graph's replay did not launch the kernels of K "
+                                 "eager steps")
     a_images, a_masks = _ms_batches(DMG_A_BATCH, MS_K)
     del images, masks
     rows["A"] = _ms_readings(base.replace(encoder="resnest200", batch_size=DMG_A_BATCH),
                              a_images, a_masks, "multistep readings, A (ResNeSt-200 UNetLoc)",
                              kernel_scale=1.9)
     del a_images, a_masks
+    replay = {k: sum(r[k] for r in replays.values()) for k in replays["headline"]}
     torch.cuda.empty_cache()
     rows["einsum_1x1"] = check_einsum_1x1(profile)
     torch.cuda.empty_cache()
@@ -5214,9 +5410,12 @@ def main(argv=None) -> int:
     # --spatial_shards 2 (train, per launch; fusion_band_eval_: K2 at the TTA
     # eval's band); spatial_options_path_launches: phase 14's two ranks' C and D
     # bf16 train steps and TTA evals and C's CLIs; multistep_path_launches: the
-    # kernels of one profiled replay of phase 15's CUDA graph of K headline
-    # train steps (the counters move at the capture, not at a replay; "launches"
-    # adds phase 15's counters: its eager steps and captures);
+    # kernels of one profiled replay each of phase 15's CUDA graphs of K
+    # headline, ResNet-50 --autoaugment and D train steps, summed (the counters
+    # move at the capture, not at a replay; "launches" adds phase 15's
+    # counters: its eager steps and captures); K6's graph_ keys: one
+    # --autoaugment step of the graph (AutoAugment's static form, seven
+    # launches on the whole batch of 16);
     # ds_train_ keys of K1: D's eight launches per train step; dmg_ keys of K1 and K3: the
     # damage shapes (K1 at n = 4, K3 at C = 256, Co = 16; dmg_train_: per
     # train step); coral_ and mse_ keys: K1 at n = 3 and 1, K3 at Co = 4 with

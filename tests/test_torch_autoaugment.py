@@ -9,7 +9,11 @@ magnitude and sign the policy table can give it, on 3 and on 6 channels;
 sample per subpolicy that fires a spatial op and some that fire none, applied
 as ONE batch so that the grouping by op is exercised; and the
 ``use_autoaugment`` branch of ``augment_sample`` (crop, AutoAugment,
-normalize), on 3 channels and on 6-channel pre/post pairs.
+normalize), on 3 channels and on 6-channel pre/post pairs.  The static form
+(``apply_autoaugment_static``, the CUDA graph's) is held EQUAL to the grouped
+form on the same batches, on pairs and on every subpolicy x fires pattern x
+sign, and to JAX under the same tolerances; equalize's fixed-size histogram
+EQUAL to ``bincount``'s.
 
 Tolerances, on the uint8 scale.  Masks: EQUAL everywhere.  Translations,
 rotations (nearest taps only), posterize, solarize, invert, autocontrast and
@@ -24,6 +28,7 @@ come out EQUAL at this size, image and mask: the port's shear factors are
 bit-equal to XLA's (``test_rotate_shear_factors_equal_xla``)."""
 
 import functools
+import itertools
 
 import jax
 import jax.numpy as jnp
@@ -31,10 +36,12 @@ import numpy as np
 import pytest
 import torch
 
+from torch_jax_variables import one_torch_thread  # noqa: F401
 from xview2_tpu.ops import augment as jaug
 from xview2_tpu.ops import autoaugment as jaa
 from xview2_tpu_torch.ops import augment as taug
 from xview2_tpu_torch.ops import autoaugment as taa
+from xview2_tpu_torch.ops import rowshift
 
 SIZE = 64
 EXACT = (taa.TRANS_X, taa.TRANS_Y, taa.ROTATE, taa.POSTERIZE, taa.SOLARIZE, taa.INVERT,
@@ -284,6 +291,90 @@ def test_batch_matches_jax_autoaugment_sample(policy_batch, i):
         np.testing.assert_array_equal(mask[i].numpy(), mask0[i])
 
 
+@pytest.fixture(scope="module")
+def static_batch(policy_batch):
+    """The static form on the policy batch's draws: on its 3-channel samples,
+    and (with the grouped form beside it) on 6-channel pairs whose post half
+    is the pre half upside down."""
+    draws, _, _, (img0, mask0) = policy_batch
+    d = _stack(draws, taa.AutoAugmentDraws)
+    mask = torch.from_numpy(mask0)
+    pairs = torch.from_numpy(np.concatenate([img0, img0[:, ::-1]], axis=-1))
+    return {3: taa.apply_autoaugment_static(torch.from_numpy(img0), mask, d),
+            6: taa.apply_autoaugment_static(pairs, mask, d),
+            "grouped 6": taa.apply_autoaugment(pairs, mask, d)}
+
+
+@pytest.mark.parametrize("channels", [3, 6])
+@pytest.mark.parametrize("i", range(len(POLICY_CASES)), ids=[c[0] for c in POLICY_CASES])
+def test_static_form_equals_the_grouped_form(policy_batch, static_batch, i, channels):
+    """``apply_autoaugment_static`` (fixed shapes, device ops only: the CUDA
+    graph's form) EQUAL to ``apply_autoaugment`` (grouped by op on the host)
+    on the same draws, image and mask, in the same row-major layout."""
+    _, grouped, _, _ = policy_batch
+    img, mask = static_batch[channels]
+    want_img, want_mask = grouped if channels == 3 else static_batch["grouped 6"]
+    assert img.shape == want_img.shape and img.is_contiguous() and mask.dtype == want_mask.dtype
+    assert torch.equal(mask[i], want_mask[i])
+    assert torch.equal(img[i], want_img[i])
+
+
+@pytest.mark.parametrize("i", range(len(POLICY_CASES)), ids=[c[0] for c in POLICY_CASES])
+def test_static_form_matches_jax_autoaugment_sample(policy_batch, static_batch, i):
+    draws, _, want, _ = policy_batch
+    img, mask = static_batch[3]
+    np.testing.assert_array_equal(mask[i].numpy(), want[i][1])
+    _assert_policy_close(img[i].numpy(), want[i][0], _fires(draws[i]))
+
+
+def _every_draw_pattern():
+    """Draws of every subpolicy with each slot firing or not and each sign."""
+    pol, u1, u2, neg1, neg2 = zip(*itertools.product(
+        range(taa.N_POLICIES), (0.0, 0.999), (0.0, 0.999), (False, True), (False, True)))
+    return taa.AutoAugmentDraws(torch.tensor(pol), torch.tensor(u1), torch.tensor(u2),
+                                torch.tensor(neg1), torch.tensor(neg2))
+
+
+@pytest.mark.parametrize("channels", [3, 6])
+def test_static_form_equals_the_grouped_form_on_every_draw_pattern(channels, monkeypatch):
+    """Every subpolicy x fires pattern x sign (400 samples of 32^2) through
+    both forms: EQUAL.  The static form makes seven row-shift passes, each
+    on the whole batch: slot 1's column draws shearX (one pass along W) and
+    rotate (three), slot 2's rotate (three)."""
+    passes = []
+
+    def counted(x, shift, sel, axis=2):
+        passes.append((tuple(x.shape), axis))
+        return rowshift.row_shift(x, shift, sel, axis)
+
+    d = _every_draw_pattern()
+    gen = torch.Generator().manual_seed(9)
+    n = d.policy.shape[0]
+    img = torch.randint(0, 256, (n, 32, 32, channels), generator=gen).float()
+    mask = torch.randint(0, 5, (n, 32, 32), generator=gen).to(torch.uint8)
+    want_img, want_mask = taa.apply_autoaugment(img, mask, d)
+    monkeypatch.setattr(taa, "row_shift", counted)
+    got_img, got_mask = taa.apply_autoaugment_static(img, mask, d)
+    wide = 32 + 2 * 7  # the rotation's widened map: mx = ceil(0.268 * 31 / 2) + 2
+    assert passes == [((n, 32, 32, channels + 1), 2)] + [
+        ((n, 32, wide, channels + 1), a) for a in (2, 1, 2)] * 2
+    assert torch.equal(got_mask, want_mask) and torch.equal(got_img, want_img)
+
+
+def test_equalize_histogram_equals_bincount():
+    """The fixed-size ``scatter_add_`` histogram EQUAL to ``bincount``'s,
+    with a flat plane, one that holds every level and an empty level 0."""
+    rng = np.random.default_rng(12)
+    planes = torch.from_numpy(rng.integers(1, 256, (5, 777)))
+    planes[1] = 77
+    planes[2, :256] = torch.arange(256)
+    want = torch.bincount((planes + torch.arange(5)[:, None] * 256).reshape(-1),
+                          minlength=5 * 256).reshape(5, 256)
+    got = taa.histogram256(planes)
+    assert got.dtype == torch.int64 and torch.equal(got, want)
+    assert got[1, 77] == 777 and got[0, 0] == 0 and bool((got[2] > 0).all())
+
+
 def test_six_channel_pair_gets_the_same_ops_on_both_halves():
     """A pre/post pair through a subpolicy with a rotation and a color op:
     equal to JAX, and the two halves, fed the same image, stay identical."""
@@ -377,9 +468,10 @@ def _branch_batch(cases, channels, labels):
     fields = {name: torch.from_numpy(np.stack([np.asarray(d[name]) for d in crops])
                                      .astype(np.int64)) for name in crops[0]}
     d = taug.AutoAugmentBranchDraws(aa=_stack(aas, taa.AutoAugmentDraws), **fields)
-    got = taug.apply_augment_autoaugment(torch.from_numpy(np.stack(imgs)),
-                                         torch.from_numpy(np.stack(masks)), d, crop=CROP)
-    return d, got, want, aas
+    images, labels = torch.from_numpy(np.stack(imgs)), torch.from_numpy(np.stack(masks))
+    got = taug.apply_augment_autoaugment(images, labels, d, crop=CROP)
+    static = taug.apply_augment_autoaugment(images, labels, d, crop=CROP, static=True)
+    return d, got, want, aas, static
 
 
 @pytest.fixture(scope="module")
@@ -392,7 +484,7 @@ def test_autoaugment_branch_matches_jax_augment_sample(branch_batch, i):
     """Normalized pixels (one grey level is 1 / 255 / 0.224 = 0.0175): labels
     EQUAL; the image at 1e-5 (the normalization's float32 division), with the
     allowance of ``_assert_policy_close`` where equalize follows the shear."""
-    d, (x, y), want, aas = branch_batch
+    d, (x, y), want, aas, _ = branch_batch
     wx, wy = want[i]
     assert x.shape[1:] == (CROP, CROP, 3) and x.dtype == torch.float32 and y.dtype == torch.int32
     np.testing.assert_array_equal(y[i].numpy(), wy)
@@ -445,7 +537,7 @@ def test_autoaugment_branch_on_pairs_matches_jax_augment_sample(pair_batch, i):
     """The crop and one AutoAugment draw per pair against JAX
     ``augment_sample(use_autoaugment=True)`` on 6 channels, under
     ``test_autoaugment_branch_matches_jax_augment_sample``'s tolerances."""
-    d, (x, y), want, aas = pair_batch
+    d, (x, y), want, aas, _ = pair_batch
     wx, wy = want[i]
     assert x.shape[1:] == (CROP, CROP, 6) and y.dtype == torch.int32
     np.testing.assert_array_equal(y[i].numpy(), wy)
@@ -456,3 +548,26 @@ def test_autoaugment_branch_on_pairs_matches_jax_augment_sample(pair_batch, i):
         np.testing.assert_allclose(x[i].numpy(), wx, rtol=0, atol=1e-5)
     if i == 3:  # nothing fired: the crop of the raw pair, normalized
         assert y[i].max() > 0
+
+
+@pytest.mark.parametrize("batch", ["branch_batch", "pair_batch"])
+def test_static_route_of_the_branch_equals_the_grouped_route(batch, request):
+    """``apply_augment_autoaugment(static=True)`` (the crop, AutoAugment's
+    static form, the normalization) EQUAL to the grouped route on the same
+    draws, on 3-channel tiles and on 6-channel pairs."""
+    _, (x, y), _, _, (xs, ys) = request.getfixturevalue(batch)
+    assert torch.equal(xs, x) and torch.equal(ys, y) and xs.is_contiguous()
+
+
+@pytest.mark.parametrize("i", range(len(PAIR_CASES)), ids=[c[0] for c in PAIR_CASES])
+def test_static_route_on_pairs_matches_jax_augment_sample(pair_batch, i):
+    """The static route on 6-channel pairs against JAX ``augment_sample(
+    use_autoaugment=True)``, under the grouped route's tolerances."""
+    _, _, want, aas, (x, y) = pair_batch
+    wx, wy = want[i]
+    np.testing.assert_array_equal(y[i].numpy(), wy)
+    fired = _fires(aas[i])
+    if fired[0] is not None and fired[0] not in EXACT and fired[1] in ROUNDING:
+        _assert_policy_close(x[i].numpy(), wx, fired, unit=1 / 255 / 0.224)
+    else:
+        np.testing.assert_allclose(x[i].numpy(), wx, rtol=0, atol=1e-5)

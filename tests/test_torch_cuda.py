@@ -9,6 +9,7 @@ Small shapes; ``chip_smoke.py`` holds the kernels at the main paths' shapes.
 """
 
 import copy
+import itertools
 import math
 
 import pytest
@@ -619,8 +620,8 @@ def test_autoaugment_pairs_on_the_card_equal_the_cpu():
 def test_autoaugment_on_the_card_equals_the_cpu():
     """The whole AutoAugment batch on the card against the same draws on the
     CPU: masks EQUAL; the image within 1e-3 of 255 (every op is the same
-    float32 arithmetic on both devices; only contrast's per-sample mean is a
-    sum in another order, and it is rounded to a grey level)."""
+    float32 arithmetic on both devices; contrast's per-sample mean is an
+    integer sum, the same in any order)."""
     gen = torch.Generator().manual_seed(6)
     img = torch.randint(0, 256, (32, 64, 64, 3), generator=gen).float()
     mask = (torch.rand((32, 64, 64), generator=gen) > 0.8).to(torch.uint8)
@@ -633,6 +634,36 @@ def test_autoaugment_on_the_card_equals_the_cpu():
     assert rowshift.row_shift_cuda.launches > before
     assert torch.equal(got_mask.cpu(), want_mask)
     assert (got_img.cpu() - want_img).abs().max().item() <= 1e-3
+
+
+def _every_draw_pattern(device):
+    """AutoAugment draws of every subpolicy with each slot firing or not and
+    each sign: 25 x 4 x 4 samples."""
+    pol, u1, u2, neg1, neg2 = zip(*itertools.product(
+        range(taa.N_POLICIES), (0.0, 0.999), (0.0, 0.999), (False, True), (False, True)))
+    return taa.AutoAugmentDraws(
+        torch.tensor(pol, device=device), *(torch.tensor(u, dtype=torch.float32, device=device)
+                                            for u in (u1, u2)),
+        *(torch.tensor(n, device=device) for n in (neg1, neg2)))
+
+
+@pytest.mark.parametrize("channels", [3, 6])
+def test_autoaugment_static_form_equals_the_grouped_form_on_the_card(channels):
+    """AutoAugment's static form (the CUDA graph's: fixed shapes, seven K6
+    launches a batch) EQUAL to the grouped form on the card, on the same
+    draws: every subpolicy, fires pattern and sign, singles and pairs."""
+    d = _every_draw_pattern("cuda")
+    gen = torch.Generator().manual_seed(9)
+    n = d.policy.shape[0]
+    img = torch.randint(0, 256, (n, 64, 64, channels), generator=gen).float().cuda()
+    mask = torch.randint(0, 5, (n, 64, 64), generator=gen).to(torch.uint8).cuda()
+    want_img, want_mask = taa.apply_autoaugment(img, mask, d)
+    before = rowshift.row_shift_cuda.launches
+    got_img, got_mask = taa.apply_autoaugment_static(img, mask, d)
+    assert rowshift.row_shift_cuda.launches - before == 7
+    assert got_img.is_contiguous() and got_mask.dtype == torch.uint8
+    assert torch.equal(got_mask, want_mask)
+    assert torch.equal(got_img, want_img)
 
 
 _SMALL = [(2, 16, 128, 32, 32), (1, 19, 70, 8, 8), (2, 9, 130, 24, 40), (1, 33, 257, 64, 64),
@@ -841,6 +872,9 @@ def test_train_multistep_graph_equals_eager_steps():
 _GRAPH_EXACT = ([(dict(optimizer=o), o == "adabound") for o in OPTIMIZERS if o != "adam"]
                 + [(dict(optimizer="adamw", remat=m), False) for m in ("tail", "full")]
                 + [(dict(optimizer="adamw", attention=True, deep_supervision=True, ppm=True),
+                    False)]
+                + [(dict(optimizer="adamw", autoaugment=True), False),
+                   (dict(optimizer="adamw", autoaugment=True, type="post", dmg_model="cat"),
                     False)])
 
 
@@ -854,7 +888,10 @@ def test_train_multistep_graph_is_equal_to_eager_steps(kw, scheduled):
     two calls (the first runs its steps eagerly and captures, the second
     replays), so RAdam's rectified updates (from the sixth) replay too.  Two
     eager runs are EQUAL, and the graph is EQUAL to them: the losses, every
-    parameter and buffer, every optimizer moment and ``state.step``."""
+    parameter and buffer, every optimizer moment and ``state.step``.  Under
+    ``--autoaugment`` (on 3-channel tiles, and on 6-channel pairs with labels
+    0..4 for a ``cat`` model) the eager steps group the samples by op on the
+    host and the graph replays AutoAugment's static form."""
     import numpy as np
 
     from xview2_tpu_torch.config import Config, apply_precision
@@ -864,17 +901,21 @@ def test_train_multistep_graph_is_equal_to_eager_steps(kw, scheduled):
     from xview2_tpu_torch.train.scheduler import noam_schedule
 
     k_steps = 4
-    cfg = Config(type="pre", encoder="resnet50", fused_tail=False, batch_size=2,
-                 weight_decay=0.05, **kw)
+    cfg = Config(**{**dict(type="pre", encoder="resnet50", fused_tail=False, batch_size=2,
+                           weight_decay=0.05), **kw})
     apply_precision(cfg)
     lr = noam_schedule(1e-4, 3e-3, 2e-4, 1, 3, 4) if scheduled else cfg.lr
     rng = np.random.default_rng(0)
-    images = torch.from_numpy(rng.integers(0, 256, (2 * k_steps, 2, 128, 128, 3),
+    pairs = cfg.type == "post"
+    images = torch.from_numpy(rng.integers(0, 256, (2 * k_steps, 2, 128, 128, 6 if pairs else 3),
                                            np.uint8)).cuda()
-    masks = torch.from_numpy((rng.random((2 * k_steps, 2, 128, 128)) > 0.8)
+    masks = torch.from_numpy(((rng.random((2 * k_steps, 2, 128, 128)) > 0.8)
+                              * rng.integers(1, 5 if pairs else 2, (2 * k_steps, 2, 128, 128)))
                              .astype(np.uint8)).cuda()
     torch.manual_seed(0)
     init = build_model(cfg).state_dict()
+    taa._device_tables.cache_clear()  # the graph makes the static form's constants itself
+    taa._luma_divisor.cache_clear()
 
     def run(graph):
         model = build_model(cfg)

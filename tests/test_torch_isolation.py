@@ -93,8 +93,9 @@ def test_options_left_out_raise_naming_a_roadmap_item():
     (the decoder options, the eight damage variants, ``--remat``, in train
     and in eval mode, at ``--gpus 2`` and ``--gpus 4``) are ported: the
     checks ``main`` runs before it spawns a rank let them through and
-    ``build_model`` builds them.  What still raises: ``make_train_multistep``
-    on CUDA (its CUDA graph) under ``--autoaugment`` and under a gloo group."""
+    ``build_model`` builds them, and ``make_train_multistep`` on CUDA (its
+    CUDA graph) takes ``--autoaugment``.  What still raises:
+    ``make_train_multistep`` on CUDA under a gloo group."""
     proc = _run("""
         import torch
         from xview2_tpu_torch.config import Config, parse_args
@@ -114,9 +115,8 @@ def test_options_left_out_raise_naming_a_roadmap_item():
         import torch.distributed as dist
         from xview2_tpu_torch.parallel import mesh
         available, torch.cuda.is_available = torch.cuda.is_available, lambda: True
-        raises(lambda: steps.make_train_multistep(Config(autoaugment=True), None, None, 2,
-                                                  device="cuda"),
-               "make_train_multistep under --autoaugment")
+        graphs = [steps.make_train_multistep(Config(**kw), None, None, 2, device="cuda")
+                  for kw in (dict(autoaugment=True), dict(type="post", autoaugment=True))]
         mesh.init_data_parallel(1, 0, backend="gloo", device="cpu", store=dist.HashStore())
         raises(lambda: steps.make_train_multistep(Config(gpus=1), None, None, 2, device="cuda"),
                "make_train_multistep under a gloo group")
@@ -166,10 +166,10 @@ def test_options_left_out_raise_naming_a_roadmap_item():
             assert trainer._check_fit_supported(cfg) is None, kw
             with torch.device("meta"):
                 build_model(cfg)
-        print("checked", 2, "raising,", len(cli) + len(ported), "ported")
+        print("checked", 1, "raising,", len(cli) + len(ported) + len(graphs), "ported")
     """)
     assert proc.returncode == 0, proc.stderr + proc.stdout
-    assert proc.stdout.split()[-5:] == ["checked", "2", "raising,", "47", "ported"]
+    assert proc.stdout.split()[-5:] == ["checked", "1", "raising,", "49", "ported"]
 
 
 def test_cuda_request_without_a_device_raises():

@@ -18,11 +18,22 @@ step, and the optimizers' device table of per-step scalars.
     is EQUAL, in float32 and float64, to the same update with the scalars
     passed as Python floats (the host-scalar form), on the same gradients,
     over eight updates (RAdam rectifies from the sixth) with the schedule.
-(d) The CUDA graph path raises, naming its ROADMAP item, under
-    ``--autoaugment`` and under a gloo group; it is checked before anything
-    touches a card.
+(d) The CUDA graph path raises, naming its ROADMAP item, under a gloo
+    group; it is checked before anything touches a card.
+(e) The graph's body without capture under ``--autoaugment``: the same
+    float64 ResNet-50 ``UNetLoc`` after one eager train step (which creates
+    the optimizer's state, as the graph's eager first call does), K bodies
+    (``steps.graph_draws``, the optimizer's K-row table,
+    ``steps.graph_body``: AutoAugment in its static form) EQUAL to K
+    ``make_train_step`` calls (the grouped form): the losses, every parameter
+    and buffer, the optimizer state, ``state.step``; on 3-channel tiles and on
+    a ``cat`` pair model with ``--type post`` (AdamW on singles, whose K
+    table rows differ; SGD with momentum on pairs).  The run starts at step
+    23, whose next two steps' draws fire a shearX and a rotation.
 The graph itself runs only on the card (``tests/test_torch_cuda.py``,
 ``chip_smoke.py``)."""
+
+import copy
 
 import jax
 import jax.numpy as jnp
@@ -32,6 +43,7 @@ import torch
 import torch.distributed as dist
 
 from torch_jax_variables import one_torch_thread, seeded_model  # noqa: F401
+from xview2_tpu_torch.ops import autoaugment as taa
 from xview2_tpu.config import Config as JaxConfig
 from xview2_tpu.models.unet import build_model as jax_build_model
 from xview2_tpu.parallel import steps as jax_steps
@@ -210,13 +222,73 @@ def _raises_naming_roadmap(cfg, monkeypatch):
         steps.make_train_multistep(cfg, None, None, K, device="cuda")
 
 
-def test_graph_path_raises_under_autoaugment(monkeypatch):
-    _raises_naming_roadmap(Config(encoder="resnet50", autoaugment=True), monkeypatch)
-
-
 def test_graph_path_raises_under_a_gloo_group(monkeypatch):
     mesh.init_data_parallel(1, 0, backend="gloo", device="cpu", store=dist.HashStore())
     try:
         _raises_naming_roadmap(Config(encoder="resnet50", gpus=1), monkeypatch)
     finally:
         mesh.shutdown()
+
+
+AA_START = 23  # steps 24 and 25 draw a shearX and a rotation
+
+
+def _fired_ops(cfg, images, masks, first):
+    """The ops AutoAugment fires at steps ``first .. first + K - 1``."""
+    fired = set()
+    for k in range(K):
+        d = steps.graph_draws(cfg, first + k, torch.as_tensor(images[k]),
+                              torch.as_tensor(masks[k]), CROP)
+        for op, _, fires in taa.slot_plan(d.aa):
+            fired |= set(op[fires].tolist())
+    return fired
+
+
+@pytest.mark.parametrize("pairs", [False, True], ids=["singles", "cat-pairs"])
+def test_graph_bodies_equal_train_steps_under_autoaugment(pairs):
+    kw = dict(BASE, optimizer="adamw", autoaugment=True)
+    if pairs:
+        kw.update(type="post", dmg_model="cat", optimizer="sgd", momentum=0.9)
+    cfg = Config(**kw)
+    rng = np.random.default_rng(7)
+    images = rng.integers(0, 256, (1 + K, 2, TILE, TILE, 6 if pairs else 3), np.uint8)
+    masks = ((rng.random((1 + K, 2, TILE, TILE)) > 0.8)
+             * rng.integers(1, 5 if pairs else 2, (1 + K, 2, TILE, TILE))).astype(np.uint8)
+    assert {taa.SHEAR_X, taa.ROTATE} <= _fired_ops(cfg, images[1:], masks[1:], AA_START + 1)
+    model, _ = seeded_model(kw, seed=1)
+    opt = build_optimizer(cfg, model.parameters(), cfg.lr)
+    state = steps.init_train_state(model, opt, device="cpu")
+    state.step = AA_START
+    state, _ = steps.make_train_step(cfg, model, opt, crop=CROP, device="cpu")(
+        state, images[0], masks[0], steps.step_generator(cfg, state.step, "cpu"))
+    runs = {}
+    for mode in ("steps", "bodies"):
+        model_c = copy.deepcopy(model)
+        opt_c = build_optimizer(cfg, model_c.parameters(), cfg.lr)
+        for p, p_c in zip(model.parameters(), model_c.parameters()):
+            opt_c.state[p_c] = {k: v.clone() for k, v in opt.state[p].items()}
+        state_c = steps.TrainState(state.step, model_c, opt_c)
+        imgs, msks = torch.from_numpy(images[1:]), torch.from_numpy(masks[1:])
+        if mode == "steps":
+            step = steps.make_train_step(cfg, model_c, opt_c, crop=CROP, device="cpu")
+            losses = []
+            for k in range(K):
+                state_c, loss = step(state_c, imgs[k], msks[k],
+                                     steps.step_generator(cfg, state_c.step, "cpu"))
+                losses.append(loss)
+        else:
+            learn = steps._learner(cfg, model_c)
+            draws = [steps.graph_draws(cfg, state_c.step + k, imgs[k], msks[k], CROP)
+                     for k in range(K)]
+            opt_c.prepare([cfg.lr] * K)
+            losses = [steps.graph_body(cfg, learn, opt_c, imgs, msks, draws, k, CROP)
+                      for k in range(K)]
+            state_c.step += K
+        runs[mode] = (torch.stack(losses), *_snapshot(model_c, opt_c, state_c))
+    (l0, s0, n0), (l1, s1, n1) = runs["steps"], runs["bodies"]
+    assert torch.equal(l0, l1), (l0, l1)
+    assert n0 == n1 == AA_START + 1 + K
+    assert s0.keys() == s1.keys()
+    assert [key for key in s0 if not torch.equal(s0[key], s1[key])] == []
+    moved = [key for key, v in model.state_dict().items() if not torch.equal(v, s0[key])]
+    assert len(moved) > len(s0) // 4  # the K steps after the copy moved the model

@@ -301,12 +301,16 @@ def _crop_noscale(images: torch.Tensor, masks: torch.Tensor, d: AutoAugmentBranc
 
 def apply_augment_autoaugment(images: torch.Tensor, masks: torch.Tensor,
                               d: AutoAugmentBranchDraws, crop: int = CROP,
-                              bgr: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+                              bgr: bool = False, static: bool = False,
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Apply one batch's ``--autoaugment`` draws: raw uint8 ``images`` (B, H,
     W, 3|6) and ``masks`` (B, H, W) -> normalized float32 (B, crop, crop, C)
-    crops and int32 (B, crop, crop) labels."""
+    crops and int32 (B, crop, crop) labels.  ``static`` takes AutoAugment's
+    static form (fixed shapes, the draws' device tensors only: what a CUDA
+    graph holds) instead of the grouped one; the numbers are the same."""
     img, mask = _crop_noscale(images, masks, d, crop)
-    img, mask = autoaugment.apply_autoaugment(img, mask, d.aa)
+    form = autoaugment.apply_autoaugment_static if static else autoaugment.apply_autoaugment
+    img, mask = form(img, mask, d.aa)
     return normalize(img, img.shape[-1], bgr), mask.to(torch.int32)
 
 

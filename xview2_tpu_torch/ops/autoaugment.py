@@ -5,11 +5,20 @@ values and, for the spatial ops, jointly to the mask.
 
 The JAX module is a per-sample function under ``vmap``, where the two
 ``lax.cond``/``lax.switch`` levels become selects and all 14 ops run for every
-sample.  Here the batch is handled by hand: the draws
-(:class:`AutoAugmentDraws`) come to the host once per batch, and for each of
-the two slots the samples are GROUPED by the op they drew; an op runs once on
-its group with per-sample magnitudes and the result is written back.  Samples
-whose slot does not fire are left alone.
+sample.  Here the batch is handled by hand, in one of two forms that compute
+the same numbers:
+
+* GROUPED (:func:`apply_autoaugment`, the eager train step's): the draws
+  (:class:`AutoAugmentDraws`) come to the host once per batch, and for each of
+  the two slots the samples are grouped by the op they drew; an op runs once
+  on its group with per-sample magnitudes and the result is written back.
+  Samples whose slot does not fire are left alone.
+* STATIC (:func:`apply_autoaugment_static`, the CUDA graph's): JAX's select
+  form written for a batch, with fixed shapes and device operations only.
+  Per slot, each op of the slot's column of the policy table runs on the
+  whole batch and is kept where a sample's fired op is that op; a spatial
+  family runs as row-shift passes over the whole batch in which a sample
+  that does not take it gets shift 0 and the nearest tap, an exact copy.
 
 The JAX module has two forms of the spatial ops and picks by backend; the
 port has one, the TPU's, on both devices: shears and translations are one
@@ -24,13 +33,17 @@ of a pre/post pair and the mask; shears sample the image bilinearly,
 translations and rotations nearest (half-up); ``round`` is half-to-even.
 Sharpness's SMOOTH filter is nine shifted adds in float32, never a library
 convolution (which would run in TF32 on the card at ``--precision 16``), so
-the card and the CPU agree.  Equalize builds its histogram with integer
-``bincount`` and applies the LUT with a gather.
+the card and the CPU agree.  Contrast's mean grey level is exact (integer
+sums), so it does not depend on the device or on how many samples share a
+call.  Equalize builds its histogram with an integer ``scatter_add_`` into a
+buffer of fixed size (``bincount`` reads its input's maximum back to the
+host) and applies the LUT with a gather.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Tuple
 
 import numpy as np
@@ -111,6 +124,13 @@ def _per_sample(v: torch.Tensor) -> torch.Tensor:
 # with one parameter per sample
 # --------------------------------------------------------------------------
 
+@functools.lru_cache(maxsize=8)
+def _luma_divisor(device: torch.device) -> torch.Tensor:
+    """1000.0 on ``device``, made once (a CUDA graph cannot replay a host copy)."""
+    with torch.inference_mode(False):
+        return torch.tensor(1000.0, dtype=torch.float32, device=device)
+
+
 def _grayscale(img3: torch.Tensor) -> torch.Tensor:
     """PIL convert('L') luma (ITU-R 601-2).  The divisor is a tensor on the
     image's device: PyTorch's CUDA kernels divide by a Python scalar as a
@@ -118,7 +138,7 @@ def _grayscale(img3: torch.Tensor) -> torch.Tensor:
     CPU (and the JAX module) performs, and a later ``round`` turns that ulp
     into a grey level."""
     return (img3[..., 0] * 299 + img3[..., 1] * 587 + img3[..., 2] * 114) / \
-        img3.new_tensor(1000.0)
+        _luma_divisor(img3.device)
 
 
 def _blend(a: torch.Tensor, b: torch.Tensor, factor: torch.Tensor) -> torch.Tensor:
@@ -132,7 +152,14 @@ def _op_color(img: torch.Tensor, factor: torch.Tensor) -> torch.Tensor:
 
 
 def _op_contrast(img: torch.Tensor, factor: torch.Tensor) -> torch.Tensor:
-    mean = torch.floor(_grayscale(torch.round(img)).mean(dim=(1, 2)) + 0.5)
+    """Blend with the mean grey level, ``floor(mean luma + 0.5)`` of the
+    rounded image.  The mean is exact: the luma numerators are integers,
+    summed in int64 and divided once (JAX's float32 mean rounds on the way);
+    a float32 sum's order would depend on the device and on the batch."""
+    v = torch.round(img).to(torch.int64)
+    num = (v[..., 0] * 299 + v[..., 1] * 587 + v[..., 2] * 114).sum(dim=(1, 2))
+    den = 1000 * img.shape[1] * img.shape[2]
+    mean = torch.div(2 * num + den, 2 * den, rounding_mode="floor").to(img.dtype)
     return torch.clamp(_blend(_per_sample(mean).expand_as(img), img, factor), 0, 255)
 
 
@@ -182,6 +209,15 @@ def _op_autocontrast(img: torch.Tensor, _mag: torch.Tensor) -> torch.Tensor:
     return torch.clamp(out, 0, 255)
 
 
+def histogram256(planes: torch.Tensor) -> torch.Tensor:
+    """The (P, 256) int64 histogram of each row of ``planes`` (P, N), int64
+    grey levels in [0, 255]: one ``scatter_add_`` into a zeroed buffer of
+    fixed size, with no read back to the host (so a CUDA graph can hold it;
+    ``bincount`` sizes its output by the input's maximum)."""
+    hist = torch.zeros((planes.shape[0], 256), dtype=torch.int64, device=planes.device)
+    return hist.scatter_add_(1, planes, torch.ones_like(planes))
+
+
 def _op_equalize(img: torch.Tensor, _mag: torch.Tensor) -> torch.Tensor:
     """PIL ImageOps.equalize per (sample, channel), in integers: a 256-bin
     histogram, ``step = (pixels - last non-zero bin) // 255``, the LUT
@@ -190,9 +226,7 @@ def _op_equalize(img: torch.Tensor, _mag: torch.Tensor) -> torch.Tensor:
     n, h, w, c = img.shape
     v = torch.round(img).to(torch.int64).clamp(0, 255)
     planes = v.permute(0, 3, 1, 2).reshape(n * c, h * w)
-    offsets = torch.arange(n * c, device=img.device)[:, None] * 256
-    hist = torch.bincount((planes + offsets).reshape(-1), minlength=n * c * 256)
-    hist = hist.reshape(n * c, 256)
+    hist = histogram256(planes)
     bins = torch.arange(256, device=img.device)
     last_nz = torch.where(hist > 0, bins, torch.zeros_like(bins)).amax(dim=1, keepdim=True)
     hist_last = torch.gather(hist, 1, last_nz)
@@ -233,18 +267,20 @@ def rotate_shear_factors(mag: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
     return (-np.tan(theta / 2.0)).astype(np.float32), np.sin(theta).astype(np.float32)
 
 
-def _rotate_3shear(packed: torch.Tensor, mag: np.ndarray) -> torch.Tensor:
-    """Rotate by ``mag`` degrees (PIL counter-clockwise) as three shear
-    passes.  The dst->src rotation matrix factors exactly as ``Sx(a) @ Sy(b) @
-    Sx(a)``, so rotation is a row shift, a column shift and a row shift,
-    each taking the nearest tap (PIL rotates NEAREST); taps can drift up to
-    about 1.5 px from the one-gather rotation near the largest angles, the
-    same for image and mask.  The width is widened by the worst-case overhang
-    of the first shear (30 degrees, the table's maximum) so corner content
-    survives the intermediate passes; the height needs no widening."""
+def _rotate_3shear(packed: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Rotate each sample by the angle whose shear factors are ``a``, ``b``
+    ((n,) float32 on the map's device, :func:`rotate_shear_factors`; PIL
+    counter-clockwise) as three shear passes.  The dst->src rotation matrix
+    factors exactly as ``Sx(a) @ Sy(b) @ Sx(a)``, so rotation is a row
+    shift, a column shift and a row shift, each taking the nearest tap (PIL
+    rotates NEAREST); taps can drift up to about 1.5 px from the one-gather
+    rotation near the largest angles, the same for image and mask.  The
+    width is widened by the worst-case overhang of the first shear (30
+    degrees, the table's maximum) so corner content survives the
+    intermediate passes; the height needs no widening.  A sample with ``a =
+    b = 0`` is copied exactly (shift 0, the nearest tap)."""
     n, h, w, _ = packed.shape
     dev = packed.device
-    a, b = (torch.from_numpy(v).to(dev) for v in rotate_shear_factors(mag))
     mx = int(np.ceil(0.2680 * (h - 1) / 2.0)) + 2  # tan(15 deg) * h/2
     wp = w + 2 * mx
     cy = (h - 1) / 2.0
@@ -268,7 +304,8 @@ def _warp_packed(op: int, mag: np.ndarray, img: torch.Tensor,
     dev = img.device
     packed = torch.cat([img, mask.to(img.dtype)[..., None]], dim=-1)
     if op == ROTATE:
-        out = _rotate_3shear(packed, mag)
+        out = _rotate_3shear(packed, *(torch.from_numpy(v).to(dev)
+                                       for v in rotate_shear_factors(mag)))
     else:
         m = torch.from_numpy(np.asarray(mag, np.float32)).to(dev)[:, None]
         horizontal = op in (SHEAR_X, TRANS_X)
@@ -294,11 +331,15 @@ def apply_op(op: int, mag, img: torch.Tensor,
                          f"{tuple(img.shape)}")
     if op in _SPATIAL:
         return _warp_packed(op, mag, img, mask)
+    return _intensity(op, img, torch.from_numpy(mag).to(img.device)), mask
+
+
+def _intensity(op: int, img: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """Intensity op ``op`` with magnitudes ``m`` (n,) on each 3-channel half."""
     fn = _INTENSITY[op]
-    m = torch.from_numpy(mag).to(img.device)
     if img.shape[-1] == 6:
-        return torch.cat([fn(img[..., :3], m), fn(img[..., 3:], m)], dim=-1), mask
-    return fn(img, m), mask
+        return torch.cat([fn(img[..., :3], m), fn(img[..., 3:], m)], dim=-1)
+    return fn(img, m)
 
 
 # --------------------------------------------------------------------------
@@ -361,3 +402,104 @@ def autoaugment_batch(gen: torch.Generator, img: torch.Tensor,
                       mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Draw and apply: one ImageNet-AutoAugment draw per sample."""
     return apply_autoaugment(img, mask, draw_autoaugment(gen, img.shape[0], img.device))
+
+
+# --------------------------------------------------------------------------
+# the static form: fixed shapes, device operations only
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class _SlotTable:
+    """One slot's column of the policy table on a device, indexed by policy."""
+
+    op: torch.Tensor     # (25,) int64 op id
+    mag: torch.Tensor    # (25,) f32 magnitude (unsigned)
+    prob: torch.Tensor   # (25,) f32 probability of firing
+    rot_a: torch.Tensor  # (25,) f32 rotate_shear_factors(mag)[0]
+    rot_b: torch.Tensor  # (25,) f32 rotate_shear_factors(mag)[1]
+    ops: Tuple[int, ...]  # the ops the column draws, in id order
+
+
+@functools.lru_cache(maxsize=8)
+def _device_tables(device: torch.device) -> Tuple[torch.Tensor, Tuple[_SlotTable, ...]]:
+    """The policy table on ``device``, made once: "signed" by op id, and the
+    two slots' columns with their rotation factors (computed on the host by
+    :func:`rotate_shear_factors`, so the card and the CPU shift the same
+    lines)."""
+    with torch.inference_mode(False):
+        signed = torch.tensor([o in _SIGNED for o in range(len(_RANGES))], device=device)
+        slots = []
+        for ops, mags, probs in ((_OP1, _M1, _P1), (_OP2, _M2, _P2)):
+            a, b = rotate_shear_factors(mags)
+            slots.append(_SlotTable(
+                *(torch.from_numpy(np.asarray(v)).to(device)
+                  for v in (ops.astype(np.int64), mags, probs, a, b)),
+                ops=tuple(sorted(set(ops.tolist())))))
+    return signed, tuple(slots)
+
+
+def _spatial_static(slot: _SlotTable, op: torch.Tensor, mag: torch.Tensor,
+                    flip: torch.Tensor, fires: torch.Tensor, pol: torch.Tensor,
+                    img: torch.Tensor, mask: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The spatial ops of one slot on the whole batch, as in
+    :func:`_warp_packed`: the x family (shearX lerps by ``m*row``, translateX
+    takes the nearest tap at ``m*W``) as one pass along W, the y family as one
+    pass along H, the rotation as three nearest passes; each only where the
+    slot's column draws it.  A sample that does not take a pass gets shift 0
+    and the nearest tap, an exact copy, so no select follows."""
+    n, h, w = mask.shape
+    dev = img.device
+    packed = torch.cat([img, mask.to(img.dtype)[..., None]], dim=-1)
+    for shear, trans, axis in ((SHEAR_X, TRANS_X, 2), (SHEAR_Y, TRANS_Y, 1)):
+        if shear not in slot.ops and trans not in slot.ops:
+            continue
+        lines, length = (h, w) if axis == 2 else (w, h)
+        is_shear = fires & (op == shear)
+        shift = torch.where(
+            is_shear[:, None],
+            mag[:, None] * torch.arange(lines, dtype=torch.float32, device=dev)[None, :],
+            (mag[:, None] * length).expand(n, lines))
+        takes = is_shear | (fires & (op == trans))
+        shift = torch.where(takes[:, None], shift, torch.zeros_like(shift))
+        packed = row_shift(packed, shift, is_shear.to(torch.int32), axis=axis)
+    if ROTATE in slot.ops:
+        rotates = fires & (op == ROTATE)
+        a, b = (torch.where(rotates, torch.where(flip, -t[pol], t[pol]), torch.zeros_like(mag))
+                for t in (slot.rot_a, slot.rot_b))
+        packed = _rotate_3shear(packed, a, b)
+    return packed[..., :-1], packed[..., -1].to(mask.dtype)
+
+
+def apply_autoaugment_static(img: torch.Tensor, mask: torch.Tensor,
+                             d: AutoAugmentDraws) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`apply_autoaugment` with fixed shapes and no host round trip
+    (JAX's vmapped select form, written for a batch), so that a CUDA graph
+    can hold it and a replay follows new draws.  Per slot: ``fires = u <
+    p[policy]``, ``op = OP[policy]`` and the signed magnitude are lookups and
+    selects on device tables; the spatial families of the slot's column run
+    through K6 on the whole batch (:func:`_spatial_static`); each intensity op
+    of the column runs on the whole batch and is kept, by one
+    ``torch.where``, where the sample's fired op is that op.  The same
+    numbers as :func:`apply_autoaugment`, bit for bit."""
+    if img.shape[0] != mask.shape[0] or img.shape[-1] not in (3, 6):
+        raise ValueError(f"apply_autoaugment_static: img must be ({mask.shape[0]}, H, W, 3|6), "
+                         f"got {tuple(img.shape)}")
+    signed, slots = _device_tables(img.device)
+    pol = d.policy.to(torch.int64)
+    for slot, u, neg in zip(slots, (d.u1, d.u2), (d.neg1, d.neg2)):
+        op = slot.op[pol]
+        fires = u < slot.prob[pol]
+        flip = signed[op] & neg
+        m = slot.mag[pol]
+        mag = torch.where(flip, -m, m)
+        if set(slot.ops) & set(_SPATIAL):
+            img, mask = _spatial_static(slot, op, mag, flip, fires, pol, img, mask)
+        for o in slot.ops:
+            if o not in _SPATIAL:
+                keep = _per_sample(fires & (op == o))
+                img = torch.where(keep, _intensity(o, img, mag), img)
+    # equalize's channel-major map leads torch.where's output layout; the
+    # grouped form writes into a row-major copy, and a convolution's
+    # algorithm (so its last bits) depends on the layout
+    return img.contiguous(), mask

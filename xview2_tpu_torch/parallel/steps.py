@@ -68,8 +68,9 @@ from xview2_tpu_torch.models.layers import (einsum_1x1_scope, fold_eval_bn_scope
                                             frozen_running_stats, fused_tail_scope,
                                             remat_tail_scope)
 from xview2_tpu_torch.models.unet import emits_packed_loss_view, fused_head_defer_ok
-from xview2_tpu_torch.ops.augment import (apply_augment, augment_batch, draw_augment,
-                                          eval_batch)
+from xview2_tpu_torch.ops.augment import (apply_augment, apply_augment_autoaugment,
+                                          augment_batch, draw_augment,
+                                          draw_augment_autoaugment, eval_batch)
 from xview2_tpu_torch.ops.layout import relayout_standard
 from xview2_tpu_torch.ops.losses import (deep_supervision_loss, make_loss_fn,
                                          packed_loss_view_labels)
@@ -291,17 +292,12 @@ def make_train_step(cfg: Config, model, opt: torch.optim.Optimizer, crop: int = 
     return step_fn
 
 
-def check_graph_supported(cfg: Config) -> None:
+def check_graph_supported() -> None:
     """Raise ``NotImplementedError``, naming its ROADMAP item, where a CUDA
-    graph of train steps cannot hold the step: ``--autoaugment`` (its draws
-    go to the host every step to group the samples by op) and a gloo group
-    (the CPU's, or two ranks on one card: its collectives are staged
-    through the host)."""
-    if cfg.autoaugment:
-        raise NotImplementedError(
-            "make_train_multistep on CUDA: --autoaugment reads its draws on the host every "
-            "step to group the samples by op, which a CUDA graph cannot replay (ROADMAP "
-            "Queue 1, the graph path under --autoaugment; Queue 2 item 6)")
+    graph of train steps cannot hold the step: under a gloo group (the CPU's,
+    or two ranks on one card), whose collectives are staged through the host.
+    Every option of the step runs in the graph (``--autoaugment`` in
+    AutoAugment's static form)."""
     if mesh.active() is not None and dist.get_backend() != "nccl":
         raise NotImplementedError(
             f"make_train_multistep on CUDA: a {dist.get_backend()} group stages its "
@@ -330,6 +326,45 @@ def _static_like(d):
                                      for f in dataclasses.fields(d)})
 
 
+def graph_draws(cfg: Config, step: int, images: torch.Tensor, masks: torch.Tensor,
+                crop: int):
+    """The augmentation draws of train step ``step`` on one batch of raw
+    ``images`` and ``masks`` (on their device): those that
+    :func:`make_train_step` draws from ``step_generator(cfg, step)``, bit for
+    bit, for this rank's rows."""
+    gen = step_generator(cfg, step, masks.device)
+    if cfg.autoaugment:
+        return draw_augment_autoaugment(gen, masks, crop, mesh.data_rank(), mesh.data_world())
+    return draw_augment(gen, masks, crop, images.shape[-1], mesh.data_rank(),
+                        mesh.data_world())
+
+
+@torch.no_grad()
+def graph_augment(cfg: Config, images: torch.Tensor, masks: torch.Tensor, draws, k: int,
+                  crop: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Batch ``k`` of the stacked inputs augmented by ``draws[k]``
+    (:func:`graph_draws`), as a graph holds it: under ``--autoaugment``
+    AutoAugment's static form."""
+    if cfg.autoaugment:
+        return apply_augment_autoaugment(images[k], masks[k], draws[k], crop, cfg.bgr,
+                                         static=True)
+    return apply_augment(images[k], masks[k], draws[k], crop, cfg.bgr)
+
+
+def graph_body(cfg: Config, learn, opt, images: torch.Tensor, masks: torch.Tensor, draws,
+               k: int, crop: int) -> torch.Tensor:
+    """Step ``k`` of a graph of train steps as :class:`_GraphedSteps`
+    captures it: :func:`graph_augment`, the learner (:func:`_learner`),
+    update ``k`` of the optimizer's prepared table (:meth:`_Zoo.prepare`).
+    Returns the loss.  Nothing in it reads back to the host, and it runs
+    without capture on any device."""
+    x, y = graph_augment(cfg, images, masks, draws, k, crop)
+    loss = learn(x, y)
+    opt.apply(k)
+    opt.zero_grad(set_to_none=True)
+    return loss
+
+
 class _GraphedSteps:
     """K train steps as one CUDA graph (see :func:`make_train_multistep`)."""
 
@@ -351,18 +386,11 @@ class _GraphedSteps:
                 tuple(held))
 
     def _draw(self, step: int, k: int):
-        return draw_augment(step_generator(self.cfg, step, self.dev), self.masks[k],
-                            self.crop, self.images.shape[-1], mesh.data_rank(),
-                            mesh.data_world())
+        return graph_draws(self.cfg, step, self.images[k], self.masks[k], self.crop)
 
     def _body(self, k: int) -> None:
-        with torch.no_grad():
-            x, y = apply_augment(self.images[k], self.masks[k], self.draws[k], self.crop,
-                                 self.cfg.bgr)
-        loss = self.learn(x, y)
-        self.opt.apply(k)
-        self.opt.zero_grad(set_to_none=True)
-        self.losses[k].copy_(loss)
+        self.losses[k].copy_(graph_body(self.cfg, self.learn, self.opt, self.images,
+                                        self.masks, self.draws, k, self.crop))
 
     def _lrs(self, step: int) -> List[float]:
         return [lr_at(self.lr, step + k) for k in range(self.nsteps)]
@@ -385,6 +413,11 @@ class _GraphedSteps:
             self.images.copy_(images)
             self.masks.copy_(masks)
             self.draws = [_static_like(self._draw(0, k)) for k in range(self.nsteps)]
+            # the device constants of the augmentation the graph holds are made
+            # here if the eager steps did not (under --autoaugment they group
+            # by op and never run the static form): a capture cannot copy
+            # from the host
+            graph_augment(self.cfg, self.images, self.masks, self.draws, 0, self.crop)
             self.losses = torch.zeros_like(losses)
             self.opt.prepare(self._lrs(state.step), advance=False)
         torch.cuda.current_stream(self.dev).wait_stream(side)
@@ -436,13 +469,17 @@ def make_train_multistep(cfg: Config, model, opt: torch.optim.Optimizer, nsteps:
     later calls copy the inputs into the graph's static buffers, draw each
     step's augmentation eagerly from its generator into static draws (the
     draws of :func:`make_train_step`, bit for bit), write the optimizer's
-    table of per-step scalars (:meth:`_Zoo.prepare`) and replay.  The
-    hand-written kernels launch inside the graph on the capturing stream;
-    their launch counters count the capture, not the replays.  It raises
-    where a graph cannot hold the step (:func:`check_graph_supported`)."""
+    table of per-step scalars (:meth:`_Zoo.prepare`) and replay.  Each
+    captured step is :func:`graph_body`: under ``--autoaugment`` it applies
+    AutoAugment's static form (fixed shapes, no host round trip), where the
+    eager step groups the samples by op on the host; the numbers are the
+    same.  The hand-written kernels launch inside the graph on the capturing
+    stream; their launch counters count the capture, not the replays.  It
+    raises under a gloo group (:func:`check_graph_supported`), before it
+    touches a card."""
     dev = resolve_device(device)
     if dev.type == "cuda":
-        check_graph_supported(cfg)
+        check_graph_supported()
     step_fn = make_train_step(cfg, model, opt, crop=crop, device=dev,
                               learning_rate=learning_rate)
     if dev.type != "cuda":
