@@ -1,0 +1,8 @@
+"""Median host wall time of one ``Runner.eval_step`` call in the untraced window
+(trainer layer), any synchronisation the call makes included."""
+
+from xv2bench.readers import host_call_ms
+
+
+def read(r):
+    return host_call_ms(r, "eval")
