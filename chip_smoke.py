@@ -1719,12 +1719,9 @@ def seeded_model(cfg, seed: int, kernel_scale: float = 2.2, device: str = "cpu")
 
 
 def _counters():
-    from xview2_tpu_torch.ops import layout, rowshift, small_conv
-    from xview2_tpu_torch.ops import packed_fused_conv as pfc
+    from xview2_tpu_torch.parallel.steps import launch_counters
 
-    return (layout.relayout_cuda, pfc.conv_bn_fused, pfc.head_conv_fused, pfc.conv_bn_wgrad,
-            pfc.conv_bn_dgrad, rowshift.row_shift_cuda, small_conv.small_conv_fwd,
-            small_conv.small_conv_wgrad)
+    return launch_counters()
 
 
 def _zero_counters() -> None:

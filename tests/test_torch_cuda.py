@@ -867,6 +867,100 @@ def test_train_multistep_graph_equals_eager_steps():
     assert float(diff.norm() / moved.norm()) <= 5e-2
 
 
+def _small_graph_program(k_steps: int):
+    """A bf16 ResNet-50 ``--fused_tail`` ``UNetLoc`` with AdamW, its state
+    on the card and K stacked batches of 128^2 tiles."""
+    import numpy as np
+
+    from xview2_tpu_torch.config import Config, apply_precision
+    from xview2_tpu_torch.models.unet import build_model
+    from xview2_tpu_torch.parallel import steps
+    from xview2_tpu_torch.train.optimizers import build_optimizer
+
+    cfg = Config(type="pre", encoder="resnet50", precision=16, fused_tail=True,
+                 optimizer="adamw", batch_size=2)
+    apply_precision(cfg)
+    rng = np.random.default_rng(1)
+    images = torch.from_numpy(rng.integers(0, 256, (k_steps, 2, 128, 128, 3), np.uint8)).cuda()
+    masks = torch.from_numpy((rng.random((k_steps, 2, 128, 128)) > 0.8)
+                             .astype(np.uint8)).cuda()
+    torch.manual_seed(0)
+    model = build_model(cfg)
+    opt = build_optimizer(cfg, model.parameters(), cfg.lr)
+    return cfg, model, opt, steps.init_train_state(model, opt, device="cuda"), images, masks
+
+
+def test_replayed_launches_count_each_replay_of_a_graph():
+    """After the first call of ``make_train_multistep`` (K eager warm-up
+    steps, then the capture) and R replays of a ResNet-50 ``--fused_tail``
+    graph, each K1-K8 wrapper has counted 2 x K x its launches in one eager
+    ``make_train_step`` (the warm-up's and the capture's: it counts where it
+    launches), the graph's ``replayed_launches()`` R x K x them, and so the
+    launches that reached the device, the counted less the captured plus
+    the replayed, are (R + 1) x K x them."""
+    from xview2_tpu_torch.parallel import steps
+
+    k_steps, replays = 2, 3
+    cfg, model, opt, state, images, masks = _small_graph_program(k_steps)
+    counters = steps.launch_counters()
+    before = [fn.launches for fn in counters]
+    step = steps.make_train_step(cfg, model, opt, crop=64, device="cuda")
+    state, _ = step(state, images[0], masks[0], steps.step_generator(cfg, state.step, "cuda"))
+    eager = {fn.__name__: fn.launches - n for fn, n in zip(counters, before)}
+    assert eager["conv_bn_fused"] > 0 and eager["conv_bn_wgrad"] > 0  # K2, K4: the fused tail
+    multi = steps.make_train_multistep(cfg, model, opt, k_steps, crop=64, device="cuda")
+    assert multi.replayed_launches() == {}
+    before = [fn.launches for fn in counters]
+    for _ in range(replays + 1):
+        state, losses = multi(state, images, masks)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(losses).all())
+    counted = {fn.__name__: fn.launches - n for fn, n in zip(counters, before)}
+    replayed = multi.replayed_launches()
+    assert counted == {n: 2 * k_steps * e for n, e in eager.items()}
+    assert replayed == {n: replays * k_steps * e for n, e in eager.items()}
+    assert {n: counted[n] - k_steps * e + replayed[n] for n, e in eager.items()} == \
+        {n: (replays + 1) * k_steps * e for n, e in eager.items()}
+
+
+def test_spans_of_a_graph_under_a_profiler():
+    """A CPU+CUDA profiler collects while ``make_train_multistep`` warms up,
+    captures and replays once: both calls succeed, the warm-up records K
+    eager ``train.step``s with their five phases, the capture records
+    nothing, the replay records one ``train.step`` holding ``train.h2d`` and
+    ``train.replay``, every span has its device seconds, and the replay's
+    two children hold at least 95% of its step's device extent."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from xview2_tpu_torch.parallel import steps
+    from xview2_tpu_torch.utils import spans
+
+    k_steps = 2
+    cfg, model, opt, state, images, masks = _small_graph_program(k_steps)
+    multi = steps.make_train_multistep(cfg, model, opt, k_steps, crop=64, device="cuda")
+    spans.reset()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        state, first = multi(state, images, masks)
+        warm = spans.summary()
+        state, second = multi(state, images, masks)
+    got = spans.summary()
+    spans.reset()
+    assert bool(torch.isfinite(first).all()) and bool(torch.isfinite(second).all())
+    phases = ["train.h2d", "train.augment", "train.forward", "train.backward", "train.update"]
+    assert list(warm) == ["train.step"] + phases
+    assert all(warm[n].calls == warm[n].steps == k_steps for n in warm)
+    assert list(got) == ["train.step"] + phases + ["train.replay"]
+    assert (got["train.step"].calls, got["train.step"].steps) == (k_steps + 1, k_steps + 1)
+    assert got["train.h2d"].calls == k_steps + 1
+    assert all(got[n].calls == warm[n].calls for n in phases[1:])  # none from the capture
+    assert (got["train.replay"].calls, got["train.replay"].parent) == (1, "train.step")
+    assert all(got[n].device_s is not None and got[n].device_s > 0 for n in got)
+    replay_step = got["train.step"].device_s - warm["train.step"].device_s
+    children = (got["train.h2d"].device_s - warm["train.h2d"].device_s
+                + got["train.replay"].device_s)
+    assert 0.95 * replay_step <= children <= replay_step + 1e-5  # events resolve to 0.5 us
+
+
 # the graph against eager steps on the stock tail (no atomics): each optimizer,
 # --remat tail|full and the decoder options; AdaBound under the Noam schedule
 _GRAPH_EXACT = ([(dict(optimizer=o), o == "adabound") for o in OPTIMIZERS if o != "adam"]

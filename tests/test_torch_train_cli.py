@@ -78,6 +78,8 @@ def runs(tmp_path_factory):
         out["first_ckpts"][name] = entry
     # --profile: a torch.profiler trace of the first steps, stopped at loop exit
     out["trace_bytes"] = os.path.getsize(os.path.join(res["first"], "profile", "trace.json"))
+    with open(os.path.join(res["first"], "profile", "spans.json")) as f:
+        out["spans"] = json.load(f)
     _drop_best(res["first"])
 
     ev = os.path.join(root, "eval_out")
@@ -109,7 +111,7 @@ def test_one_epoch_writes_checkpoints_and_log(runs):
     logs = runs["first_logs"]
     assert [entry["step"] for entry in logs] == [0]
     data = logs[0]["data"]
-    assert set(data) == {"f1", "val_loss", "top_f1", "imgs_per_sec"}
+    assert set(data) == {"f1", "val_loss", "top_f1", "imgs_per_sec", "loader_wait_s"}
     assert np.isfinite(data["val_loss"]) and data["imgs_per_sec"] > 0
     for name in ("best", "last"):
         ck = runs["first_ckpts"][name]
@@ -119,6 +121,22 @@ def test_one_epoch_writes_checkpoints_and_log(runs):
         assert ck["buffers"] == {"step", "exp_avg", "exp_avg_sq"}
         assert ck["exp_avg_max"] > 0
     assert runs["trace_bytes"] > 0
+
+
+def test_profile_writes_the_spans_and_the_epoch_line_the_loader_wait(runs):
+    """``--profile`` writes ``profile/spans.json`` beside the trace: the
+    spans of the profiled steps (both of the epoch's train steps, then the
+    validation's eval step, since the run ends before 6 steps), and the
+    epoch line counts the seconds the steps waited for the loader."""
+    assert runs["first_logs"][0]["data"]["loader_wait_s"] >= 0
+    spans = runs["spans"]
+    assert spans["train.step"]["calls"] == 2 and spans["train.step"]["parent"] is None
+    for name in ("train.h2d", "train.augment", "train.forward", "train.backward",
+                 "train.update"):
+        assert spans[name]["calls"] == 2 and spans[name]["parent"] == "train.step", name
+    assert spans["eval.step"]["calls"] == 1
+    assert all(v["device_s"] is None and v["host_s"] >= v["self_host_s"] >= 0
+               for v in spans.values())
 
 
 def test_checkpoint_reloads_through_the_eval_cli(runs):
@@ -142,8 +160,9 @@ def test_resumed_run_equals_unbroken_run_bit_for_bit(runs):
     assert runs["has_opt_state"]
     assert runs["differing"] == []
     assert [e["step"] for e in runs["logs"]["resumed"]] == [1]
-    assert {k: v for k, v in runs["logs"]["resumed"][-1]["data"].items() if k != "imgs_per_sec"} \
-        == {k: v for k, v in runs["logs"]["unbroken"][-1]["data"].items() if k != "imgs_per_sec"}
+    timings = ("imgs_per_sec", "loader_wait_s")
+    assert {k: v for k, v in runs["logs"]["resumed"][-1]["data"].items() if k not in timings} \
+        == {k: v for k, v in runs["logs"]["unbroken"][-1]["data"].items() if k not in timings}
 
 
 @pytest.fixture(scope="module")
@@ -227,5 +246,6 @@ def test_autoaugment_resumed_run_equals_unbroken_run_bit_for_bit(aa_runs):
     assert aa_runs["differing"] == []
     last = {k: [e["step"] for e in v] for k, v in aa_runs["logs"].items()}
     assert last["resumed"] == [1] and last["first"] == [0]
-    strip = lambda e: {k: v for k, v in e["data"].items() if k != "imgs_per_sec"}  # noqa: E731
+    strip = lambda e: {k: v for k, v in e["data"].items()  # noqa: E731
+                       if k not in ("imgs_per_sec", "loader_wait_s")}
     assert strip(aa_runs["logs"]["resumed"][-1]) == strip(aa_runs["logs"]["unbroken"][-1])

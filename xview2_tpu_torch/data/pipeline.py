@@ -32,6 +32,7 @@ from __future__ import annotations
 import os
 import queue
 import threading
+import time
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from glob import glob
@@ -140,7 +141,8 @@ class Loader:
     final partial batch zero-padded with ``valid`` mask.  With ``world`` ranks
     a batch is rank ``rank``'s ``batch_size`` rows of the global batch of
     ``world * batch_size`` (a rank past the data gets a batch of padding),
-    and ``len`` counts global batches.
+    and ``len`` counts global batches.  ``wait_s`` sums the host seconds
+    the consumer has waited for a batch (a starved step shows there).
     """
 
     def __init__(self, dataset: XView2Dataset, batch_size: int, *,
@@ -156,6 +158,7 @@ class Loader:
         self.rank = rank
         self.world = world
         self.epoch = 0
+        self.wait_s = 0.0
         self._hw: Optional[Tuple[int, int]] = None
         self._probed = False
 
@@ -263,7 +266,9 @@ class Loader:
         t.start()
         try:
             while True:
+                asked = time.perf_counter()
                 batch = q.get()
+                self.wait_s += time.perf_counter() - asked
                 if batch is None:
                     return
                 yield batch

@@ -50,6 +50,7 @@ import numpy as np
 import torch
 
 from xview2_tpu_torch.ops.rowshift import row_shift
+from xview2_tpu_torch.utils.spans import span
 
 # op ids
 SHEAR_X, SHEAR_Y, TRANS_X, TRANS_Y, ROTATE = 0, 1, 2, 3, 4
@@ -368,9 +369,11 @@ def draw_autoaugment(gen: torch.Generator, b: int, device) -> AutoAugmentDraws:
 def slot_plan(d: AutoAugmentDraws):
     """The two slots' per-sample ``(op, signed magnitude, fires)`` as numpy
     arrays, from the draws.  This brings the draws to the host (one
-    synchronisation per batch): the grouping needs them there."""
-    host = torch.stack([d.policy.to(torch.float32), d.u1, d.u2, d.neg1.to(torch.float32),
-                        d.neg2.to(torch.float32)]).cpu().numpy()
+    synchronisation per batch, the span ``augment.sync``): the grouping
+    needs them there."""
+    with span("augment.sync", d.policy.device):
+        host = torch.stack([d.policy.to(torch.float32), d.u1, d.u2, d.neg1.to(torch.float32),
+                            d.neg2.to(torch.float32)]).cpu().numpy()
     pol = host[0].astype(np.int64)
     plan = []
     for ops, mags, probs, u, neg in ((_OP1, _M1, _P1, host[1], host[3]),

@@ -15,7 +15,9 @@ parameters, its BatchNorm buffers and the optimizer state are updated IN
 PLACE and ``TrainState`` only carries the references and the step count.
 Both steps enter ``--einsum_1x1``'s scope (``layers.einsum_1x1_scope``) as
 JAX's do.  :func:`make_train_multistep` runs K train steps as one CUDA graph
-on the card (K calls of the train step on the CPU).
+on the card (K calls of the train step on the CPU).  Both steps mark their
+phases with spans (``utils/spans.py``: ``train.step`` and its five phases,
+``eval.step`` and its three), which record only while a profiler collects.
 
 ``--remat`` (JAX ``steps.py:150-177``): ``tail`` normalizes+activates each
 stock BatchNorm in a local checkpoint (``layers.remat_tail_scope``; the
@@ -56,7 +58,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Callable, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -78,6 +80,7 @@ from xview2_tpu_torch.ops.metrics import F1State, update_f1_state
 from xview2_tpu_torch.ops.packed_fused_conv import sums_tape
 from xview2_tpu_torch.parallel import mesh
 from xview2_tpu_torch.train.optimizers import LearningRate, lr_at
+from xview2_tpu_torch.utils.spans import span
 
 
 def resolve_device(device) -> torch.device:
@@ -126,21 +129,25 @@ def make_eval_step(cfg: Config, model, device="cuda"):
 
     @torch.inference_mode()
     def step_fn(f1_state: F1State, images, masks, valid):
-        images = torch.as_tensor(images).to(dev, non_blocking=True)
-        masks = torch.as_tensor(masks).to(dev, non_blocking=True)
-        valid = torch.as_tensor(valid).to(dev, non_blocking=True)
-        check_band_height(images.shape[1], cfg.spatial_shards, "the eval tile")
-        x = eval_batch(images, bgr=cfg.bgr)
-        masks = mesh.band(masks)
-        with fold_eval_bn_scope(bool(cfg.fold_eval_bn)), \
-                einsum_1x1_scope(bool(cfg.einsum_1x1)), \
-                fused_tail_scope(bool(cfg.fused_tail), defer_head=defer):
-            logits = tta_forward(model, x, cfg.tta).to(torch.float32)
-        logits = relayout_standard(logits)  # the model/loss seam, as in JAX
-        loss = loss_fn(logits, masks.to(torch.int32), sample_valid=valid)
-        f1_state = update_f1_state(f1_state, logits, masks, n_class=n_class,
-                                   loss_str=cfg.loss_str, sample_valid=valid)
-        return f1_state, loss, logits
+        with span("eval.step", dev):
+            with span("eval.h2d", dev):
+                images = torch.as_tensor(images).to(dev, non_blocking=True)
+                masks = torch.as_tensor(masks).to(dev, non_blocking=True)
+                valid = torch.as_tensor(valid).to(dev, non_blocking=True)
+            check_band_height(images.shape[1], cfg.spatial_shards, "the eval tile")
+            with span("eval.forward", dev):
+                x = eval_batch(images, bgr=cfg.bgr)
+                masks = mesh.band(masks)
+                with fold_eval_bn_scope(bool(cfg.fold_eval_bn)), \
+                        einsum_1x1_scope(bool(cfg.einsum_1x1)), \
+                        fused_tail_scope(bool(cfg.fused_tail), defer_head=defer):
+                    logits = tta_forward(model, x, cfg.tta).to(torch.float32)
+            with span("eval.score", dev):
+                logits = relayout_standard(logits)  # the model/loss seam, as in JAX
+                loss = loss_fn(logits, masks.to(torch.int32), sample_valid=valid)
+                f1_state = update_f1_state(f1_state, logits, masks, n_class=n_class,
+                                           loss_str=cfg.loss_str, sample_valid=valid)
+            return f1_state, loss, logits
 
     return step_fn
 
@@ -240,20 +247,22 @@ def _learner(cfg: Config, model) -> Callable[[torch.Tensor, torch.Tensor], torch
     loss_of = rematerialized(functools.partial(forward_loss, cfg, model, loss_fn), cfg.remat)
 
     def learn(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-        with torch.no_grad():
-            x, y = mesh.band(x), mesh.band(y)
-            # the packed head emits train logits as a (B, H/2, 2W, n) pixel
-            # permutation; pair it with the same permutation of the labels.
-            # The fine labels are read only by the deep-supervision heads.
-            if packed_view:
-                y_main = relayout_standard(packed_loss_view_labels(y))
-                y = relayout_standard(y) if cfg.deep_supervision else y_main
-            else:
-                y = y_main = relayout_standard(y)
-        with remat_tail_scope(cfg.remat == "tail"):
-            loss = loss_of(x, y_main, y)
-        loss.backward()
-        mesh.average_gradients(model.parameters())
+        with span("train.forward", x.device):
+            with torch.no_grad():
+                x, y = mesh.band(x), mesh.band(y)
+                # the packed head emits train logits as a (B, H/2, 2W, n) pixel
+                # permutation; pair it with the same permutation of the labels.
+                # The fine labels are read only by the deep-supervision heads.
+                if packed_view:
+                    y_main = relayout_standard(packed_loss_view_labels(y))
+                    y = relayout_standard(y) if cfg.deep_supervision else y_main
+                else:
+                    y = y_main = relayout_standard(y)
+            with remat_tail_scope(cfg.remat == "tail"):
+                loss = loss_of(x, y_main, y)
+        with span("train.backward", x.device):
+            loss.backward()
+            mesh.average_gradients(model.parameters())
         return loss.detach()
 
     return learn
@@ -275,21 +284,35 @@ def make_train_step(cfg: Config, model, opt: torch.optim.Optimizer, crop: int = 
     learn = _learner(cfg, model)
 
     def step_fn(state: TrainState, images, masks, rng: torch.Generator):
-        images = torch.as_tensor(images).to(dev, non_blocking=True)
-        masks = torch.as_tensor(masks).to(dev, non_blocking=True)
-        with torch.no_grad():
-            x, y = augment_batch(rng, images, masks, crop=crop, bgr=cfg.bgr,
-                                 use_autoaugment=cfg.autoaugment, rank=mesh.data_rank(),
-                                 world=mesh.data_world())
-        loss = learn(x, y)
-        for group in opt.param_groups:
-            group["lr"] = lr_at(lr, state.step)
-        opt.step()
-        opt.zero_grad(set_to_none=True)
-        state.step += 1
-        return state, loss
+        with span("train.step", dev):
+            with span("train.h2d", dev):
+                images = torch.as_tensor(images).to(dev, non_blocking=True)
+                masks = torch.as_tensor(masks).to(dev, non_blocking=True)
+            with span("train.augment", dev), torch.no_grad():
+                x, y = augment_batch(rng, images, masks, crop=crop, bgr=cfg.bgr,
+                                     use_autoaugment=cfg.autoaugment, rank=mesh.data_rank(),
+                                     world=mesh.data_world())
+            loss = learn(x, y)
+            with span("train.update", dev):
+                for group in opt.param_groups:
+                    group["lr"] = lr_at(lr, state.step)
+                opt.step()
+                opt.zero_grad(set_to_none=True)
+            state.step += 1
+            return state, loss
 
     return step_fn
+
+
+def launch_counters() -> tuple:
+    """The wrappers of the hand-written kernels K1-K8, each of which counts
+    its kernel's launches in ``.launches``."""
+    from xview2_tpu_torch.ops import layout, rowshift, small_conv
+    from xview2_tpu_torch.ops import packed_fused_conv as pfc
+
+    return (layout.relayout_cuda, pfc.conv_bn_fused, pfc.head_conv_fused, pfc.conv_bn_wgrad,
+            pfc.conv_bn_dgrad, rowshift.row_shift_cuda, small_conv.small_conv_fwd,
+            small_conv.small_conv_wgrad)
 
 
 def check_graph_supported() -> None:
@@ -424,9 +447,13 @@ class _GraphedSteps:
         torch.cuda.synchronize(self.dev)
         torch.cuda.empty_cache()  # the warm-up's blocks, before the graph's pool takes its own
         graph = torch.cuda.CUDAGraph()
+        counters = launch_counters()
+        before = [fn.launches for fn in counters]
         with torch.cuda.graph(graph):
             for k in range(self.nsteps):
                 self._body(k)
+        self.captured = [(fn, fn.launches - n) for fn, n in zip(counters, before)]
+        self.replays = 0
         self.graph, self.key = graph, self._key(self.images, self.masks)
         return state, losses
 
@@ -437,17 +464,31 @@ class _GraphedSteps:
                              f"and masks {tuple(masks.shape)} must stack {self.nsteps} batches")
         if self.graph is None or self._key(images, masks) != self.key:
             return self._eager_then_capture(state, images, masks)
-        if not images.is_cuda:  # pinned: an ordered copy that need not wait for the host
-            images, masks = images.pin_memory(), masks.pin_memory()
-        self.images.copy_(images, non_blocking=True)
-        self.masks.copy_(masks, non_blocking=True)
-        for k in range(self.nsteps):  # each step's draws, eagerly, as make_train_step's
-            for dst, src in zip(_leaves(self.draws[k]), _leaves(self._draw(state.step + k, k))):
-                dst.copy_(src)
-        self.opt.prepare(self._lrs(state.step))
-        self.graph.replay()
-        state.step += self.nsteps
-        return state, self.losses.clone()
+        with span("train.step", self.dev):
+            with span("train.h2d", self.dev):
+                if not images.is_cuda:  # pinned: an ordered copy that need not wait for the host
+                    images, masks = images.pin_memory(), masks.pin_memory()
+                self.images.copy_(images, non_blocking=True)
+                self.masks.copy_(masks, non_blocking=True)
+            with span("train.replay", self.dev):
+                for k in range(self.nsteps):  # each step's draws, eagerly, as make_train_step's
+                    for dst, src in zip(_leaves(self.draws[k]),
+                                        _leaves(self._draw(state.step + k, k))):
+                        dst.copy_(src)
+                self.opt.prepare(self._lrs(state.step))
+                self.graph.replay()
+                self.replays += 1
+            state.step += self.nsteps
+            return state, self.losses.clone()
+
+    def replayed_launches(self) -> Dict[str, int]:
+        """The K1-K8 launches that the replays of the current graph made on
+        the device, by wrapper name: what its capture counted, times the
+        replays.  The wrappers' own ``.launches`` count only where they
+        launch, so they count the capture and not the replays."""
+        if self.graph is None:
+            return {}
+        return {fn.__name__: n * self.replays for fn, n in self.captured}
 
 
 def make_train_multistep(cfg: Config, model, opt: torch.optim.Optimizer, nsteps: int,
@@ -474,9 +515,11 @@ def make_train_multistep(cfg: Config, model, opt: torch.optim.Optimizer, nsteps:
     AutoAugment's static form (fixed shapes, no host round trip), where the
     eager step groups the samples by op on the host; the numbers are the
     same.  The hand-written kernels launch inside the graph on the capturing
-    stream; their launch counters count the capture, not the replays.  It
-    raises under a gloo group (:func:`check_graph_supported`), before it
-    touches a card."""
+    stream; their launch counters (:func:`launch_counters`) count the
+    capture, not the replays, whose launches the graph's
+    :meth:`_GraphedSteps.replayed_launches` tallies apart.  It raises under
+    a gloo group (:func:`check_graph_supported`), before it touches a
+    card."""
     dev = resolve_device(device)
     if dev.type == "cuda":
         check_graph_supported()

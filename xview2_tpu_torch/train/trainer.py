@@ -30,7 +30,9 @@ group and the data row's first rank writes them.
 
 from __future__ import annotations
 
+import dataclasses
 import glob
+import json
 import math
 import os
 import time
@@ -56,6 +58,7 @@ from xview2_tpu_torch.parallel.transplant import transplant_encoder
 from xview2_tpu_torch.train.logging import MetricsLogger, epoch_metrics, test_metrics
 from xview2_tpu_torch.train.optimizers import build_optimizer, check_optimizer
 from xview2_tpu_torch.train.scheduler import noam_schedule
+from xview2_tpu_torch.utils import spans
 from xview2_tpu_torch.weights import from_flax, to_flax
 
 
@@ -247,6 +250,7 @@ def fit(cfg: Config, device="cuda") -> str:
         if runner.device.type == "cuda":
             acts.append(ProfilerActivity.CUDA)
         prof = profile(activities=acts)
+        spans.reset()
         prof.start()
     # stop after 6 steps from here (resume-safe), or at loop exit if the run
     # is shorter: a trace must never be left running
@@ -257,11 +261,15 @@ def fit(cfg: Config, device="cuda") -> str:
         prof.stop()
         os.makedirs(os.path.join(cfg.results, "profile"), exist_ok=True)
         prof.export_chrome_trace(os.path.join(cfg.results, "profile", "trace.json"))
+        with open(os.path.join(cfg.results, "profile", "spans.json"), "w") as f:
+            json.dump({k: dataclasses.asdict(v) for k, v in spans.summary().items()}, f,
+                      indent=1)
         prof = None
 
     for epoch in range(start_epoch, cfg.epochs):
         t0 = time.time()
         n_imgs = 0
+        waited = train_loader.wait_s
         for batch in train_loader:
             rng = step_generator(cfg, state.step, runner.device)
             state, _ = runner.train_step(state, batch.image, batch.mask, rng)
@@ -286,6 +294,7 @@ def fit(cfg: Config, device="cuda") -> str:
 
         data = epoch_metrics(f1, val_loss, best_f1, per_class)
         data["imgs_per_sec"] = round(n_imgs / max(train_time, 1e-9), 2)
+        data["loader_wait_s"] = round(train_loader.wait_s - waited, 3)
         if logger is not None:
             logger.log(epoch, data)
 
