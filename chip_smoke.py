@@ -23,7 +23,8 @@ Phases, each of which fails the script (non-zero exit, no result line):
    EQUAL between two runs; K1 and K6 with the host time of one call beside
    ``clone`` (K1 on both of its paths byte for byte); K1, K3, K6, K7 and K8
    also by the profiler's device time (K1 and K6 also L2-cold, beside
-   ``clone``);
+   ``clone``); the eval BatchNorm epilogue (``ops/norm_act.py``) EQUAL to
+   its plain version at the eval cells' shapes, with its bound;
 4. the eval main path: a synthetic holdout of 8 tiles of 1024^2, a ResNet-50
    UNetLoc made from a fixed seed saved as a port checkpoint, and
    ``xview2_tpu_torch.main.main([... --exec_mode eval ...])`` with 4-flip TTA
@@ -1530,6 +1531,71 @@ def check_row_shift():
 
 
 SMALL_CONV = (16, 512, 512, 32, 32)   # (B, H, W, C, Co), bfloat16
+
+
+# The eval BatchNorm epilogue at the shapes of the eval cells' encoders (the
+# TTA batch of 13 tiles x 4 flips at 1024^2): the stem's maps at 512^2, a
+# layer1 BatchNorm at 256^2, the bottleneck tails of layer1..4 (with the
+# residual) and the split attention's pooled map; (name, shape, act, residual).
+NORM_ACT_CASES = (("stem", (52, 512, 512, 64), "relu", False),
+                  ("layer1 bn0", (52, 256, 256, 128), "relu", False),
+                  ("layer1 tail", (52, 256, 256, 256), "relu", True),
+                  ("layer1 downsample", (52, 256, 256, 256), "none", False),
+                  ("layer2 tail", (52, 128, 128, 512), "relu", True),
+                  ("layer3 tail", (52, 64, 64, 1024), "relu", True),
+                  ("layer4 tail", (52, 32, 32, 2048), "relu", True),
+                  ("decoder leaky", (13, 256, 256, 96), "leaky", False),
+                  ("gap bn1", (52, 1, 1, 64), "relu", False))
+
+
+def check_norm_act(cases=NORM_ACT_CASES) -> dict:
+    """The eval BatchNorm epilogue against its plain version (the eager
+    chain) at the eval cells' shapes in bfloat16: EQUAL (tolerance 0), then
+    the kernel's time by CUDA events and by the profiler's device time beside
+    its bound (one read of x and of the residual, one write) and the plain
+    version's time.  No single PyTorch call computes it (``library_ms``
+    null).  The maps are far larger than L2, so every launch reads them cold."""
+    import torch
+
+    from xview2_tpu_torch.ops import norm_act as na
+
+    row = dict(max_abs_err=0.0, ms=0.0, device_ms=0.0, plain_ms=0.0, library_ms=None,
+               bound_ms=0.0, bound_by="bytes")
+    gen = torch.Generator(device="cuda").manual_seed(700)
+    for name, shape, act, residual in cases:
+        c = shape[-1]
+        x = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+        r = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16) \
+            if residual else None
+        fold = (torch.randn(c, generator=gen, device="cuda") * 0.5,
+                torch.rand(c, generator=gen, device="cuda") + 0.5,
+                torch.randn(c, generator=gen, device="cuda") * 0.5)
+        got = na.norm_act_cuda(x, *fold, act, r)
+        want = na.norm_act_reference(x, *fold, act, r)
+        torch.cuda.synchronize()
+        if not torch.equal(got.view(torch.int16), want.view(torch.int16)):
+            raise AssertionError(f"norm_act {name} {shape}: not bit-equal to the plain version")
+        del got, want
+        iters = 20 if x.numel() > 1e6 else 200
+        fn = lambda: na.norm_act_cuda(x, *fold, act, r)  # noqa: E731
+        ms, dev = cuda_ms(fn, iters), device_ms(fn, iters)
+        plain = cuda_ms(lambda: na.norm_act_reference(x, *fold, act, r), max(iters // 4, 5))
+        nbytes = x.numel() * 2 * (3 if residual else 2)
+        bnd, by = bound_ms(nbytes, 0.0, "bfloat16")
+        key = name.replace(" ", "_")
+        row.update({f"ms_{key}": ms, f"device_ms_{key}": dev, f"plain_ms_{key}": plain,
+                    f"bound_ms_{key}": bnd})
+        row["ms"] += ms
+        row["device_ms"] += dev
+        row["plain_ms"] += plain
+        row["bound_ms"] += bnd
+        log(f"norm_act {name} {shape} bf16 {act}{' + residual' if residual else ''}: bit-equal "
+            f"(tolerance 0), kernel {ms:.4f} ms ({nbytes / ms / 1e9:.3f} TB/s; device time "
+            f"{dev:.4f} ms, {100 * bnd / dev:.1f}% of the {by} bound {bnd:.4f} ms), plain "
+            f"{plain:.4f} ms ({plain / ms:.2f}x)")
+        del x, r
+        torch.cuda.empty_cache()
+    return row
 
 
 def _small_conv_case(shape, dtype, seed):
@@ -4696,7 +4762,8 @@ MS_NEED = {"relayout_cuda": 3, "conv_bn_fused": 6, "head_conv_fused": 1, "conv_b
 _KERNEL_OF = {"relayout_cuda": "K1 relayout", "conv_bn_fused": "K2 conv_bn_fused",
               "head_conv_fused": "K3 head_conv_fused", "conv_bn_wgrad": "K4 conv_bn_wgrad",
               "conv_bn_dgrad": "K5 conv_bn_dgrad", "row_shift_cuda": "K6 row_shift",
-              "small_conv_fwd": "K7 small_conv_fwd", "small_conv_wgrad": "K8 small_conv_wgrad"}
+              "small_conv_fwd": "K7 small_conv_fwd", "small_conv_wgrad": "K8 small_conv_wgrad",
+              "norm_act_cuda": "K9 norm_act"}
 
 
 def _train_state(model, opt) -> dict:
@@ -5229,6 +5296,7 @@ _CATEGORIES = (("K6 row_shift", ("row_shift_kernel",)),
                ("K2 conv_bn_fused", ("conv_wgmma_kernel", "conv_bf16_kernel", "conv_f32_kernel")),
                ("K3 head_conv_fused", ("head_mma_kernel", "head_kernel")),
                ("K1 relayout", ("relayout_",)),
+               ("K9 norm_act", ("norm_act_",)),
                ("library conv/GEMM", ("xmma", "cudnn", "cutlass", "gemm", "conv")),
                ("elementwise", ("elementwise", "reduce")),
                ("cat/copy", ("CatArray", "copy", "Memcpy", "Memset")))
@@ -5315,6 +5383,7 @@ def main(argv=None) -> int:
     rows["row_shift"] = check_row_shift()
     rows.update(check_small_conv())
     torch.cuda.empty_cache()
+    rows["norm_act"] = check_norm_act()
     log(f"kernel checks done at {time.perf_counter() - t_start:.0f} s")
 
     work = os.path.join(ROOT, ".smoke")
@@ -5392,6 +5461,7 @@ def main(argv=None) -> int:
                            "xview2_tpu/ops/pallas_conv.py:87"),
         "small_conv_wgrad": ("small_conv_wgrad", src + "small_conv.cu",
                              "xview2_tpu/ops/pallas_conv.py:121"),
+        "norm_act": ("norm_act_cuda", src + "norm_act.cu", "none (XLA fuses it)"),
     }
     # launches: the eight main paths' runs (eval CLI, train CLI, conv3x3_small,
     # --autoaugment train CLI, the damage path's A train, B train and B eval
@@ -5427,7 +5497,10 @@ def main(argv=None) -> int:
     # keys), K8 its share of the bound (bound_share, device_bound_share), K1
     # its NCHW-viewed-NHWC row (permuted_ keys), K1 and K6 their L2-cold
     # device times (cold_ keys; K6 per launch at the batch of 16) and the host
-    # microseconds of one call (host_us_ keys).
+    # microseconds of one call (host_us_ keys); K9 (norm_act, the eval
+    # BatchNorm epilogue) the sums over its shapes of the eval cells and each
+    # shape's ms_/device_ms_/plain_ms_/bound_ms_ keys, max_abs_err 0 (held
+    # EQUAL to its plain version).
     kernels = []
     for name, (counter, source, replaces) in meta.items():
         r = rows[name]

@@ -16,9 +16,11 @@ import pytest
 import torch
 
 from torch_relayout_views import RELAYOUT_DTYPES, RELAYOUT_SIZES, relayout_views
-from xview2_tpu_torch.models import resnest
+from xview2_tpu_torch.models import layers as tl
+from xview2_tpu_torch.models import resnest, resnet
 from xview2_tpu_torch.ops import autoaugment as taa
 from xview2_tpu_torch.ops import layout
+from xview2_tpu_torch.ops import norm_act as na
 from xview2_tpu_torch.ops import packed_fused_conv as pfc
 from xview2_tpu_torch.ops import rowshift
 from xview2_tpu_torch.ops import small_conv as sc
@@ -1049,3 +1051,261 @@ def test_train_multistep_graph_is_equal_to_eager_steps(kw, scheduled):
     assert [k for k in s0 if not torch.equal(s0[k], s1[k])] == []
     assert torch.equal(l0, lg), (l0, lg)
     assert [k for k in s0 if not torch.equal(s0[k], sg[k])] == []
+
+
+# The eval BatchNorm epilogue (ops/norm_act.py): bit-equal to the eager chain
+# it replaces, at the channel counts of the encoders and decoders (the vector
+# form where C is a multiple of 8 bf16 or 4 f32, the scalar form below it),
+# on contiguous NHWC maps and on NCHW maps seen as NHWC, in their layout.
+_NA_CHANNELS = [4, 24, 32, 64, 128, 256, 512, 1024, 2048]
+
+
+def _na_case(shape, dtype, residual, seed=0, phases=1, nchw=False):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    b, h, w, c = shape
+    laid = (b, c, h, w) if nchw else shape
+
+    def draw(scale=1.0):
+        t = (torch.randn(laid, generator=gen, device="cuda") * scale).to(dtype)
+        return t.permute(0, 2, 3, 1) if nchw else t
+
+    x = draw(2.0)
+    fold = tuple(v.repeat(phases) for v in _fold(c // phases, gen))
+    return x, fold, draw() if residual else None
+
+
+def _na_equal(x, fold, act, r):
+    got = na.norm_act_cuda(x, *fold, act, r)
+    want = na.norm_act_reference(x, *fold, act, r)
+    torch.cuda.synchronize()
+    return torch.equal(_bytes(got), _bytes(want)) and got.stride() == want.stride()
+
+
+@pytest.mark.parametrize("residual", [False, True], ids=["plain", "residual"])
+@pytest.mark.parametrize("act", ["relu", "leaky", "none"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("c", _NA_CHANNELS)
+def test_norm_act_is_bit_equal_to_plain(c, dtype, act, residual):
+    """Byte for byte the eager chain, in its layout: a map of many blocks
+    with a ragged last one, the split attention's (52, 1, 1, C) map, a fold
+    tiled over 4 phases (``fold(4)``), NCHW maps seen as NHWC (planes of 4,
+    a multiple of no vector, and of 35 x 64), and a map one element off
+    16-byte alignment (the scalar form, where it takes the channels).  A
+    residual comes only with relu: with another activation the wrapper
+    raises."""
+    if residual and act != "relu":
+        x, fold, r = _na_case((2, 3, 4, c), dtype, True)
+        with pytest.raises(ValueError, match="only with relu"):
+            na.norm_act_cuda(x, *fold, act, r)
+        return
+    cases = [((2, 33, 65, c), 1, False), ((52, 1, 1, c), 1, False), ((2, 5, 6, c), 4, False),
+             ((3, 2, 2, c), 1, True), ((2, 35, 64, c), 1, True)]
+    for i, (shape, phases, nchw) in enumerate(cases):
+        x, fold, r = _na_case(shape, dtype, residual, seed=i, phases=phases, nchw=nchw)
+        assert _na_equal(x, fold, act, r), (shape, nchw)
+    x, fold, r = _na_case((3, 7, 9, c), dtype, residual)
+    flat = torch.empty(x.numel() + 1, dtype=dtype, device="cuda")
+    off = flat[1:].view(x.shape)
+    off.copy_(x)
+    if na.takes(off, *fold, r):
+        got = na.norm_act_cuda(off, *fold, act, r)
+        assert torch.equal(_bytes(got), _bytes(na.norm_act_reference(x, *fold, act, r)))
+    else:  # the scalar form holds at most MAX_VECTORS channels a row
+        assert c > na.MAX_VECTORS
+
+
+@pytest.mark.parametrize("act", ["relu", "leaky", "none"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("c", [16, 12])
+def test_norm_act_special_values_come_out_as_eager(c, dtype, act):
+    """NaN, +-inf, -0.0 and +0.0 in x (and, with relu, in the residual), and
+    folds that make -0.0 before the activation (x == mean, a negative mul,
+    bias -0.0), in the vector (C = 16) and the scalar (C = 12) form, with
+    the channels innermost and in an NCHW layout."""
+    specials = [float("nan"), float("inf"), -float("inf"), -0.0, 0.0, 1.0, -1.0, 3.0]
+    for nchw in (False, True):
+        x, (m, s, b), r = _na_case((4, 3, 5, c), dtype, True, seed=11, nchw=nchw)
+        for i, v in enumerate(specials):
+            x[i % 4, 0, i % 5, :] = v
+            r[(i + 1) % 4, 1, i % 5, :] = v
+        m[: c // 2], s[: c // 2], b[: c // 2] = 1.0, -1.0, -0.0
+        for res in ((None, r) if act == "relu" else (None,)):
+            assert _na_equal(x, (m, s, b), act, res), (nchw, res is None)
+
+
+def _na_seeded(mod):
+    gen = torch.Generator().manual_seed(12)
+    with torch.no_grad():
+        for k, t in mod.state_dict().items():
+            if k.endswith("running_mean"):
+                t.copy_(torch.randn(t.shape, generator=gen) * 0.1)
+            elif k.endswith("running_var"):
+                t.copy_(torch.rand(t.shape, generator=gen) + 0.5)
+    return mod.cuda()
+
+
+def _na_plain_kernel(monkeypatch):
+    """Put the plain version where the kernel launches (the same dispatch,
+    the same layouts): the oracle of a forward that launches the kernel."""
+    monkeypatch.setattr(na, "norm_act_cuda", na.norm_act_reference)
+
+
+_NA_MODULES = {  # the module and its eval BatchNorm sites
+    "resnest-bottleneck": (lambda dt: resnest.ResNeStBottleneck(
+        64, 32, stride=2, downsample=True, downsample_pool_stride=2, is_first=True,
+        dtype=dt), 5),  # bn1, the split attention's bn0 and bn1, downsample, tail
+    "resnet-bottleneck": (lambda dt: resnet.Bottleneck(64, 32, stride=2, downsample=True,
+                                                       dtype=dt), 4),
+    "resnest-stem": (lambda dt: resnest.ResNeStStem(3, 32, dt), 3),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("name", list(_NA_MODULES))
+def test_eval_forward_takes_the_kernel_bit_equal(name, dtype, monkeypatch):
+    """Modules at eval: under ``inference_mode`` every BatchNorm site is one
+    launch, and the output is bit-equal to the same forward with the plain
+    version in the kernel's place, in the same layout; under autograd no
+    site launches.  In bfloat16 (the pools' copy back is a cast) the
+    inference forward is also bit-equal to the one under autograd; in
+    float32 a pool under autograd hands the next conv its NCHW view, as the
+    train step always had."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    make, sites = _NA_MODULES[name]
+    mod = _na_seeded(make(dtype))
+    cin = 3 if name == "resnest-stem" else 64
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    x = torch.randn((4, 33, 35, cin), generator=gen, device="cuda").to(dtype)
+    before = na.norm_act_cuda.launches
+    eager = mod(x, False)
+    assert eager.requires_grad and na.norm_act_cuda.launches == before
+    with torch.inference_mode():
+        got = mod(x, False)
+    torch.cuda.synchronize()
+    assert na.norm_act_cuda.launches - before == sites
+    _na_plain_kernel(monkeypatch)
+    with torch.inference_mode():
+        want = mod(x, False)
+    assert torch.equal(got, want) and got.stride() == want.stride()
+    if dtype == torch.bfloat16:
+        assert torch.equal(got, eager.detach()) and got.stride() == eager.stride()
+
+
+def _count_sites(monkeypatch):
+    """Count the calls of the models' dispatch (``layers.norm_act``) and of
+    the plain version."""
+    calls = {"sites": 0, "plain": 0}
+    site, plain = tl.norm_act, na.norm_act_reference
+
+    def counted(name, fn):
+        def wrapped(*a, **kw):
+            calls[name] += 1
+            return fn(*a, **kw)
+        return wrapped
+
+    monkeypatch.setattr(tl, "norm_act", counted("sites", site))
+    monkeypatch.setattr(na, "norm_act_reference", counted("plain", plain))
+    return calls
+
+
+def test_norm_act_counts_every_eval_site_and_none_in_a_train_step(monkeypatch):
+    """The ResNet-50 ``--fused_tail`` ``UNetLoc``: its eval step launches the
+    kernel once for every call of ``layers.norm_act`` and runs no plain
+    version; its train step launches it never."""
+    from xview2_tpu_torch.ops.metrics import init_f1_state
+    from xview2_tpu_torch.parallel import steps
+
+    cfg, model, opt, state, images, masks = _small_graph_program(1)
+    calls = _count_sites(monkeypatch)
+    step = steps.make_train_step(cfg, model, opt, crop=64, device="cuda")
+    before = na.norm_act_cuda.launches
+    state, loss = step(state, images[0], masks[0], steps.step_generator(cfg, state.step, "cuda"))
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(loss)) and na.norm_act_cuda.launches == before
+    calls.update(sites=0, plain=0)
+    eval_step = steps.make_eval_step(cfg, model, device="cuda")
+    valid = torch.ones(images.shape[1], device="cuda")
+    eval_step(init_f1_state(cfg.n_metric_class, "cuda"), images[0], masks[0], valid)
+    torch.cuda.synchronize()
+    assert calls["sites"] > 50 and calls["plain"] == 0
+    assert na.norm_act_cuda.launches - before == calls["sites"]
+
+
+@pytest.mark.parametrize("name,over", [
+    ("loc-rs50-attn-ds", {}), ("dmg-fused-rs200", {}),
+    ("loc-rs50-attn-ds", {"precision": 32}),
+    ("loc-rs50-attn-ds", {"encoder": "resnet50", "ppm": True, "dec_interp": True})],
+    ids=["D", "C", "D-f32", "ppm-dec_interp"])
+def test_eval_step_of_the_eval_cells_launches_at_every_site(name, over, monkeypatch):
+    """The eval step (4-flip TTA) of the models of the benchmark's eval
+    cells, D (ResNeSt-50 with attention gates and deep supervision) and C
+    (the fused ResNeSt-200 damage model), of D in float32, and of a
+    ResNet-50 with ``--ppm --dec_interp`` (maps in an NCHW layout) on 128^2
+    tiles: one launch for every call of ``layers.norm_act``, no plain
+    version, and logits bit-equal to the same step with the plain version
+    in the kernel's place."""
+    from xview2_tpu_torch.ops.metrics import init_f1_state
+    from xview2_tpu_torch.parallel import steps
+
+    cfg, model = _bench_eval_model(name, over)
+    ch = 6 if cfg.type == "post" else 3
+    gen = torch.Generator().manual_seed(21)
+    images = torch.randint(0, 256, (2, 128, 128, ch), generator=gen, dtype=torch.uint8)
+    masks = torch.randint(0, 5 if cfg.type == "post" else 2, (2, 128, 128), generator=gen,
+                          dtype=torch.uint8)
+    valid = torch.ones(2)
+    step = steps.make_eval_step(cfg, model, device="cuda")
+    calls = _count_sites(monkeypatch)
+    before = na.norm_act_cuda.launches
+    _, _, got = step(init_f1_state(cfg.n_metric_class, "cuda"), images, masks, valid)
+    torch.cuda.synchronize()
+    assert calls["sites"] > 50 and calls["plain"] == 0
+    assert na.norm_act_cuda.launches - before == calls["sites"]
+    _na_plain_kernel(monkeypatch)
+    _, _, want = step(init_f1_state(cfg.n_metric_class, "cuda"), images, masks, valid)
+    assert torch.equal(_bytes(got), _bytes(want))
+
+
+def _bench_eval_model(name, over):
+    """The model of a benchmark configuration (``xv2bench/configs``), with
+    ``over`` set, at eval as ``test`` runs it, drawn from a fixed seed on
+    the card."""
+    import json
+    import os
+
+    from xview2_tpu_torch.config import Config, apply_precision
+    from xview2_tpu_torch.models.unet import build_model
+
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "xv2bench", "configs", f"{name}.json")
+    with open(path) as f:
+        program = dict(json.load(f)["program"], **over)
+    cfg = Config(**program, exec_mode="eval", tta=True)
+    apply_precision(cfg)
+    torch.manual_seed(0)
+    return cfg, _na_seeded(build_model(cfg))
+
+
+def test_norm_act_wrapper_raises_on_what_the_kernel_does_not_take():
+    x, fold, r = _na_case((2, 4, 4, 32), torch.bfloat16, True)
+    before = na.norm_act_cuda.launches
+    with pytest.raises(ValueError):  # float64
+        na.norm_act_cuda(x.double(), *fold, "relu")
+    with pytest.raises(ValueError):  # a residual of another dtype
+        na.norm_act_cuda(x, *fold, "relu", r.float())
+    with pytest.raises(ValueError):  # a residual in another layout
+        na.norm_act_cuda(x, *fold, "relu", r.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1))
+    with pytest.raises(ValueError):  # a residual with another activation
+        na.norm_act_cuda(x, *fold, "leaky", r)
+    with pytest.raises(ValueError):  # elements that do not fill their span
+        na.norm_act_cuda(x[:, ::2], *fold, "relu")
+    with pytest.raises(ValueError):  # fold vectors on the CPU
+        na.norm_act_cuda(x, *(v.cpu() for v in fold), "relu")
+    with pytest.raises(ValueError):  # fold vectors of another length
+        na.norm_act_cuda(x, *(v[:16] for v in fold), "relu")
+    with pytest.raises(ValueError):
+        na.norm_act_cuda(x, *fold, "gelu")
+    wide = torch.zeros((1, 1, 1, 8200), dtype=torch.bfloat16, device="cuda")
+    with pytest.raises(ValueError):  # 1025 vectors a row
+        na.norm_act_cuda(wide, *(torch.zeros(8200, device="cuda"),) * 3, "relu")
+    assert na.norm_act_cuda.launches == before

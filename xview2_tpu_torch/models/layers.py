@@ -11,7 +11,11 @@ running_mean,running_var}``.
 Every module takes ``train``.  At eval BatchNorm runs as the folded affine
 ``(x - mean) * mul + bias`` with ``mul = rsqrt(var + eps) * scale`` from the
 running statistics (``--fold_eval_bn 1``), applied in the compute dtype from
-f32 fold vectors exactly like the JAX ``_norm_act``.  In train mode it uses
+f32 fold vectors exactly like the JAX ``_norm_act`` (``norm_act``, from
+``ops/norm_act.py``): where autograd records nothing (the eval step) the
+fold, the bottleneck's residual add (:func:`bn_add_relu`) and the activation
+are one launch of its hand-written kernel on the card, bit-equal to those
+ops, and otherwise those ops.  In train mode it uses
 batch statistics and updates the running ones IN PLACE (the JAX package
 returns a new ``batch_stats`` tree and donates the old state), with torch's
 rule: biased variance to normalize, unbiased into ``running_var``.  Under
@@ -70,8 +74,10 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from xview2_tpu_torch.ops.norm_act import activate as _activate
+from xview2_tpu_torch.ops.norm_act import norm_act
 from xview2_tpu_torch.ops.packed_fused_conv import (Fold, conv_bn_fused,
-                                                    head_conv_fused, leaky_slope, stat_dtype,
+                                                    head_conv_fused, stat_dtype,
                                                     supported)
 from xview2_tpu_torch.parallel import mesh
 
@@ -184,14 +190,6 @@ def hwio(weight: torch.Tensor) -> torch.Tensor:
     return weight.permute(2, 3, 1, 0)
 
 
-def norm_act(x: torch.Tensor, mean: torch.Tensor, mul: torch.Tensor, bias: torch.Tensor,
-             act: str) -> torch.Tensor:
-    """Folded BN affine in the compute dtype, then the activation (JAX
-    ``_norm_act``: each op rounds to x's dtype)."""
-    dt = x.dtype
-    return _activate((x - mean.to(dt)) * mul.to(dt) + bias.to(dt), act)
-
-
 def bn_act(bn: "BatchNorm", x: torch.Tensor, train: bool, act: str,
            dtype: torch.dtype, remat_tail: bool = False,
            replicated: bool = False) -> torch.Tensor:
@@ -210,6 +208,17 @@ def bn_act(bn: "BatchNorm", x: torch.Tensor, train: bool, act: str,
     return _activate(bn.normalize_eval(x, dtype), act)
 
 
+def bn_add_relu(bn: "BatchNorm", x: torch.Tensor, identity: torch.Tensor, train: bool,
+                dtype: torch.dtype, remat_tail: bool = False) -> torch.Tensor:
+    """The bottleneck's tail ``relu(bn(x) + identity)``: in train mode (and
+    outside :func:`fold_eval_bn_scope`) :func:`bn_act` without activation,
+    the add and the ReLU; the eval fold adds the residual inside
+    :func:`norm_act`, one launch on the card."""
+    if train or not _FOLD_EVAL_BN.get():
+        return F.relu(bn_act(bn, x, train, "none", dtype, remat_tail) + identity)
+    return norm_act(x, *bn.fold(), act="relu", residual=identity)
+
+
 def remat_norm_act(x: torch.Tensor, fold: Fold, act: str) -> torch.Tensor:
     """:func:`norm_act` in a local non-reentrant checkpoint (JAX
     ``remat_norm_act``, a nothing-saveable region): its only saved residual
@@ -217,14 +226,6 @@ def remat_norm_act(x: torch.Tensor, fold: Fold, act: str) -> torch.Tensor:
     backward."""
     return checkpoint(functools.partial(norm_act, act=act), x, *fold, use_reentrant=False,
                       preserve_rng_state=False)
-
-
-def _activate(y: torch.Tensor, act: str) -> torch.Tensor:
-    if act == "leaky":
-        return F.leaky_relu(y, leaky_slope(y.dtype))
-    if act == "relu":
-        return F.relu(y)
-    return y
 
 
 def conv_bias_nhwc(x: torch.Tensor, conv: nn.Conv2d, dtype: torch.dtype,

@@ -35,7 +35,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from xview2_tpu_torch.models.layers import BatchNorm, bn_act, conv1x1, conv_nhwc, halo_extent
+from xview2_tpu_torch.models.layers import (BatchNorm, bn_act, bn_add_relu, conv1x1, conv_nhwc,
+                                            halo_extent)
+from xview2_tpu_torch.ops.norm_act import records
 from xview2_tpu_torch.parallel import mesh
 
 RESNEST_LAYERS = {
@@ -65,7 +67,11 @@ def avg_pool_torch(x: torch.Tensor, window: int, stride: int, padding: int = 0,
     CUDA backward of ``avg_pool2d`` with padding is wrong (torch 2.11,
     CUDA 12.8; ``tests/test_torch_cuda.py`` holds the pools against the
     CPU), so the map is laid out NCHW for the call and back to NHWC after
-    it, each in the same copy as the cast.
+    it, each in the same copy as the cast.  Where autograd records nothing
+    (the eval step) the copy back is made in float32 too, where ``to`` would
+    return the NCHW view: the eval BatchNorm kernel after the pool takes a
+    contiguous NHWC map, on a band of rows as on the whole image.  Under
+    autograd a float32 pool returns that view, as the train step always had.
 
     On a band of rows (``--spatial_shards``) a padded window (the 3x3 avd
     pool, which counts its padding) reads the rows beyond the band from the
@@ -78,7 +84,8 @@ def avg_pool_torch(x: torch.Tensor, window: int, stride: int, padding: int = 0,
     xf = x.permute(0, 3, 1, 2).to(torch.float32, memory_format=torch.contiguous_format)
     out = F.avg_pool2d(xf, window, stride, padding, ceil_mode=ceil_mode,
                        count_include_pad=count_include_pad and not ceil_mode)
-    return out.permute(0, 2, 3, 1).to(x.dtype, memory_format=torch.contiguous_format)
+    return out.permute(0, 2, 3, 1).to(x.dtype, memory_format=torch.contiguous_format,
+                                      copy=not records(x))
 
 
 def _conv1x1(cin: int, cout: int, bias: bool = False, groups: int = 1) -> nn.Conv2d:
@@ -185,7 +192,7 @@ class ResNeStBottleneck(nn.Module):
         out = self.conv2(out, train)
         if self.use_avd:
             out = avg_pool_torch(out, 3, self.stride, padding=1)
-        out = bn_act(self.bn3, conv1x1(out, self.conv3.weight), train, "none", dt)
+        out = conv1x1(out, self.conv3.weight)
         identity = x
         if self.downsample:
             if self.pool_stride > 1:
@@ -193,7 +200,7 @@ class ResNeStBottleneck(nn.Module):
                                           ceil_mode=True, count_include_pad=False)
             identity = conv1x1(identity.to(dt), self.downsample_conv.weight)
             identity = bn_act(self.downsample_bn, identity, train, "none", dt)
-        return F.relu(out + identity)
+        return bn_add_relu(self.bn3, out, identity, train, dt)
 
 
 class ResNeStStage(nn.Module):

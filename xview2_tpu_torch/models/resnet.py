@@ -19,7 +19,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from xview2_tpu_torch.models.layers import BatchNorm, bn_act, conv1x1, conv_nhwc, halo_extent
+from xview2_tpu_torch.models.layers import (BatchNorm, bn_act, bn_add_relu, conv1x1, conv_nhwc,
+                                            halo_extent)
 from xview2_tpu_torch.parallel import mesh
 
 RESNET_LAYERS = {
@@ -61,12 +62,12 @@ class Bottleneck(nn.Module):
         out = conv_nhwc(out, self.conv2.weight, stride=self.stride, padding=self.dilation,
                         dilation=self.dilation)
         out = bn_act(self.bn2, out, train, "relu", dt, remat_tail=True)
-        out = bn_act(self.bn3, conv1x1(out, self.conv3.weight), train, "none", dt, remat_tail=True)
+        out = conv1x1(out, self.conv3.weight)
         identity = x
         if self.downsample:
             identity = conv1x1(x, self.downsample_conv.weight, stride=self.stride)
             identity = bn_act(self.downsample_bn, identity, train, "none", dt, remat_tail=True)
-        return F.relu(out + identity)
+        return bn_add_relu(self.bn3, out, identity, train, dt, remat_tail=True)
 
 
 class ResNetStage(nn.Module):

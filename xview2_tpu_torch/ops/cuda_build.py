@@ -23,7 +23,7 @@ from typing import Dict, Tuple
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(CSRC), "_build")
 SOURCES = ("relayout", "fused_conv", "fused_conv_bwd", "fused_head", "rowshift",
-           "small_conv")
+           "small_conv", "norm_act")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
               "-Xcompiler", "-fPIC", "-lineinfo")
 

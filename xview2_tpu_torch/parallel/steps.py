@@ -305,14 +305,15 @@ def make_train_step(cfg: Config, model, opt: torch.optim.Optimizer, crop: int = 
 
 
 def launch_counters() -> tuple:
-    """The wrappers of the hand-written kernels K1-K8, each of which counts
-    its kernel's launches in ``.launches``."""
-    from xview2_tpu_torch.ops import layout, rowshift, small_conv
+    """The wrappers of the hand-written kernels K1-K8 and of the eval
+    BatchNorm epilogue, each of which counts its kernel's launches in
+    ``.launches``."""
+    from xview2_tpu_torch.ops import layout, norm_act, rowshift, small_conv
     from xview2_tpu_torch.ops import packed_fused_conv as pfc
 
     return (layout.relayout_cuda, pfc.conv_bn_fused, pfc.head_conv_fused, pfc.conv_bn_wgrad,
             pfc.conv_bn_dgrad, rowshift.row_shift_cuda, small_conv.small_conv_fwd,
-            small_conv.small_conv_wgrad)
+            small_conv.small_conv_wgrad, norm_act.norm_act_cuda)
 
 
 def check_graph_supported() -> None:
