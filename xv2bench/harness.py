@@ -29,7 +29,7 @@ import torch
 from xv2bench import check, program, trace, traffic, weights
 from xv2bench.reference import lowp
 from xv2bench.reference import steps as ref_steps
-from xv2bench.reference.model import Precision, build
+from xv2bench.reference.model import Precision
 from xv2bench.work import kernels
 
 SAMPLE_MIX = 0x5A3B1E
@@ -53,7 +53,8 @@ class Ctx:
 
     def state(self) -> Dict[str, torch.Tensor]:
         init = self.cell.config["init"]
-        return weights.draw(self.leaves, self.seed, self.device, **init)
+        return weights.draw(self.leaves, self.seed, self.device, **init,
+                            **self.cell.reference.weight_rules)
 
     @property
     def prec(self) -> Precision:
@@ -75,7 +76,7 @@ def prepare(cell, seed: int, device: torch.device, with_program: bool = True) ->
     cfg = program.make_config(spec, seed, eval_mode=kind == "eval")
     batch = cfg.batch_size if kind == "train" else cfg.val_batch_size
     with torch.device("meta"):
-        leaves = weights.leaves_of(build(spec, Precision()))
+        leaves = weights.leaves_of(cell.reference.build(spec, Precision()))
     with ThreadPoolExecutor(1) as pool_maker:
         pending = pool_maker.submit(traffic.make_pool, cell.traffic, seed, batch,
                                     cfg.in_channels, cfg.type)
@@ -248,13 +249,14 @@ def free_program(ctx: Ctx) -> None:
 
 def reference_train(ctx: Ctx, prec: Precision, fault: Optional[str] = None) -> dict:
     n = ctx.cell.traffic["check_steps"]
-    return ref_steps.train_readings(ctx.spec, ctx.state, [ctx.pool.batch(i) for i in range(n)],
-                                    ctx.seed, ctx.device, prec, fault)
+    return ref_steps.train_readings(ctx.cell.reference, ctx.spec, ctx.state,
+                                    [ctx.pool.batch(i) for i in range(n)], ctx.seed, ctx.device,
+                                    prec, fault)
 
 
 def reference_logits(ctx: Ctx, calls: List[int], prec: Precision) -> Dict[int, torch.Tensor]:
     """The reference's four-flip logits of the pool's batches at ``calls``."""
-    model = ref_steps.eval_model(ctx.spec, ctx.state(), prec, ctx.device)
+    model = ref_steps.eval_model(ctx.cell.reference, ctx.spec, ctx.state(), prec, ctx.device)
     out = {c: ref_steps.eval_logits(model, ctx.pool.batch(c)[0], ctx.device) for c in calls}
     del model
     return out
@@ -286,8 +288,8 @@ def control_eval_readings(ctx: Ctx, calls: List[int]) -> Dict[int, tuple]:
     out = {}
     for c, logits in reference_logits(ctx, calls, prec).items():
         _, masks = ctx.pool.batch(c)
-        loss, counts = ref_steps.judge_eval(ctx.spec, logits, masks, ctx.pool.valid,
-                                            prec.loss_dtype)
+        loss, counts = ref_steps.judge_eval(ctx.cell.reference, ctx.spec, logits, masks,
+                                            ctx.pool.valid, prec.loss_dtype)
         zero = torch.zeros(counts.shape, dtype=torch.float32)
         out[c] = (logits, loss, zero, zero + counts.float())
     return out
@@ -325,7 +327,8 @@ def eval_numbers(ctx: Ctx, got: Dict[int, tuple], ref: Dict[int, torch.Tensor],
         logits, loss, before, after = got[c]
         _, masks = ctx.pool.batch(c)
         dev_logits = logits.to(ctx.device)
-        want_loss, counts = ref_steps.judge_eval(ctx.spec, dev_logits, masks, ctx.pool.valid)
+        want_loss, counts = ref_steps.judge_eval(ctx.cell.reference, ctx.spec, dev_logits, masks,
+                                                 ctx.pool.valid)
         del dev_logits
         row = check.eval_batch_numbers(logits, loss, before, after, ref[c], want_loss, counts)
         if witness is not None:

@@ -62,7 +62,9 @@ def run_cell(cell: cells.Cell, seed: int, seconds: float, traced: bool,
         reading = readers.Reading(
             kind=ctx.kind, tiles_per_s=rate, calls=win.calls, wall_s=win.wall_s,
             host_call_s=win.host_call_s, slice=sl, kernel_bound_s=bound,
-            flops_per_tile=flops.per_tile(ctx.spec, ctx.kind, ctx.batch, ctx.tile))
+            flops_per_tile=flops.per_tile(cell.reference.build, ctx.spec, ctx.kind, ctx.batch,
+                                          ctx.tile),
+            cell=cell, batch=ctx.batch, tile=ctx.tile)
         metrics = {}
         for m in cell.per_layer:
             v = cells.reader(m["name"], cell.root)(reading)

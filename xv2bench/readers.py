@@ -1,12 +1,14 @@
 """What a per-layer metric reads: the untraced window's rate and host spans,
-the traced slice, the planned kernels' least time and the model's FLOPs.
-Each metric is a file of its own under ``metrics/`` whose ``read(reading)``
-returns a number, or None where its cell gives it nothing to read."""
+the traced slice, the planned kernels' least time, the model's FLOPs, and
+the cell itself with the batch and tile of its timed call.  Each metric is a
+file of its own under ``metrics/`` whose ``read(reading)`` returns a number,
+or None where its cell gives it nothing to read."""
 
 from __future__ import annotations
 
 import dataclasses
 import statistics
+import sys
 from typing import List, Optional, Sequence
 
 from xv2bench import trace
@@ -23,6 +25,9 @@ class Reading:
     slice: trace.Slice
     kernel_bound_s: Optional[float]  # least time of the slice's port-kernel launches
     flops_per_tile: float
+    cell: object = None              # cells.Cell: its config and traffic dicts, its reference
+    batch: int = 0                   # the timed call's batch (tiles)
+    tile: int = 0                    # the side of its input: the crop in training, the tile at eval
 
 
 def host_call_ms(r: Reading, kind: str) -> Optional[float]:
@@ -43,6 +48,27 @@ def kernel_roofline(r: Reading, kind: str) -> Optional[float]:
     if r.kind != kind or r.kernel_bound_s is None or spent <= 0:
         return None
     return 100.0 * r.kernel_bound_s / spent
+
+
+def named_roofline(r: Reading, names: Sequence[str],
+                   bounds_s: Optional[Sequence[float]]) -> Optional[float]:
+    """One kernel's launches in the slice (device ops whose names hold one of
+    ``names``): the least time of the launches planned for a call
+    (``bounds_s``) times the slice's calls, over their device time, in %;
+    None where nothing is planned or the launches seen are not the launches
+    planned."""
+    if bounds_s is None or r.slice is None:
+        return None
+    picked = [n for n in r.slice.by_name if any(k in n for k in names)]
+    seen = sum(r.slice.launches_by_name[n] for n in picked)
+    spent = sum(r.slice.by_name[n] for n in picked)
+    if seen != len(bounds_s) * r.slice.steps:
+        print(f"{seen} launches of {names} in the slice, {len(bounds_s)} planned a call over "
+              f"{r.slice.steps} calls: no roofline", file=sys.stderr)
+        return None
+    if spent <= 0:
+        return None
+    return 100.0 * sum(bounds_s) * r.slice.steps / spent
 
 
 def mfu(r: Reading, kind: str) -> Optional[float]:

@@ -10,7 +10,7 @@ building pixels only (labels 1..4 shifted down by one; 0 and 255 masked).
 
 from __future__ import annotations
 
-from typing import Dict, List, Sequence
+from typing import Callable, Dict, List, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -54,13 +54,15 @@ def coral(logits, labels, w):
 TERMS = {"dice": dice, "focal": focal, "coral": coral}
 
 
-def loss(loss_str: str, task: str, logits, labels, valid=None, dtype=torch.float32):
+def loss(loss_str: str, task: str, logits, labels, valid=None, dtype=torch.float32,
+         terms: Dict[str, Callable] = TERMS):
     """The sum of the ``loss_str`` terms, computed in ``dtype`` (float32, as
     the configuration states; the control's bfloat16); ``valid`` (B,) weighs
-    samples."""
-    unknown = set(loss_str.split("+")) - set(TERMS)
+    samples.  ``terms``: each term's ``term(logits, labels, w)`` (a cell's
+    terms, found by name, beside ``TERMS``)."""
+    unknown = set(loss_str.split("+")) - set(terms)
     if unknown:
-        raise ValueError(f"the reference has the loss terms {sorted(TERMS)} only, "
+        raise ValueError(f"the reference has the loss terms {sorted(terms)} only, "
                          f"not {sorted(unknown)}")
     labels = labels.to(torch.int64)
     logits = logits.to(dtype)
@@ -71,21 +73,21 @@ def loss(loss_str: str, task: str, logits, labels, valid=None, dtype=torch.float
         w = torch.ones(labels.shape, dtype=dtype, device=labels.device)
     if valid is not None:
         w = w * valid.to(dtype)[:, None, None]
-    return sum(TERMS[t](logits, labels, w) for t in loss_str.split("+")).float()
+    return sum(terms[t](logits, labels, w) for t in loss_str.split("+")).float()
 
 
 def deep_supervised(loss_str: str, task: str, outputs: Sequence[torch.Tensor], labels,
-                    dtype=torch.float32):
+                    dtype=torch.float32, terms: Dict[str, Callable] = TERMS):
     """``loss(out) + sum_i 0.5^(i+1) loss(ds_i, nearest-downsampled labels)``
     over ``1 / (2 - 2^-len(outputs))``."""
-    total = loss(loss_str, task, outputs[0], labels, dtype=dtype)
+    total = loss(loss_str, task, outputs[0], labels, dtype=dtype, terms=terms)
     h0, w0 = labels.shape[1], labels.shape[2]
     for i, out in enumerate(outputs[1:]):
         h, w = out.shape[1], out.shape[2]
         iy = torch.floor(torch.arange(h, device=labels.device) * (h0 / h)).long()
         ix = torch.floor(torch.arange(w, device=labels.device) * (w0 / w)).long()
         total = total + 0.5 ** (i + 1) * loss(loss_str, task, out, labels[:, iy][:, :, ix],
-                                              dtype=dtype)
+                                              dtype=dtype, terms=terms)
     return total / (2.0 - 2.0 ** (-len(outputs)))
 
 

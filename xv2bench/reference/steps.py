@@ -10,6 +10,9 @@ step each leaf's change and each BatchNorm running statistic's change.
 Eval: the four-flip logits of a batch; the loss and
 the F1 counts of given logits.
 
+``ref``: the configuration's reference (``cells.Reference``), whose
+``build`` makes the model and whose ``terms`` make the loss.
+
 ``fault`` plants in a train step one of the faults a run must be caught in,
 for reading how far each number moves: ``"frozen"`` (no update), ``"half"``
 (half of the batch, the mean over the rest), ``"altered"`` (the first
@@ -24,16 +27,14 @@ import numpy as np
 import torch
 
 from xv2bench.reference import augment, losses
-from xv2bench.reference.model import Precision, build, forward_nhwc, tta_logits
+from xv2bench.reference.model import Precision, forward_nhwc, tta_logits
 
 ALTER = 10.0
 
 
-
-
-def _model(spec: dict, state: Dict[str, torch.Tensor], prec: Precision, device):
+def _model(ref, spec: dict, state: Dict[str, torch.Tensor], prec: Precision, device):
     with torch.device("meta"):
-        model = build(spec, prec)
+        model = ref.build(spec, prec)
     model = model.to_empty(device=device)
     model.load_state_dict(state, strict=True)
     return model
@@ -47,13 +48,13 @@ def _alter(out):
     return torch.cat([-ALTER * out[:1], out[1:]])
 
 
-def train_readings(spec: dict, state_fn: Callable[[], Dict[str, torch.Tensor]],
+def train_readings(ref, spec: dict, state_fn: Callable[[], Dict[str, torch.Tensor]],
                    batches: List[Tuple[np.ndarray, np.ndarray]], seed: int, device,
                    prec: Precision, fault: Optional[str] = None) -> dict:
     """``state_fn()`` gives the initial weights (a fresh copy each call)."""
     if spec.get("optimizer") != "adamw":
         raise ValueError(f"the reference has AdamW only, not {spec.get('optimizer')!r}")
-    model = _model(spec, state_fn(), prec, device)
+    model = _model(ref, spec, state_fn(), prec, device)
     params = dict(model.named_parameters())
     opt = losses.AdamW(list(params.values()), spec.get("lr", 3e-4),
                        spec.get("weight_decay", 0.0))
@@ -70,9 +71,11 @@ def train_readings(spec: dict, state_fn: Callable[[], Dict[str, torch.Tensor]],
         if fault == "altered":
             logits = _alter(logits)
         if isinstance(logits, list):
-            loss = losses.deep_supervised(spec["loss_str"], task, logits, y, prec.loss_dtype)
+            loss = losses.deep_supervised(spec["loss_str"], task, logits, y, prec.loss_dtype,
+                                          ref.terms)
         else:
-            loss = losses.loss(spec["loss_str"], task, logits, y, dtype=prec.loss_dtype)
+            loss = losses.loss(spec["loss_str"], task, logits, y, dtype=prec.loss_dtype,
+                               terms=ref.terms)
         loss.backward()
         if step == 0:
             out["grad"] = losses.leaf_norms({k: p.grad for k, p in params.items()})
@@ -92,8 +95,8 @@ def train_readings(spec: dict, state_fn: Callable[[], Dict[str, torch.Tensor]],
 
 
 @torch.inference_mode()
-def eval_model(spec: dict, state: Dict[str, torch.Tensor], prec: Precision, device):
-    return _model(spec, state, prec, device)
+def eval_model(ref, spec: dict, state: Dict[str, torch.Tensor], prec: Precision, device):
+    return _model(ref, spec, state, prec, device)
 
 
 @torch.inference_mode()
@@ -103,11 +106,12 @@ def eval_logits(model, images: np.ndarray, device) -> torch.Tensor:
 
 
 @torch.inference_mode()
-def judge_eval(spec: dict, logits: torch.Tensor, masks: np.ndarray, valid: np.ndarray,
+def judge_eval(ref, spec: dict, logits: torch.Tensor, masks: np.ndarray, valid: np.ndarray,
                dtype=torch.float32):
     """The loss (in ``dtype``) and the (3, classes) F1 counts the reference
     gives for ``logits`` of a batch."""
     masks_d = torch.from_numpy(masks).to(logits.device)
     valid_d = torch.from_numpy(valid).to(logits.device)
-    loss = float(losses.loss(spec["loss_str"], spec["type"], logits, masks_d, valid_d, dtype))
+    loss = float(losses.loss(spec["loss_str"], spec["type"], logits, masks_d, valid_d, dtype,
+                             ref.terms))
     return loss, losses.f1_counts(spec["loss_str"], spec["type"], logits, masks_d, valid_d).cpu()

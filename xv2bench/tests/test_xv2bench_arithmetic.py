@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 
 from xv2bench import readers, trace, traffic
+from xv2bench.reference.model import build
 from xv2bench.work import flops, kernels
 
 BENCH = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -63,8 +64,8 @@ def test_fused_damage_model_plan_has_the_cross_fusion():
 
 
 def test_model_flops_count_forward_and_backward():
-    train = flops.per_tile(D, "train", 1, 64)
-    ev = flops.per_tile(D, "eval", 1, 64)
+    train = flops.per_tile(build, D, "train", 1, 64)
+    ev = flops.per_tile(build, D, "eval", 1, 64)
     fwd = ev / 4                                   # four flips at eval
     assert 2.5 * fwd < train < 3.5 * fwd          # a backward is about two forwards
 

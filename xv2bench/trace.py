@@ -1,5 +1,5 @@
 """Reading a ``torch.profiler`` chrome trace of a steady slice of steps: device
-time by category and by kernel, launches by category, the union of the
+time and launches by category and by kernel name, the union of the
 device's busy intervals, and its idle gaps labelled by the host op that
 launched the work that ended each gap.
 
@@ -45,8 +45,10 @@ class Slice:
     busy_s: float                       # union of the device's busy intervals
     by_category: Dict[str, float]       # device seconds
     launches: Dict[str, int]
-    top_ops: List[Tuple[str, float]]    # device seconds by kernel name
+    top_ops: List[Tuple[str, float]]    # the most device seconds by kernel name
     idle_gaps: List[Tuple[str, float]]  # idle seconds by the host op that ended the gap
+    by_name: Dict[str, float] = dataclasses.field(default_factory=dict)  # every kernel name
+    launches_by_name: Dict[str, int] = dataclasses.field(default_factory=dict)
 
 
 def _union(intervals: List[Tuple[float, float]]) -> List[Tuple[float, float]]:
@@ -78,11 +80,13 @@ def summarize(events: List[dict], steps: int, window_s: float, top: int = 10) ->
     by_cat: Dict[str, float] = {}
     launches: Dict[str, int] = {}
     by_name: Dict[str, float] = {}
+    by_name_n: Dict[str, int] = {}
     for e in dev:
         c = category(e["name"])
         by_cat[c] = by_cat.get(c, 0.0) + e["dur"] * 1e-6
         launches[c] = launches.get(c, 0) + 1
         by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"] * 1e-6
+        by_name_n[e["name"]] = by_name_n.get(e["name"], 0) + 1
     busy = _union([(e["ts"], e["ts"] + e["dur"]) for e in dev])
     gaps = sorted(((b[0] - a[1], b[0]) for a, b in zip(busy, busy[1:])), reverse=True)
     # label a gap by the host op that launched the first device op after it
@@ -103,7 +107,7 @@ def summarize(events: List[dict], steps: int, window_s: float, top: int = 10) ->
         labels[name] = labels.get(name, 0.0) + length * 1e-6
     return Slice(steps, window_s, sum(b - a for a, b in busy) * 1e-6, by_cat, launches,
                  sorted(by_name.items(), key=lambda kv: -kv[1])[:top],
-                 sorted(labels.items(), key=lambda kv: -kv[1])[:top])
+                 sorted(labels.items(), key=lambda kv: -kv[1])[:top], by_name, by_name_n)
 
 
 def read_chrome_trace(path: str, steps: int, window_s: float) -> Slice:

@@ -9,11 +9,12 @@ from __future__ import annotations
 import torch
 from torch.utils.flop_counter import FlopCounterMode
 
-from xv2bench.reference.model import Precision, build
+from xv2bench.reference.model import Precision
 
 
-def per_tile(spec: dict, kind: str, batch: int, tile: int) -> float:
-    """FLOPs a tile (a crop in training, a whole tile at eval)."""
+def per_tile(build, spec: dict, kind: str, batch: int, tile: int) -> float:
+    """FLOPs a tile (a crop in training, a whole tile at eval) of the model
+    ``build(spec, Precision)`` (the cell's reference)."""
     channels = 3 if spec["type"] == "pre" else 6
     with torch.device("meta"):
         model = build(spec, Precision(torch.bfloat16))
